@@ -1,0 +1,16 @@
+"""apex_tpu_torch: the PyTorch/CUDA port of :mod:`apex_tpu`.
+
+A second package beside the JAX reference, module for module
+(``apex_tpu_torch/serving/paged_attention.py`` is the counterpart of
+``apex_tpu/serving/paged_attention.py``, and so on).  It imports
+:mod:`torch` and never JAX or :mod:`apex_tpu`.
+
+Ported so far: the serving path of a GPT checkpoint through the paged KV
+cache (:mod:`apex_tpu_torch.serving`), with three kernels written by hand
+in CUDA C++ for Hopper (``csrc/``): paged decode attention, paged
+chunked-prefill attention and the fused residual/LayerNorm epilogue.
+Entry points run on the CUDA device unless given ``device="cpu"``, where
+each kernel's plain PyTorch version runs instead.
+"""
+
+__all__ = ["serving", "transformer", "normalization"]

@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels.
+
+Every source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, ``build/apex_tpu_torch/
+libkernels.so`` beside the package, and loaded with :mod:`ctypes`.  The
+build runs at first use and again whenever the sources or the flags change
+(their SHA-256 is kept beside the library).  The sources compile in
+parallel, one ``nvcc`` each, and link in one more call.
+
+Nothing here falls back: without ``nvcc`` or on a failed compile the build
+raises, and a kernel wrapper handed a CUDA tensor raises with it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["build", "library", "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "apex_tpu_torch"
+SOURCES = ("paged_attention.cu", "fused_residual_norm.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every launcher: pointers and the stream as c_void_p, so no
+# 64-bit address is cut to a 32-bit int
+_SIGNATURES = {
+    "apex_paged_attention_decode":
+        [_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "apex_paged_attention_prefill":
+        [_I, _I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "apex_fused_residual_norm":
+        [_I, _I] + [_P] * 7 + [_I, _I, _F, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+# what the last build printed (ptxas register and shared-memory use)
+last_build_log = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin); "
+            "the port's CUDA kernels cannot be built")
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile ``csrc/`` into ``libkernels.so`` unless an up-to-date build
+    exists; return the library's path."""
+    global last_build_log
+    lib = BUILD_DIR / "libkernels.so"
+    stamp = BUILD_DIR / "libkernels.sha256"
+    digest = _digest()
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    jobs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        jobs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for name, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode:
+            failed.append(name)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp = BUILD_DIR / f"libkernels.{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"linking libkernels.so failed:\n{link.stdout}")
+        os.replace(tmp, lib)
+        stamp.write_text(digest)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    last_build_log = "\n".join(logs)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB

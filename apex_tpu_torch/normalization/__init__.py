@@ -1,0 +1,9 @@
+"""Normalization of the port (counterpart of
+:mod:`apex_tpu.normalization`)."""
+
+from apex_tpu_torch.normalization.fused_layer_norm import (
+    FusedLayerNorm,
+    fused_layer_norm_affine,
+)
+
+__all__ = ["FusedLayerNorm", "fused_layer_norm_affine"]

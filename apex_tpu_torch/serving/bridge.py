@@ -1,0 +1,57 @@
+"""Carry a JAX GPT checkpoint's weights into the port.
+
+:func:`from_jax_params` takes the JAX package's ``GPT3DParams`` tree
+(``embedding``, ``layers``, ``final_ln``) with numpy leaves (or anything
+``numpy.asarray`` reads, such as JAX arrays) and returns the port's
+:class:`~apex_tpu_torch.transformer.testing.gpt_parallel_train.GPT3DParams`
+of CPU tensors, the layer stack merged from ``[vpp, pp, ...]`` to
+``[L, ...]`` when it arrives in the pipeline form.
+
+The leaves keep their names, values and layouts.  The JAX package's
+parallel linears already store their kernels ``[out, in]``
+(``ColumnParallelLinear`` and ``RowParallelLinear`` compute
+``x @ kernel.T``), which is the port's layout too, so nothing is
+transposed; and the fused QKV kernel keeps its group-major column order
+(per K/V group its query heads, then one K and one V head), which the
+decode model's split relies on.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+    GPT3DParams,
+    merge_layer_stack,
+)
+
+__all__ = ["from_jax_params"]
+
+
+def _tree(tree) -> dict:
+    if isinstance(tree, dict):
+        return {str(k): _tree(v) for k, v in tree.items()}
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _part(tree: Any, name: str):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def from_jax_params(tree: Any) -> GPT3DParams:
+    """The port's parameters from a JAX ``GPT3DParams`` (or a dict with
+    the same three keys)."""
+    embedding = _tree(_part(tree, "embedding"))
+    layers = _tree(_part(tree, "layers"))
+    final_ln = _tree(_part(tree, "final_ln"))
+    scale = layers["input_layernorm"]["scale"]
+    num_layers = int(np.prod(scale.shape[:-1]))
+    return GPT3DParams(embedding=embedding,
+                       layers=merge_layer_stack(layers, num_layers),
+                       final_ln=final_ln)

@@ -1,0 +1,268 @@
+"""Paged attention over the block-table KV cache: the CUDA kernels and
+their plain PyTorch versions.
+
+Port of :mod:`apex_tpu.serving.paged_attention`, with the same layouts::
+
+    decode   q:   [batch, n_heads, head_dim]      (one token per slot)
+    prefill  q:   [batch, chunk, n_heads, head_dim]
+    k/v arena:    [n_blocks, block_size, kv_heads, head_dim]
+    k/v scales:   [n_blocks, block_size, kv_heads]  fp32 (int8 cache)
+    block_tables: [batch, max_blocks]  int32  (entries past the live
+                  range may hold anything in range; they are never read)
+    lengths:      [batch] int32  (tokens in cache; 0 = inactive slot)
+    limits:       [batch, chunk] int32 (prefill: token t attends cache
+                  positions < limits[:, t]; 0 = padding token)
+    out:          q's shape and dtype (zeros for a length/limit of 0)
+
+:func:`paged_attention_decode` and :func:`paged_prefill_attention` launch
+the hand-written kernels of ``csrc/paged_attention.cu`` on CUDA tensors
+(K1 and K2 of the port; the source's note says how they are built) and
+run :func:`paged_attention_decode_plain` / :func:`paged_prefill_attention_plain`
+on CPU tensors.  The plain versions gather each slot's whole table and
+lower the masked softmax as separate ops, like the JAX package's
+``*_unfused`` twins; they are the CPU path and the kernels' reference.
+
+The speculative k+1 verify (a 4-D ``q`` through the decode entry point)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch import _build
+
+__all__ = [
+    "paged_attention_decode",
+    "paged_attention_decode_plain",
+    "paged_prefill_attention",
+    "paged_prefill_attention_plain",
+]
+
+NEG_INF = -1e30
+
+# launches of each kernel since the count was last set to 0
+DECODE_LAUNCHES = 0
+PREFILL_LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# query rows (tokens x heads of one KV group) one prefill CTA works on
+_PREFILL_ROWS = 16
+
+
+def _resolve(scale: Optional[float], d: int) -> float:
+    return (1.0 / (d ** 0.5)) if scale is None else scale
+
+
+def _check_arena(q_d, k_arena, n, g, k_scales, v_scales):
+    if k_arena.shape[-1] != q_d:
+        raise ValueError(
+            f"head_dim mismatch: q {q_d}, arena {k_arena.shape[-1]}")
+    if n % g:
+        raise ValueError(f"n_heads ({n}) not a multiple of kv_heads ({g})")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales or neither")
+    if k_scales is not None and k_scales.shape != k_arena.shape[:-1]:
+        raise ValueError(
+            f"scale arena shape {tuple(k_scales.shape)} != arena rows "
+            f"{tuple(k_arena.shape[:-1])}")
+
+
+def _check_cuda_operands(q, k_arena, v_arena, block_tables, lengths, limits,
+                         k_scales, v_scales):
+    """What the CUDA kernel takes; raise on anything else."""
+    named = dict(q=q, k_arena=k_arena, v_arena=v_arena,
+                 block_tables=block_tables, lengths=lengths, limits=limits,
+                 k_scales=k_scales, v_scales=v_scales)
+    named = {k: t for k, t in named.items() if t is not None}
+    for name, t in named.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_arena.dtype not in _DTYPE_CODES or v_arena.dtype != k_arena.dtype:
+        raise TypeError(
+            f"arenas must share one of float32/bfloat16/int8, got "
+            f"{k_arena.dtype}/{v_arena.dtype}")
+    for name in ("k_scales", "v_scales"):
+        if name in named and named[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+    for name in ("block_tables", "lengths", "limits"):
+        if name in named and named[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    b = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(
+            f"block_tables {tuple(block_tables.shape)} != [{b}, max_blocks]")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} != [{b}]")
+    if limits is not None and tuple(limits.shape) != tuple(q.shape[:2]):
+        raise ValueError(
+            f"limits {tuple(limits.shape)} != {tuple(q.shape[:2])}")
+    row_bytes = k_arena.shape[-1] * k_arena.element_size()
+    if row_bytes % 16 or k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
+        raise ValueError(
+            "the kernel loads cache rows 16 bytes at a time: head_dim * "
+            "itemsize must be a multiple of 16 and the arenas 16-byte "
+            "aligned")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def paged_attention_decode(q, k_arena, v_arena, block_tables, lengths, *,
+                           k_scales=None, v_scales=None,
+                           block_size: Optional[int] = None,
+                           scale: Optional[float] = None):
+    """One query token per slot attends over its paged context (K1).
+
+    CUDA tensors launch the kernel; CPU tensors run
+    :func:`paged_attention_decode_plain`.  ``k_scales``/``v_scales`` are
+    the per-row fp32 scale arenas of an int8 cache."""
+    global DECODE_LAUNCHES
+    if q.dim() != 3:
+        raise ValueError(
+            f"decode q must be [batch, n_heads, head_dim], got "
+            f"{tuple(q.shape)} (the 4-D k+1 verify is not ported)")
+    b, n, d = q.shape
+    n_blocks, bs, g, _ = k_arena.shape
+    if block_size is not None and block_size != bs:
+        raise ValueError(
+            f"block_size ({block_size}) != arena block dim ({bs})")
+    _check_arena(d, k_arena, n, g, k_scales, v_scales)
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(
+            q, k_arena, v_arena, block_tables, lengths, k_scales=k_scales,
+            v_scales=v_scales, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_cuda_operands(q, k_arena, v_arena, block_tables, lengths, None,
+                         k_scales, v_scales)
+    out = torch.empty_like(q)
+    fn = _build.library().apex_paged_attention_decode
+    with torch.cuda.device(q.device):
+        rc = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype],
+                q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+                _ptr(k_scales), _ptr(v_scales), block_tables.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), b, n, g, d, bs,
+                block_tables.shape[1], _resolve(scale, d),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"paged decode kernel launch failed: CUDA error {rc}")
+    DECODE_LAUNCHES += 1
+    return out
+
+
+def paged_prefill_attention(q, k_arena, v_arena, block_tables, lengths,
+                            limits, *, k_scales=None, v_scales=None,
+                            scale: Optional[float] = None):
+    """Each slot's ``[chunk]`` query tokens attend over the slot's paged
+    context in one block sweep (K2).
+
+    ``lengths`` is each slot's live cache length INCLUDING the chunk's
+    own just-scattered rows; ``limits`` the per-token causal horizon.
+    CUDA tensors launch the kernel; CPU tensors run
+    :func:`paged_prefill_attention_plain`."""
+    global PREFILL_LAUNCHES
+    if q.dim() != 4:
+        raise ValueError(
+            f"prefill q must be [batch, chunk, n_heads, head_dim], got "
+            f"{tuple(q.shape)}")
+    b, T, n, d = q.shape
+    n_blocks, bs, g, _ = k_arena.shape
+    _check_arena(d, k_arena, n, g, k_scales, v_scales)
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_arena, v_arena, block_tables, lengths, limits,
+            k_scales=k_scales, v_scales=v_scales, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_cuda_operands(q, k_arena, v_arena, block_tables, lengths, limits,
+                         k_scales, v_scales)
+    out = torch.empty_like(q)
+    q_tile = max(1, _PREFILL_ROWS // (n // g))
+    fn = _build.library().apex_paged_attention_prefill
+    with torch.cuda.device(q.device):
+        rc = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype],
+                q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+                _ptr(k_scales), _ptr(v_scales), block_tables.data_ptr(),
+                lengths.data_ptr(), limits.data_ptr(), out.data_ptr(),
+                b, T, n, g, d, bs, block_tables.shape[1], q_tile,
+                _resolve(scale, d),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"paged prefill kernel launch failed: CUDA error {rc}")
+    PREFILL_LAUNCHES += 1
+    return out
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _gathered_kv(k_arena, v_arena, block_tables, k_scales, v_scales, hpg):
+    """Materialise each slot's whole table of K/V as fp32 (int8 rows times
+    their scales), GQA groups repeated over their query heads."""
+    b, max_blocks = block_tables.shape
+    _, bs, g, d = k_arena.shape
+    idx = block_tables.long()
+    k = k_arena[idx].float()                   # [b, max_blocks, bs, g, d]
+    v = v_arena[idx].float()
+    if k_scales is not None:
+        k = k * k_scales[idx][..., None]
+        v = v * v_scales[idx][..., None]
+    t = max_blocks * bs
+    k = k.reshape(b, t, g, d)
+    v = v.reshape(b, t, g, d)
+    if hpg > 1:
+        k = k.repeat_interleave(hpg, dim=2)
+        v = v.repeat_interleave(hpg, dim=2)
+    return k, v, t
+
+
+def _masked_softmax_av(s, mask, v_einsum, v):
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m <= NEG_INF * 0.5, 0.0, m)
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum(v_einsum, p, v) / torch.where(l == 0.0, 1.0, l)
+
+
+def paged_attention_decode_plain(q, k_arena, v_arena, block_tables, lengths,
+                                 *, k_scales=None, v_scales=None,
+                                 scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`paged_attention_decode`."""
+    b, n, d = q.shape
+    g = k_arena.shape[2]
+    _check_arena(d, k_arena, n, g, k_scales, v_scales)
+    k, v, t = _gathered_kv(k_arena, v_arena, block_tables, k_scales,
+                           v_scales, n // g)
+    s = torch.einsum("bnd,btnd->bnt", q.float(), k) * _resolve(scale, d)
+    cols = torch.arange(t, device=q.device)
+    mask = cols[None, None, :] < lengths.long()[:, None, None]
+    out = _masked_softmax_av(s, mask, "bnt,btnd->bnd", v)
+    return out.to(q.dtype)
+
+
+def paged_prefill_attention_plain(q, k_arena, v_arena, block_tables,
+                                  lengths, limits, *, k_scales=None,
+                                  v_scales=None,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`paged_prefill_attention`: gather
+    each slot's whole table, mask per token."""
+    b, T, n, d = q.shape
+    g = k_arena.shape[2]
+    _check_arena(d, k_arena, n, g, k_scales, v_scales)
+    k, v, t = _gathered_kv(k_arena, v_arena, block_tables, k_scales,
+                           v_scales, n // g)
+    s = torch.einsum("btnd,bsnd->btns", q.float(), k) * _resolve(scale, d)
+    cols = torch.arange(t, device=q.device)
+    mask = cols[None, None, None, :] < limits.long()[:, :, None, None]
+    out = _masked_softmax_av(s, mask, "btns,bsnd->btnd", v)
+    return out.to(q.dtype)

@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA card.
+
+Run from the repository root, with one CUDA device visible::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; none is caught):
+
+1. the card's name and power limit, then the build of the kernel library
+   from ``apex_tpu_torch/csrc`` with its time;
+2. each kernel against its plain PyTorch version at GPT-124M serving
+   shapes (8 slots, 12 heads of 64, 16-token blocks, 1024-token context,
+   a 128-token prefill chunk, hidden 768; plus a grouped-query case),
+   with its device time (CUDA events, median of 30 launches, L2 flushed
+   before each), the plain version's, one PyTorch library call's as a
+   yardstick, and the least time the card could take (``bound_ms``);
+3. the serving engine at GPT-124M width (random weights from a seed,
+   bf16 compute) serving 16 staggered requests of 64-600 prompt tokens
+   and 32 greedy tokens each, once with a bf16 and once with an int8 KV
+   cache; the launch counts show the kernels carried the run; then the
+   bf16 wave once more under ``torch.profiler`` for the device busy
+   share and the kernels that take the device's time;
+4. three of those requests in fp32 on the card and on the CPU, for
+   GPT-124M and for a small rope + grouped-query + SwiGLU model: the
+   greedy streams must agree (a divergence passes only where the CPU's
+   two best logits are within 1e-3 of each other).
+
+The lines before the last hold a ``{"kernels": [...]}`` JSON object and
+the ``nvidia-smi`` name/power line; the last line is the JSON result.
+Exits at once, with no result, when ``torch.cuda.is_available()`` is
+false.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 FMA
+B, N_HEADS, HEAD_DIM, BLOCK, MAX_SEQ, CHUNK, HIDDEN = 8, 12, 64, 16, 1024, 128, 768
+LENGTHS = [0, 1, 17, 100, 333, 512, 777, 1024]
+REPS = 30
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(ok, what):
+    """A failed check ends the run (kept under ``python -O``, unlike
+    ``assert``)."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ timing
+
+
+class Timer:
+    """Median CUDA-event time of one call, L2 flushed before each.
+
+    A spin kernel (about 2 ms) runs ahead of the start event, so the host
+    has enqueued the whole call before the card reaches it: the interval
+    holds device time only, not the wrapper's Python and launch cost."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn):
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            self.flush.zero_()
+            torch.cuda._sleep(4_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound(n_bytes, n_ops, kind):
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# ------------------------------------------------- phase 2: the kernels
+
+
+def paged_inputs(torch, q_dtype, cache_dtype, T, seed, groups):
+    """Operands of K1 (T is None) or K2 at the serving shapes, with
+    ``groups`` KV heads: mixed lengths including 0, distinct live blocks
+    per slot and in-range garbage past them."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mb = MAX_SEQ // BLOCK
+    nb = B * mb
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    tables = torch.randint(0, nb, (B, mb), generator=gen, device=dev,
+                           dtype=torch.int32)
+    perm = torch.randperm(nb, generator=gen, device=dev).int()
+    nxt = 0
+    for i, n in enumerate(LENGTHS):
+        live = -(-n // BLOCK)
+        tables[i, :live] = perm[nxt:nxt + live]
+        nxt += live
+    shape = (nb, BLOCK, groups, HEAD_DIM)
+    kw = {}
+    if cache_dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+        kw = {name: torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
+              for name in ("k_scales", "v_scales")}
+    else:
+        k = torch.randn(shape, generator=gen, device=dev).to(cache_dtype)
+        v = torch.randn(shape, generator=gen, device=dev).to(cache_dtype)
+    if T is None:
+        q = torch.randn((B, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+        return q.to(q_dtype), k, v, tables, lengths, None, kw
+    q = torch.randn((B, T, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+    limits = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    for i, n in enumerate(LENGTHS):
+        chunk = min(n, T - 16 * (i % 2))       # odd slots end in padding rows
+        limits[i, :chunk] = torch.arange(n - chunk + 1, n + 1, device=dev)
+    return q.to(q_dtype), k, v, tables, lengths, limits, kw
+
+
+def paged_cost(q, k, tables, lengths, limits, kw):
+    """Bytes each input/output needs once, and the operations, for this
+    run's data: live K/V rows only (K2: up to each slot's largest limit)."""
+    g, d = k.shape[2], k.shape[3]
+    lens = lengths.tolist()
+    if limits is None:
+        rows_per_slot = lens
+        attended = sum(lens) * q.shape[1]
+        extra = lengths.numel() * 4
+    else:
+        maxlim = limits.amax(dim=1).tolist()
+        rows_per_slot = [min(n, m) for n, m in zip(lens, maxlim)]
+        attended = int(limits.long().sum()) * q.shape[2]
+        extra = lengths.numel() * 4 + limits.numel() * 4
+    rows = sum(rows_per_slot)
+    blocks = sum(-(-r // BLOCK) for r in rows_per_slot)
+    n_bytes = (2 * q.numel() * q.element_size()            # q in, out
+               + 2 * rows * g * d * k.element_size()        # live K and V
+               + (2 * rows * g * 4 if kw else 0)            # int8 row scales
+               + blocks * 4 + extra)                        # live table entries
+    n_ops = 4 * d * attended                                # QK^T and PV
+    return n_bytes, n_ops
+
+
+def check_paged(torch, F, pa, timer, q_dtype, cache_dtype, T,
+                groups=N_HEADS):
+    """Kernel vs plain on the card; returns the kernel's record."""
+    q, k, v, tables, lengths, limits, kw = paged_inputs(
+        torch, q_dtype, cache_dtype, T, seed=7 if T is None else 8,
+        groups=groups)
+    if T is None:
+        kernel = lambda: pa.paged_attention_decode(q, k, v, tables, lengths, **kw)  # noqa: E731
+        plain = lambda: pa.paged_attention_decode_plain(q, k, v, tables, lengths, **kw)  # noqa: E731
+    else:
+        kernel = lambda: pa.paged_prefill_attention(  # noqa: E731
+            q, k, v, tables, lengths, limits, **kw)
+        plain = lambda: pa.paged_prefill_attention_plain(  # noqa: E731
+            q, k, v, tables, lengths, limits, **kw)
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (dict(atol=1e-4, rtol=1e-4) if q_dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    zero_rows = (lengths == 0) if T is None else (limits == 0)
+    check(not out[zero_rows].any(), "length/limit 0 gives exact zeros")
+
+    # yardstick: one SDPA call over the K/V gathered beforehand (not timed)
+    kg, vg, s = pa._gathered_kv(k, v, tables, kw.get("k_scales"),
+                                kw.get("v_scales"), N_HEADS // groups)
+    kg = kg.to(q_dtype).permute(0, 2, 1, 3).contiguous()   # [B, n, S, d]
+    vg = vg.to(q_dtype).permute(0, 2, 1, 3).contiguous()
+    cols = torch.arange(s, device="cuda")
+    if T is None:
+        ql = q[:, :, None, :]
+        mask = (cols[None, :] < lengths[:, None])[:, None, None, :]
+    else:
+        ql = q.permute(0, 2, 1, 3).contiguous()
+        mask = (cols[None, None, :] < limits[:, :, None])[:, None]
+    library = lambda: F.scaled_dot_product_attention(ql, kg, vg, attn_mask=mask)  # noqa: E731
+    n_bytes, n_ops = paged_cost(q, k, tables, lengths, limits, kw)
+    b_ms, b_by = bound(n_bytes, n_ops,
+                       "fp32" if q_dtype == torch.float32 else "bf16")
+    return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_norm(torch, F, fo, timer, dtype, rows):
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(dtype)
+    res = (3 * torch.randn((rows, HIDDEN), generator=gen, device="cuda")).to(dtype)
+    bias = torch.randn((HIDDEN,), generator=gen, device="cuda").to(dtype)
+    w = torch.rand((HIDDEN,), generator=gen, device="cuda") + 0.5
+    beta = 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")
+    kernel = lambda: fo.fused_residual_norm(x, res, w, beta, bias=bias)  # noqa: E731
+    plain = lambda: fo.residual_norm_plain(x, res, w, beta, bias=bias)  # noqa: E731
+    y, r = kernel()
+    torch.cuda.synchronize()
+    y_ref, r_ref = plain()
+    torch.cuda.synchronize()
+    err = max((y.float() - y_ref.float()).abs().max().item(),
+              (r.float() - r_ref.float()).abs().max().item())
+    tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(r.float(), r_ref.float(), **tol)
+    summed = (x.float() + bias.float() + res.float()).to(dtype)
+    wl, bl = w.to(dtype), beta.to(dtype)
+    library = lambda: F.layer_norm(summed, (HIDDEN,), wl, bl)  # noqa: E731
+    e = x.element_size()
+    n_bytes = 4 * rows * HIDDEN * e + HIDDEN * (e + 8)   # x, res, y, new res; bias, w, beta
+    b_ms, b_by = bound(n_bytes, 10 * rows * HIDDEN, "fp32")
+    return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+
+
+# --------------------------------------------- phase 3/4: the engine
+
+
+def gpt124m(torch, dtype):
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerConfig,
+    )
+    return TransformerConfig(
+        hidden_size=768, num_layers=12, num_attention_heads=12,
+        padded_vocab_size=50304, max_position_embeddings=MAX_SEQ, dtype=dtype)
+
+
+def wave(np, n=16, seed=1):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 601, n)
+    lens[0], lens[1] = 600, 64
+    return [rng.integers(1, 50257, int(m)).tolist() for m in lens]
+
+
+def serve(engine, prompts, n_new, stagger=True):
+    """Submit 4 up front and one more every second tick; drain."""
+    reqs, pending, step = [], list(prompts), 0
+    t0 = time.perf_counter()
+    while pending or not engine.scheduler.idle:
+        if not stagger:
+            take = len(pending)
+        else:
+            take = 4 if step == 0 else int(step % 2 == 0)
+        for _ in range(min(take, len(pending))):
+            reqs.append(engine.submit(pending.pop(0), n_new))
+        engine.step()
+        step += 1
+        check(step < 10_000, "the wave drains")
+    return reqs, time.perf_counter() - t0
+
+
+def zero_counts(pa, fo):
+    pa.DECODE_LAUNCHES = pa.PREFILL_LAUNCHES = 0
+    fo.RESIDUAL_NORM_LAUNCHES = 0
+
+
+def read_counts(pa, fo):
+    return {"paged_attention_decode": pa.DECODE_LAUNCHES,
+            "paged_prefill_attention": pa.PREFILL_LAUNCHES,
+            "fused_residual_norm": fo.RESIDUAL_NORM_LAUNCHES}
+
+
+def engine_phase(torch, np, pa, fo, params, cache_dtype, prompts):
+    from apex_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = gpt124m(torch, torch.bfloat16)
+    eng = ServingEngine(cfg, ServingConfig(
+        max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ, prefill_len=CHUNK,
+        cache_dtype=cache_dtype), params)
+    serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up, not counted
+    base = (eng.prefill_calls, eng.decode_calls, eng.tokens_generated,
+            len(eng.tpot_ms))
+    zero_counts(pa, fo)
+    reqs, wall = serve(eng, prompts, 32)
+    counts = read_counts(pa, fo)
+    prefill_calls = eng.prefill_calls - base[0]
+    decode_calls = eng.decode_calls - base[1]
+    tokens = eng.tokens_generated - base[2]
+    tpot = np.asarray(eng.tpot_ms[base[3]:])
+    for req in reqs:
+        check(req.state.value == "finished" and len(req.output_tokens) == 32,
+              f"request {req.rid} finished with its 32 tokens")
+        check(all(0 <= t < cfg.padded_vocab_size for t in req.output_tokens),
+              f"request {req.rid}'s tokens lie in the vocabulary")
+    L = cfg.num_layers
+    check(all(c > 0 for c in counts.values()), f"every kernel launched: {counts}")
+    check(counts["paged_attention_decode"] == L * decode_calls,
+          f"K1 launched once per layer per decode call: {counts}")
+    check(counts["paged_prefill_attention"] == L * prefill_calls,
+          f"K2 launched once per layer per prefill call: {counts}")
+    check(counts["fused_residual_norm"] == L * (decode_calls + prefill_calls),
+          f"K3 launched once per layer per call: {counts}")
+    name = str(cache_dtype).replace("torch.", "")
+    log(f"engine[{name} cache]: {len(reqs)} requests, {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; TPOT p50 "
+        f"{np.percentile(tpot, 50):.3f} ms p99 {np.percentile(tpot, 99):.3f} ms; "
+        f"{prefill_calls} prefill + {decode_calls} decode calls; "
+        f"preemptions {eng.scheduler.preemptions}; launches {counts}")
+    return counts
+
+
+def profile_engine(torch, np, params, prompts):
+    """Where the time of the bf16-cache wave goes: device busy share and
+    the kernels with the most device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.serving import ServingConfig, ServingEngine
+
+    eng = ServingEngine(gpt124m(torch, torch.bfloat16), ServingConfig(
+        max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ, prefill_len=CHUNK,
+        cache_dtype=torch.bfloat16), params)
+    serve(eng, [prompts[1][:64]], 4, stagger=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = serve(eng, prompts, 32)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy_us = sum(r[0] for r in rows)
+    log(f"profile[bf16 cache wave]: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the wall "
+        f"(the profiler's own cost included)")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def top2_gap(torch, model, tokens):
+    """The CPU model's gap between its two best logits after ``tokens``."""
+    from apex_tpu_torch.serving import init_kv_arena
+
+    n = len(tokens)
+    bs = model.cache.block_size
+    nb = -(-n // bs)
+    arenas = init_kv_arena(model.cache, device="cpu")
+    i32 = dict(dtype=torch.int32)
+    tables = torch.zeros((1, model.cache.max_blocks_per_request), **i32)
+    tables[0, :nb] = torch.arange(nb)
+    pos = torch.arange(n)[None]
+    _, logits = model.prefill(
+        arenas, torch.tensor([tokens]), pos, tables,
+        torch.tensor([n], **i32), (pos + 1).int(), pos // bs, pos % bs,
+        torch.tensor([n - 1]), torch.zeros(1), torch.zeros(1, dtype=torch.long),
+        torch.ones(1), torch.zeros(1, dtype=torch.long),
+        torch.zeros(1, dtype=torch.long))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def modern(torch):
+    """A small rope + grouped-query + SwiGLU model (2 KV groups of 4
+    heads of 32), for the architecture options GPT-124M leaves off."""
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerConfig,
+    )
+    return TransformerConfig(
+        hidden_size=256, num_layers=2, num_attention_heads=8,
+        num_query_groups=2, padded_vocab_size=4096,
+        position_embedding_type="rope", swiglu=True, dtype=torch.float32)
+
+
+def card_vs_cpu(torch, cfg, params, prompts, label):
+    """The same requests in fp32 on the card and on the CPU."""
+    from apex_tpu_torch.serving import ServingConfig, ServingEngine
+
+    shape = ServingConfig(max_batch=3, block_size=BLOCK, max_seq=MAX_SEQ,
+                          prefill_len=CHUNK, cache_dtype=torch.float32)
+    three = sorted(prompts, key=len)[:3]
+    gpu = ServingEngine(cfg, shape, params)
+    cpu_params = type(params)(*(_to_cpu(part) for part in params))
+    cpu = ServingEngine(cfg, shape, cpu_params, device="cpu")
+    g_reqs, _ = serve(gpu, three, 32, stagger=False)
+    c_reqs, _ = serve(cpu, three, 32, stagger=False)
+    for g, c, prompt in zip(g_reqs, c_reqs, three):
+        if g.output_tokens == c.output_tokens:
+            continue
+        at = next(i for i, (a, b) in enumerate(zip(g.output_tokens,
+                                                   c.output_tokens)) if a != b)
+        gap = top2_gap(torch, cpu.model, prompt + c.output_tokens[:at])
+        log(f"card vs CPU: request {c.rid} diverges at token {at} "
+            f"(card {g.output_tokens[at]}, CPU {c.output_tokens[at]}); "
+            f"CPU top-2 logit gap {gap:.3g}")
+        check(gap <= 1e-3, "card and CPU agree up to near-ties")
+    log(f"card vs CPU [{label}] (fp32, TF32 off): {len(three)} streams of "
+        f"32 tokens checked, prompts {[len(p) for p in three]}")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import fused_ops as fo
+    from apex_tpu_torch.serving import paged_attention as pa
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+
+    # every fp32 comparison below runs in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    log(f"build and load: {time.perf_counter() - t0:.1f} s")
+    for line in _build.last_build_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log("  " + line.strip())
+
+    timer = Timer(torch)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    results = {}
+    # the GPT-124M shapes (12 KV heads), and grouped-query attention with
+    # 4 KV groups of 3 query heads each
+    for label, q_dtype, cache_dtype, groups in (
+            ("bf16", bf16, bf16, N_HEADS), ("int8", bf16, i8, N_HEADS),
+            ("fp32", f32, f32, N_HEADS), ("bf16 gqa", bf16, bf16, 4)):
+        for kname, T in (("paged_attention_decode", None),
+                         ("paged_prefill_attention", CHUNK)):
+            rec = check_paged(torch, F, pa, timer, q_dtype, cache_dtype, T,
+                              groups)
+            results[(kname, label)] = rec
+            log(f"kernel {kname}[{label} cache]: {json.dumps(rec)}")
+    for label, dtype in (("bf16", bf16), ("fp32", f32)):
+        for rows in (B, B * CHUNK):
+            rec = check_norm(torch, F, fo, timer, dtype, rows)
+            results[("fused_residual_norm", f"{label} rows={rows}")] = rec
+            log(f"kernel fused_residual_norm[{label}, {rows} rows]: "
+                f"{json.dumps(rec)}")
+
+    cfg = gpt124m(torch, torch.bfloat16)
+    params = init_gpt_params(cfg, seed=0)
+    prompts = wave(np)
+    launches = {}
+    for cache_dtype in (bf16, i8):
+        counts = engine_phase(torch, np, pa, fo, params, cache_dtype, prompts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    profile_engine(torch, np, params, prompts)
+    card_vs_cpu(torch, gpt124m(torch, torch.float32), params, prompts,
+                "GPT-124M")
+    small = modern(torch)
+    card_vs_cpu(torch, small, init_gpt_params(small, seed=2),
+                [[t % small.padded_vocab_size for t in p] for p in prompts],
+                "rope + GQA + SwiGLU")
+
+    meta = {
+        "paged_attention_decode": ("apex_tpu_torch/csrc/paged_attention.cu",
+                                   "apex_tpu/serving/paged_attention.py:114",
+                                   "bf16"),
+        "paged_prefill_attention": ("apex_tpu_torch/csrc/paged_attention.cu",
+                                    "apex_tpu/serving/paged_attention.py:342",
+                                    "bf16"),
+        "fused_residual_norm": ("apex_tpu_torch/csrc/fused_residual_norm.cu",
+                                "apex_tpu/serving/fused_ops.py:41",
+                                f"bf16 rows={B}"),
+    }
+    kernels = []
+    for name, (source, replaces, variant) in meta.items():
+        rec = results[(name, variant)]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        **rec})
+    log(json.dumps({"kernels": kernels}))
+    log(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,189 @@
+"""The port's paged attention (K1 decode, K2 chunked prefill) against the
+JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+kernels run in Pallas interpret mode, as ``tests/test_serving.py`` runs
+them.  Inputs come from one numpy seed and go to both sides.
+
+Tolerance: atol = rtol = 1e-5.  Both sides compute in fp32 from the same
+fp32 values (bf16 and int8 cache values are exactly representable and
+dequantize identically), so they differ only in the order of the fp32
+sums: the JAX kernel folds the softmax block by block, the plain version
+in one pass.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from apex_tpu.serving import paged_attention as jax_pa
+from apex_tpu_torch.serving import paged_attention as pa
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+BS, G, D, N_BLOCKS, MAX_BLOCKS = 4, 2, 16, 12, 4
+# 0 (inactive slot), 1, a multiple of the block size, and not a multiple
+LENGTHS = np.array([0, 1, 8, 11], np.int32)
+
+
+def _cache(rng, cache_dtype):
+    """Arenas (+ int8 scales) as (numpy fp32 values, jax arrays, torch)."""
+    shape = (N_BLOCKS, BS, G, D)
+    if cache_dtype == "int8":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        jx = (jnp.asarray(k), jnp.asarray(v),
+              dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+        th = (torch.from_numpy(k), torch.from_numpy(v),
+              dict(k_scales=torch.from_numpy(ks),
+                   v_scales=torch.from_numpy(vs)))
+        return jx, th
+    k = rng.standard_normal(shape).astype(np.float32)
+    v = rng.standard_normal(shape).astype(np.float32)
+    if cache_dtype == "bf16":
+        # round once so both sides hold the same bf16 values
+        k = torch.from_numpy(k).bfloat16().float().numpy()
+        v = torch.from_numpy(v).bfloat16().float().numpy()
+        jx = (jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), {})
+        th = (torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
+              {})
+        return jx, th
+    return ((jnp.asarray(k), jnp.asarray(v), {}),
+            (torch.from_numpy(k), torch.from_numpy(v), {}))
+
+
+def _tables(rng, lengths):
+    """Distinct physical blocks for the live range of every slot, and
+    in-range garbage past it (the kernels must never read it)."""
+    b = len(lengths)
+    tables = rng.integers(0, N_BLOCKS, (b, MAX_BLOCKS)).astype(np.int32)
+    perm = rng.permutation(N_BLOCKS)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        live = -(-int(n) // BS)
+        tables[i, :live] = perm[nxt:nxt + live]
+        nxt += live
+    return tables
+
+
+def _to_np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("hpg", [1, 2])
+@pytest.mark.parametrize("cache_dtype", ["fp32", "bf16", "int8"])
+def test_decode_matches_jax(cache_dtype, hpg):
+    rng = np.random.default_rng(10 + hpg)
+    (jk, jv, jsc), (tk, tv, tsc) = _cache(rng, cache_dtype)
+    b, n = len(LENGTHS), G * hpg
+    q = rng.standard_normal((b, n, D)).astype(np.float32)
+    tables = _tables(rng, LENGTHS)
+    want = jax_pa.paged_attention_decode(
+        jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(LENGTHS),
+        **jsc)
+    got = pa.paged_attention_decode(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(tables),
+        torch.from_numpy(LENGTHS), **tsc)
+    assert got.dtype == torch.float32 and got.shape == (b, n, D)
+    np.testing.assert_allclose(got.numpy(), _to_np(want), **TOL)
+    assert not got[0].any(), "a slot of length 0 must give exact zeros"
+    assert pa.DECODE_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("hpg", [1, 2])
+@pytest.mark.parametrize("cache_dtype", ["fp32", "bf16", "int8"])
+def test_prefill_matches_jax(cache_dtype, hpg):
+    rng = np.random.default_rng(20 + hpg)
+    (jk, jv, jsc), (tk, tv, tsc) = _cache(rng, cache_dtype)
+    T = 5
+    b, n = len(LENGTHS), G * hpg
+    q = rng.standard_normal((b, T, n, D)).astype(np.float32)
+    tables = _tables(rng, LENGTHS)
+    # chunks ending at each slot's length, padding rows (limit 0) after
+    limits = np.zeros((b, T), np.int32)
+    for i, length in enumerate(LENGTHS):
+        chunk = min(int(length), T - 1 if i % 2 else T)
+        limits[i, :chunk] = np.arange(length - chunk + 1, length + 1)
+    want = jax_pa.paged_prefill_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(LENGTHS),
+        jnp.asarray(limits), **jsc)
+    got = pa.paged_prefill_attention(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(tables),
+        torch.from_numpy(LENGTHS), torch.from_numpy(limits), **tsc)
+    assert got.dtype == torch.float32 and got.shape == (b, T, n, D)
+    np.testing.assert_allclose(got.numpy(), _to_np(want), **TOL)
+    pad = torch.from_numpy(limits == 0)
+    assert not got[pad].any(), "padding rows (limit 0) must give exact zeros"
+    assert pa.PREFILL_LAUNCHES == 0
+
+
+def test_decode_bf16_query_keeps_its_dtype():
+    """A bf16 query returns bf16 (the output takes q's dtype)."""
+    rng = np.random.default_rng(3)
+    _, (tk, tv, _) = _cache(rng, "bf16")
+    q = torch.from_numpy(rng.standard_normal((4, G, D)).astype(np.float32))
+    tables = torch.from_numpy(_tables(rng, LENGTHS))
+    lengths = torch.from_numpy(LENGTHS)
+    got = pa.paged_attention_decode(q.bfloat16(), tk, tv, tables, lengths)
+    ref = pa.paged_attention_decode(q.bfloat16().float(), tk, tv, tables,
+                                    lengths)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ref.bfloat16(), atol=0, rtol=0)
+
+
+def test_wrapper_rejects_bad_operands():
+    rng = np.random.default_rng(4)
+    _, (tk, tv, _) = _cache(rng, "fp32")
+    tables = torch.from_numpy(_tables(rng, LENGTHS))
+    lengths = torch.from_numpy(LENGTHS)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention_decode(torch.zeros(4, G, D + 1), tk, tv, tables,
+                                  lengths)
+    with pytest.raises(ValueError, match="multiple of kv_heads"):
+        pa.paged_attention_decode(torch.zeros(4, 3, D), tk, tv, tables,
+                                  lengths)
+    with pytest.raises(ValueError, match="k_scales and v_scales"):
+        pa.paged_attention_decode(torch.zeros(4, G, D), tk, tv, tables,
+                                  lengths, k_scales=torch.ones(tk.shape[:-1]))
+    with pytest.raises(ValueError, match="verify"):
+        pa.paged_attention_decode(torch.zeros(4, 1, G, D), tk, tv, tables,
+                                  lengths)
+
+
+def test_wrappers_raise_off_the_cpu_without_a_kernel():
+    """Only CPU tensors take the plain version; any other device
+    launches a kernel or raises (here: no kernel for "meta")."""
+    from apex_tpu_torch.serving import fused_ops
+
+    meta = dict(device="meta")
+    k = torch.empty(N_BLOCKS, BS, G, D, **meta)
+    tables = torch.empty(4, MAX_BLOCKS, dtype=torch.int32, **meta)
+    lengths = torch.empty(4, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.paged_attention_decode(torch.empty(4, G, D, **meta), k, k, tables,
+                                  lengths)
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.paged_prefill_attention(torch.empty(4, 3, G, D, **meta), k, k,
+                                   tables, lengths, torch.empty(
+                                       4, 3, dtype=torch.int32, **meta))
+    x = torch.empty(2, 8, **meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_ops.fused_residual_norm(x, x, torch.empty(8, **meta),
+                                      torch.empty(8, **meta))
+    assert (pa.DECODE_LAUNCHES, pa.PREFILL_LAUNCHES,
+            fused_ops.RESIDUAL_NORM_LAUNCHES) == (0, 0, 0)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """The build never falls back: no nvcc is an error."""
+    from apex_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not any(tmp_path.iterdir())
