@@ -5,12 +5,21 @@ A second package beside the JAX reference, module for module
 ``apex_tpu/serving/paged_attention.py``, and so on).  It imports
 :mod:`torch` and never JAX or :mod:`apex_tpu`.
 
-Ported so far: the serving path of a GPT checkpoint through the paged KV
-cache (:mod:`apex_tpu_torch.serving`), with three kernels written by hand
-in CUDA C++ for Hopper (``csrc/``): paged decode attention, paged
-chunked-prefill attention and the fused residual/LayerNorm epilogue.
+Ported so far:
+
+- the serving path of a GPT checkpoint through the paged KV cache
+  (:mod:`apex_tpu_torch.serving`), with three kernels written by hand in
+  CUDA C++ for Hopper (``csrc/``): paged decode attention, paged
+  chunked-prefill attention and the fused residual/LayerNorm epilogue;
+- single-device GPT training (:mod:`apex_tpu_torch.transformer.testing.
+  standalone_gpt`, :mod:`apex_tpu_torch.optimizers`,
+  :mod:`apex_tpu_torch.testing.l1`), whose attention runs the flash
+  forward and backward kernels (``csrc/flash_attention.cu``) through
+  :mod:`apex_tpu_torch.ops.flash_attention`.
+
 Entry points run on the CUDA device unless given ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """
 
-__all__ = ["serving", "transformer", "normalization"]
+__all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
+           "testing"]

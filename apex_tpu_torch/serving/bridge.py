@@ -14,10 +14,17 @@ parallel linears already store their kernels ``[out, in]``
 transposed; and the fused QKV kernel keeps its group-major column order
 (per K/V group its query heads, then one K and one V head), which the
 decode model's split relies on.
+
+:func:`from_flax_gpt` does the same for the parameter tree of a Flax
+``GPTModel`` (``params["language_model"]["embedding" | "encoder"]``),
+stacking its ``layers_<i>`` subtrees into the ``[L, ...]`` layer stack,
+for :meth:`apex_tpu_torch.transformer.testing.standalone_gpt.GPTModel.
+load_params` (or the serving engine).
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
@@ -28,11 +35,11 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     merge_layer_stack,
 )
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_flax_gpt"]
 
 
 def _tree(tree) -> dict:
-    if isinstance(tree, dict):
+    if isinstance(tree, Mapping):
         return {str(k): _tree(v) for k, v in tree.items()}
     a = np.array(tree, copy=True)
     if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
@@ -41,7 +48,7 @@ def _tree(tree) -> dict:
 
 
 def _part(tree: Any, name: str):
-    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
 
 
 def from_jax_params(tree: Any) -> GPT3DParams:
@@ -55,3 +62,21 @@ def from_jax_params(tree: Any) -> GPT3DParams:
     return GPT3DParams(embedding=embedding,
                        layers=merge_layer_stack(layers, num_layers),
                        final_ln=final_ln)
+
+
+def from_flax_gpt(params: Any) -> GPT3DParams:
+    """The port's parameters from a Flax ``GPTModel``'s ``params`` tree
+    (numpy leaves, or anything ``numpy.asarray`` reads)."""
+    lm = _part(params, "language_model")
+    encoder = _tree(_part(lm, "encoder"))
+    n = sum(1 for k in encoder if k.startswith("layers_"))
+    per_layer = [encoder[f"layers_{i}"] for i in range(n)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    return GPT3DParams(embedding=_tree(_part(lm, "embedding")),
+                       layers=stack(per_layer),
+                       final_ln=encoder["final_layernorm"])

@@ -118,7 +118,7 @@ class _Layer(nn.Module):
         self.self_attention = _Attention(cfg, device)
         self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size, eps,
                                                        **kw)
-        self.mlp = ParallelMLP(cfg, device=device)
+        self.mlp = ParallelMLP(cfg, param_dtype=cfg.dtype, device=device)
 
 
 class DecodeModel(nn.Module):
@@ -146,13 +146,14 @@ class DecodeModel(nn.Module):
         if cache.head_dim != d:
             raise ValueError(
                 f"cache head_dim ({cache.head_dim}) != model head_dim ({d})")
-        self.embedding = Embedding(cfg, device=device)
+        self.embedding = Embedding(cfg, param_dtype=cfg.dtype, device=device)
         self.layers = nn.ModuleList(
             _Layer(cfg, device) for _ in range(cfg.num_layers))
         self.final_ln = FusedLayerNorm(cfg.hidden_size,
                                        cfg.layernorm_epsilon,
                                        param_dtype=cfg.param_dtype,
                                        device=device)
+        self.requires_grad_(False)          # serving: no parameter gradients
 
     def load_params(self, params: GPT3DParams) -> None:
         """Copy ``params`` in (layer stack ``[L, ...]`` or

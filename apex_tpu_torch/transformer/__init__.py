@@ -1,2 +1,3 @@
 """Transformer building blocks of the port (counterpart of
-:mod:`apex_tpu.transformer`); this slice carries what serving needs."""
+:mod:`apex_tpu.transformer`); what serving and single-device
+training need."""

@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["rotary_cos_sin", "apply_rotary_decode", "apply_rotary_packed"]
+__all__ = ["rotary_cos_sin", "apply_rotary", "apply_rotary_decode",
+           "apply_rotary_packed"]
 
 
 def rotary_cos_sin(positions, rotary_dim: int, base: float = 10000.0,
@@ -40,6 +41,13 @@ def _rotate(x, cos, sin):
     if rotary_dim == x.shape[-1]:
         return rotated
     return torch.cat([rotated, x[..., rotary_dim:]], dim=-1)
+
+
+def apply_rotary(x, cos, sin):
+    """Training rotation: ``x [s, b, n, d]`` (Megatron's ``[sq, b, np,
+    hn]`` layout) with tables ``[s, half]`` broadcast over batch and
+    heads."""
+    return _rotate(x, cos[:, None, None, :], sin[:, None, None, :])
 
 
 def apply_rotary_packed(x, cos, sin):

@@ -5,9 +5,13 @@ with one rank the three layers are an embedding table and two linears.
 They keep the JAX package's parameter names and layouts (``embedding``
 ``[vocab, hidden]``; ``kernel`` ``[out, in]``, ``y = x @ kernel.T``;
 ``bias`` ``[out]``) and its ``skip_bias_add`` convention (return
-``(out, bias)`` so the caller fuses the add).  Weights are held in the
-compute dtype: Flax casts them to it on every call, the port once.
-Serving only: the parameters carry no gradient.
+``(out, bias)`` so the caller fuses the add).
+
+Parameters are held in ``param_dtype`` and cast to the compute ``dtype``
+on every call, as Flax does, so training keeps fp32 parameters and its
+gradients land in fp32.  ``param_dtype`` defaults to ``dtype``: the
+serving model holds its weights in the compute dtype, where the per-call
+cast is a no-op.
 """
 
 from __future__ import annotations
@@ -21,8 +25,7 @@ __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
 
 
 def _param(shape, dtype, device):
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 class VocabParallelEmbedding(nn.Module):
@@ -30,32 +33,37 @@ class VocabParallelEmbedding(nn.Module):
     is the tied LM head's GEMM."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        self.embedding = _param((num_embeddings, embedding_dim), dtype,
-                                device)
+        self.dtype = dtype
+        self.embedding = _param((num_embeddings, embedding_dim),
+                                param_dtype or dtype, device)
 
     def forward(self, token_ids):
-        return F.embedding(token_ids, self.embedding)
+        return F.embedding(token_ids, self.embedding.to(self.dtype))
 
     def attend(self, query):
-        return torch.matmul(query, self.embedding.t())
+        return torch.matmul(query, self.embedding.to(self.dtype).t())
 
 
 class _Linear(nn.Module):
     def __init__(self, input_size: int, output_size: int, *,
                  use_bias: bool = True, skip_bias_add: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.skip_bias_add = skip_bias_add
-        self.kernel = _param((output_size, input_size), dtype, device)
-        self.bias = (_param((output_size,), dtype, device)
+        self.dtype = dtype
+        param_dtype = param_dtype or dtype
+        self.kernel = _param((output_size, input_size), param_dtype, device)
+        self.bias = (_param((output_size,), param_dtype, device)
                      if use_bias else None)
 
     def forward(self, x):
+        weight = self.kernel.to(self.dtype)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.skip_bias_add:
-            return F.linear(x, self.kernel), self.bias
-        return F.linear(x, self.kernel, self.bias)
+            return F.linear(x, weight), bias
+        return F.linear(x, weight, bias)
 
 
 class ColumnParallelLinear(_Linear):

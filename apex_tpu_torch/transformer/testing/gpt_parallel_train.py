@@ -8,7 +8,8 @@ initialiser with the same distributions as the Flax init (normal with
 ``init_method_std`` for the embeddings and the input-facing kernels,
 ``std / sqrt(2 * num_layers)`` for the output-facing ones, zero biases,
 unit LayerNorm scales), drawn from a ``torch.Generator`` seeded by the
-caller.  The training step is not ported yet.
+caller.  The 3D-parallel training step is not ported yet (the
+single-device step is :func:`apex_tpu_torch.testing.l1.train_step`).
 """
 
 from __future__ import annotations

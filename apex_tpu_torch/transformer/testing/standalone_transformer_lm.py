@@ -1,11 +1,27 @@
-"""The standalone Megatron-style LM pieces the serving path uses.
+"""Standalone Megatron-style transformer language model.
 
-Port of the parts of
-:mod:`apex_tpu.transformer.testing.standalone_transformer_lm` that a
-served GPT reads: the configuration, the MLP, the embedding and the tied
-LM head, at tensor-parallel size 1.  Activations keep the JAX package's
-``[s, b, h]`` (sequence-major) layout.  Serving runs no dropout, so the
-dropout fields of the JAX config have no counterpart here.
+Port of :mod:`apex_tpu.transformer.testing.standalone_transformer_lm` at
+tensor-parallel size 1: the configuration, the MLP, the attention (fused
+group-major QKV, RoPE, grouped-query K/V, the flash core), the pre-LN
+transformer layer and stack, the embedding and the tied LM head.
+Activations keep the JAX package's ``[s, b, h]`` (sequence-major) layout
+and the modules its parameter names.
+
+Parameters are held in ``config.param_dtype`` and cast to the compute
+``config.dtype`` on every call (as Flax does); the serving model passes
+``param_dtype=config.dtype`` to hold its weights in the compute dtype.
+
+Dropout: the JAX modules draw from the Flax ``"dropout"`` rng when not
+``deterministic``; here every ``forward`` takes ``generator``, an explicit
+``torch.Generator`` on the activations' device, and ``None`` means
+deterministic (no dropout).  Hidden dropout draws a Bernoulli keep mask
+from it; attention dropout draws one int32 seed per call for the flash
+kernels' counter hash.
+
+Not ported yet (ROADMAP.md, section A): the fused-softmax attention core
+(``CoreAttention`` without flash, with ``ops/softmax.py``), cross
+attention and the decoder layer, the pooler, mixture of experts, fp8,
+and tensor, sequence and context parallelism.
 """
 
 from __future__ import annotations
@@ -17,6 +33,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
+from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.softmax import AttnMaskType
+from apex_tpu_torch.transformer.enums import AttnType, LayerType
+from apex_tpu_torch.transformer.rope import apply_rotary, rotary_cos_sin
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -24,14 +45,16 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
-__all__ = ["TransformerConfig", "ParallelMLP", "Embedding",
-           "parallel_lm_logits"]
+__all__ = ["TransformerConfig", "ParallelMLP", "CoreAttention",
+           "ParallelAttention", "ParallelTransformerLayer",
+           "ParallelTransformer", "Embedding", "TransformerLanguageModel",
+           "parallel_lm_logits", "dropout"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The model shape the serving path reads (the JAX config's fields of
-    the same names and defaults)."""
+    """The model shape and options (the JAX config's fields of the same
+    names and defaults)."""
 
     hidden_size: int = 128
     num_layers: int = 2
@@ -40,10 +63,16 @@ class TransformerConfig:
     kv_channels: Optional[int] = None      # default hidden/heads
     padded_vocab_size: int = 1024
     max_position_embeddings: int = 512
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     init_method_std: float = 0.02
     layernorm_epsilon: float = 1e-5
+    # the fused-softmax core's fp16 overflow guard; the flash core, the
+    # only one ported, ignores it as the JAX flash branch does
+    apply_query_key_layer_scaling: bool = True
     apply_residual_connection_post_layernorm: bool = False
     bias_gelu_fusion: bool = True          # tanh-approximate GELU
+    use_flash_attention: bool = False
     position_embedding_type: str = "learned"   # or "rope" / "none"
     rotary_base: float = 10000.0
     rotary_percent: float = 1.0
@@ -89,15 +118,27 @@ class TransformerConfig:
         return max(2, int(self.head_dim * self.rotary_percent) // 2 * 2)
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    the kept values by its inverse; ``generator=None`` is deterministic."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class ParallelMLP(nn.Module):
     """h -> ffn (column; tanh-GELU, or SwiGLU with a separate gate
     linear) -> h (row).  Returns ``(out, bias)`` (skip_bias_add)."""
 
-    def __init__(self, config: TransformerConfig, *, device=None):
+    def __init__(self, config: TransformerConfig, *, param_dtype=None,
+                 device=None):
         super().__init__()
         cfg = config
         self.config = cfg
-        kw = dict(skip_bias_add=True, dtype=cfg.dtype, device=device)
+        kw = dict(skip_bias_add=True, dtype=cfg.dtype,
+                  param_dtype=param_dtype or cfg.param_dtype, device=device)
         self.dense_h_to_4h = ColumnParallelLinear(
             cfg.hidden_size, cfg.ffn_size, **kw)
         if cfg.swiglu:
@@ -118,36 +159,190 @@ class ParallelMLP(nn.Module):
         return self.dense_4h_to_h(h)
 
 
-class _PositionTable(nn.Module):
-    """Learned positions, under the Flax ``nn.Embed`` parameter name."""
+class CoreAttention(nn.Module):
+    """Scaled-dot-product attention core over ``[s, b, n, d]`` q/k/v,
+    returning the context ``[s, b, n * d]``: the flash branch of the JAX
+    module (causal mask, or padding given as segment ids), with
+    in-kernel attention dropout.  Scale ``1/sqrt(d)``; query-key layer
+    scaling does not apply to it."""
 
-    def __init__(self, n: int, hidden: int, *, dtype, device):
+    def __init__(self, config: TransformerConfig, layer_number: int = 1,
+                 attn_mask_type: AttnMaskType = AttnMaskType.padding):
         super().__init__()
+        self.config = config
+        self.layer_number = layer_number
+        self.attn_mask_type = attn_mask_type
+
+    def forward(self, q, k, v, mask=None, generator=None, segment_ids=None):
+        cfg = self.config
+        sq, b, n, d = q.shape
+        causal = self.attn_mask_type == AttnMaskType.causal
+        if not (cfg.use_flash_attention
+                and (causal or segment_ids is not None)):
+            raise NotImplementedError(
+                "only the flash attention core is ported: set "
+                "use_flash_attention=True with a causal mask or padding as "
+                "segment ids (the fused-softmax core and arbitrary masks "
+                "are listed in ROADMAP.md, section A)")
+        kw = {}
+        if cfg.attention_dropout > 0.0 and generator is not None:
+            kw = dict(dropout_rate=cfg.attention_dropout,
+                      dropout_seed=torch.randint(
+                          0, 2 ** 31 - 1, (1,), generator=generator,
+                          device=q.device, dtype=torch.int32))
+        if segment_ids is not None:
+            kw.update(segment_ids_q=segment_ids, segment_ids_kv=segment_ids)
+        ctx = flash_attention(q.permute(1, 2, 0, 3), k.permute(1, 2, 0, 3),
+                              v.permute(1, 2, 0, 3), causal=causal, **kw)
+        return ctx.permute(2, 0, 1, 3).reshape(sq, b, n * d)
+
+
+class ParallelAttention(nn.Module):
+    """Self-attention: fused QKV column linear in group-major layout (per
+    K/V group its query heads, then one K and one V head), RoPE on q/k,
+    grouped K/V repeated over their query heads, the flash core, and the
+    row-linear output projection.  Returns ``(out, bias)``."""
+
+    def __init__(self, config: TransformerConfig, layer_number: int = 1,
+                 attention_type: AttnType = AttnType.self_attn,
+                 attn_mask_type: AttnMaskType = AttnMaskType.padding, *,
+                 device=None):
+        super().__init__()
+        if attention_type != AttnType.self_attn:
+            raise NotImplementedError(
+                "cross attention is not ported yet (ROADMAP.md, section A)")
+        cfg = config
+        self.config = cfg
+        n, g, d = cfg.num_attention_heads, cfg.query_groups, cfg.head_dim
+        self.hpg = divide(n, g)
+        kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        self.query_key_value = ColumnParallelLinear(
+            cfg.hidden_size, (n + 2 * g) * d, **kw)
+        self.core_attention = CoreAttention(cfg, layer_number, attn_mask_type)
+        self.dense = RowParallelLinear(n * d, cfg.hidden_size,
+                                       skip_bias_add=True, **kw)
+
+    def forward(self, x, mask=None, generator=None, segment_ids=None):
+        cfg = self.config
+        d, hpg = cfg.head_dim, self.hpg
+        qkv = self.query_key_value(x)
+        s, b = qkv.shape[0], qkv.shape[1]
+        qkv = qkv.reshape(s, b, cfg.query_groups, (hpg + 2) * d)
+        q = qkv[..., :hpg * d].reshape(s, b, cfg.num_attention_heads, d)
+        k = qkv[..., hpg * d:(hpg + 1) * d]
+        v = qkv[..., (hpg + 1) * d:]
+        if cfg.position_embedding_type == "rope":
+            cos, sin = rotary_cos_sin(torch.arange(s, device=x.device),
+                                      cfg.rotary_dim, cfg.rotary_base,
+                                      q.dtype)
+            q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+        if hpg > 1:
+            k = k.repeat_interleave(hpg, dim=2)
+            v = v.repeat_interleave(hpg, dim=2)
+        ctx = self.core_attention(q, k, v, mask, generator, segment_ids)
+        return self.dense(ctx)
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN block: LN -> attention -> bias-dropout-residual -> LN ->
+    MLP -> bias-dropout-residual (optionally with the post-LN residual
+    source).  Encoder (self-attention) layers only."""
+
+    def __init__(self, config: TransformerConfig, layer_number: int = 1,
+                 layer_type: LayerType = LayerType.encoder,
+                 self_attn_mask_type: AttnMaskType = AttnMaskType.padding, *,
+                 device=None):
+        super().__init__()
+        if layer_type != LayerType.encoder:
+            raise NotImplementedError(
+                "decoder layers (cross attention) are not ported yet "
+                "(ROADMAP.md, section A)")
+        cfg = config
+        self.config = cfg
+        ln = dict(param_dtype=cfg.param_dtype, device=device)
+        self.input_layernorm = FusedLayerNorm(cfg.hidden_size,
+                                              cfg.layernorm_epsilon, **ln)
+        self.self_attention = ParallelAttention(
+            cfg, layer_number, attn_mask_type=self_attn_mask_type,
+            device=device)
+        self.post_attention_layernorm = FusedLayerNorm(
+            cfg.hidden_size, cfg.layernorm_epsilon, **ln)
+        self.mlp = ParallelMLP(cfg, device=device)
+
+    def forward(self, x, mask=None, generator=None, segment_ids=None):
+        cfg = self.config
+        post = cfg.apply_residual_connection_post_layernorm
+        ln1 = self.input_layernorm(x)
+        attn_out, attn_bias = self.self_attention(ln1, mask, generator,
+                                                  segment_ids)
+        h = (ln1 if post else x) + dropout(attn_out + attn_bias,
+                                           cfg.hidden_dropout, generator)
+        ln2 = self.post_attention_layernorm(h)
+        mlp_out, mlp_bias = self.mlp(ln2)
+        return (ln2 if post else h) + dropout(mlp_out + mlp_bias,
+                                              cfg.hidden_dropout, generator)
+
+
+class ParallelTransformer(nn.Module):
+    """Layer stack (+ final LayerNorm when ``post_process``)."""
+
+    def __init__(self, config: TransformerConfig,
+                 self_attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 post_process: bool = True, *, device=None):
+        super().__init__()
+        cfg = config
+        self.layers = nn.ModuleList(
+            ParallelTransformerLayer(cfg, i + 1,
+                                     self_attn_mask_type=self_attn_mask_type,
+                                     device=device)
+            for i in range(cfg.num_layers))
+        self.final_layernorm = (
+            FusedLayerNorm(cfg.hidden_size, cfg.layernorm_epsilon,
+                           param_dtype=cfg.param_dtype, device=device)
+            if post_process else None)
+
+    def forward(self, x, mask=None, generator=None, segment_ids=None):
+        for layer in self.layers:
+            x = layer(x, mask, generator, segment_ids)
+        if self.final_layernorm is not None:
+            x = self.final_layernorm(x)
+        return x
+
+
+class _PositionTable(nn.Module):
+    """Learned positions, under the Flax ``nn.Embed`` parameter name,
+    looked up in the compute dtype."""
+
+    def __init__(self, n: int, hidden: int, *, dtype, param_dtype, device):
+        super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(
-            torch.zeros(n, hidden, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.zeros(n, hidden, dtype=param_dtype, device=device))
 
     def forward(self, position_ids):
-        return F.embedding(position_ids, self.embedding)
+        return F.embedding(position_ids, self.embedding.to(self.dtype))
 
 
 class Embedding(nn.Module):
-    """Word (+ learned position) embeddings: ``token_ids [b, s]`` ->
-    ``[s, b, h]`` (contiguous), in the compute dtype."""
+    """Word (+ learned position) embeddings + hidden dropout:
+    ``token_ids [b, s]`` -> ``[s, b, h]`` (contiguous), in the compute
+    dtype."""
 
-    def __init__(self, config: TransformerConfig, *, device=None):
+    def __init__(self, config: TransformerConfig, *, param_dtype=None,
+                 device=None):
         super().__init__()
         cfg = config
+        self.config = cfg
         self.learned_positions = cfg.position_embedding_type == "learned"
+        kw = dict(dtype=cfg.dtype, param_dtype=param_dtype or cfg.param_dtype,
+                  device=device)
         self.word_embeddings = VocabParallelEmbedding(
-            cfg.padded_vocab_size, cfg.hidden_size, dtype=cfg.dtype,
-            device=device)
+            cfg.padded_vocab_size, cfg.hidden_size, **kw)
         if self.learned_positions:
             self.position_embeddings = _PositionTable(
-                cfg.max_position_embeddings, cfg.hidden_size,
-                dtype=cfg.dtype, device=device)
+                cfg.max_position_embeddings, cfg.hidden_size, **kw)
 
-    def forward(self, token_ids, position_ids=None):
+    def forward(self, token_ids, position_ids=None, generator=None):
         if position_ids is not None and not self.learned_positions:
             raise NotImplementedError(
                 "custom position_ids are only honored with "
@@ -158,7 +353,26 @@ class Embedding(nn.Module):
                 position_ids = torch.arange(
                     token_ids.shape[1], device=token_ids.device)[None, :]
             words = words + self.position_embeddings(position_ids)
-        return words.transpose(0, 1).contiguous()         # [s, b, h]
+        x = words.transpose(0, 1).contiguous()           # [s, b, h]
+        return dropout(x, self.config.hidden_dropout, generator)
+
+
+class TransformerLanguageModel(nn.Module):
+    """Embedding + transformer stack: ``token_ids [b, s]`` -> hidden
+    ``[s, b, h]``."""
+
+    def __init__(self, config: TransformerConfig,
+                 self_attn_mask_type: AttnMaskType = AttnMaskType.causal, *,
+                 device=None):
+        super().__init__()
+        self.embedding = Embedding(config, device=device)
+        self.encoder = ParallelTransformer(
+            config, self_attn_mask_type=self_attn_mask_type, device=device)
+
+    def forward(self, token_ids, position_ids=None, attention_mask=None,
+                generator=None, segment_ids=None):
+        x = self.embedding(token_ids, position_ids, generator)
+        return self.encoder(x, attention_mask, generator, segment_ids)
 
 
 def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig):

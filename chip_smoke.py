@@ -9,12 +9,18 @@ Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit, then the build of the kernel library
    from ``apex_tpu_torch/csrc`` with its time;
-2. each kernel against its plain PyTorch version at GPT-124M serving
-   shapes (8 slots, 12 heads of 64, 16-token blocks, 1024-token context,
-   a 128-token prefill chunk, hidden 768; plus a grouped-query case),
-   with its device time (CUDA events, median of 30 launches, L2 flushed
-   before each), the plain version's, one PyTorch library call's as a
-   yardstick, and the least time the card could take (``bound_ms``);
+2. each kernel against its plain PyTorch version, with its device time
+   (CUDA events, median of 30 launches, L2 flushed before each), the
+   plain version's, one PyTorch library call's as a yardstick, and the
+   least time the card could take (``bound_ms``):
+   - the serving kernels K1-K3 at GPT-124M serving shapes (8 slots, 12
+     heads of 64, 16-token blocks, 1024-token context, a 128-token
+     prefill chunk, hidden 768; plus a grouped-query case);
+   - the flash kernels F1-F3 at the training shape (batch 8, 12 heads of
+     64, sequence 1024, causal) in bf16 and fp32, with packed segment ids
+     and with attention dropout; then, unmeasured, at the ragged shapes
+     of ``FLASH_EDGES`` (lengths off the tile, sq != sk, offsets that
+     leave rows no key, head dims 16 to 128);
 3. the serving engine at GPT-124M width (random weights from a seed,
    bf16 compute) serving 16 staggered requests of 64-600 prompt tokens
    and 32 greedy tokens each, once with a bf16 and once with an int8 KV
@@ -24,7 +30,17 @@ Phases (any failure exits non-zero; none is caught):
 4. three of those requests in fp32 on the card and on the CPU, for
    GPT-124M and for a small rope + grouped-query + SwiGLU model: the
    greedy streams must agree (a divergence passes only where the CPU's
-   two best logits are within 1e-3 of each other).
+   two best logits are within 1e-3 of each other);
+5. GPT-124M training at the widths of ``bench.py``'s flash step (hidden
+   768, 12 layers, 12 heads of 64, vocabulary 50304, sequence 1024,
+   batch 8, bf16 compute, fp32 parameters, flash attention, FusedAdam at
+   lr 1e-4) on one fixed batch: 2 warm-up and 8 timed steps, the loss
+   finite and falling, F1, F2 and F3 launched 12 times per step (from
+   their counters); then one more step under ``torch.profiler``;
+6. three training steps in fp32 (TF32 off) on the card and on the CPU
+   from the same weights, for GPT-124M at batch 1 x 128 tokens and for
+   the small rope + grouped-query + SwiGLU model: each step's loss within
+   1e-4 and gradient norm within 1e-3 (relative).
 
 The lines before the last hold a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
@@ -32,6 +48,7 @@ Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -41,6 +58,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 FMA
 B, N_HEADS, HEAD_DIM, BLOCK, MAX_SEQ, CHUNK, HIDDEN = 8, 12, 64, 16, 1024, 128, 768
+TRAIN_BATCH, SEQ = 8, 1024          # bench.py's flash training step
+WARMUP_STEPS, TIMED_STEPS = 2, 8
 LENGTHS = [0, 1, 17, 100, 333, 512, 777, 1024]
 REPS = 30
 
@@ -241,6 +260,205 @@ def check_norm(torch, F, fo, timer, dtype, rows):
                 library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
 
 
+# ----------------------------------------- phase 2: the flash kernels
+
+
+def flash_inputs(torch, dtype, seed, segments):
+    """q, k, v, do at the training shape; with ``segments``, 4 packed
+    documents per sequence at random boundaries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (TRAIN_BATCH, N_HEADS, SEQ, HEAD_DIM)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    seg = None
+    if segments:
+        cuts = torch.sort(torch.randint(1, SEQ, (TRAIN_BATCH, 3),
+                                        generator=gen, device="cuda")).values
+        pos = torch.arange(SEQ, device="cuda")
+        seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1).int()
+    return q, k, v, do, seg
+
+
+def causal_mask(torch, seg):
+    """The [b or 1, 1, s, s] boolean mask the kernels apply (True =
+    attend)."""
+    pos = torch.arange(SEQ, device="cuda")
+    mask = (pos[:, None] >= pos[None, :])[None, None]
+    if seg is not None:
+        mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
+    return mask
+
+
+def flash_costs(q, seg_bytes, pairs):
+    """Bytes each input/output needs once, and the operations, of F1, F2
+    and F3 for this run's data (``pairs``: the (row, col) pairs the masks
+    leave, all heads; each is a 2*d multiply-add row per product)."""
+    n = q.numel() * q.element_size()
+    rows = q.numel() // q.shape[-1] * 4          # one fp32 per row
+    d = q.shape[-1]
+    return {"fwd": (4 * n + rows + seg_bytes, pairs * 4 * d),      # QK, PV
+            "dq": (5 * n + 2 * rows + seg_bytes, pairs * 6 * d),   # QK, dO V, dS K
+            "dkv": (6 * n + 2 * rows + seg_bytes, pairs * 8 * d)}  # + P dO, dS Q
+
+
+FLASH_NAMES = ("out", "lse", "dq", "dk", "dv")
+# bf16 out and dq: the largest |kernel - plain| allowed, times the plain
+# tensor's RMS (about twice the largest card reading, see flash_close)
+BF16_RMS_LIMIT = {"out": 0.08, "dq": 0.02}
+
+
+def flash_close(torch, what, got, want):
+    """Kernel ``(out, lse, dq, dk, dv)`` against plain; logs and returns
+    each one's largest difference.
+
+    - fp32 results (all of an fp32 run, and lse always) agree to 1e-4
+      absolute and relative (card readings: 1e-6 or less);
+    - in bf16, dk and dv must be bit-identical to plain (every card
+      reading, bench shape and ragged edges: 0), so a rounding point of
+      F3 (dS to Q's type, the dropped P to dO's) that moved would show;
+    - in bf16, out and dq differ from plain by at most ``BF16_RMS_LIMIT``
+      times the plain tensor's RMS, its typical magnitude.  The RMS of
+      out is about 0.12 at the bench shape and 0.18 with packed segments,
+      of dq about 0.11 and 0.14; the largest card readings were 3.9e-3
+      and 7.8e-3 (0.032 and 0.044 of the RMS) for out, 9.8e-4 (0.0092)
+      for dq.  The kernel's 64-key tiles round P against another running
+      max than plain's 512-key blocks, and its fp32 sums run in another
+      order; out moves most in the early rows, whose few terms are of
+      order 1."""
+    err, rms = [], []
+    for g, w in zip(got, want):
+        err.append((g.float() - w.float()).abs().max().item())
+        rms.append(w.float().square().mean().sqrt().item())
+    log(f"kernel flash F1-F3 {what}: max |kernel - plain| "
+        + ", ".join(f"{n} {e:.3g} ({e / max(r, 1e-30):.3g} of rms {r:.3g})"
+                    for n, e, r in zip(FLASH_NAMES, err, rms)))
+    for name, g, w, e, r in zip(FLASH_NAMES, got, want, err, rms):
+        if g.dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        elif name in ("dk", "dv"):
+            check(torch.equal(g, w), f"{what}: bf16 {name} bit-identical "
+                  f"to plain (max |diff| {e:.3g})")
+        else:
+            limit = BF16_RMS_LIMIT[name] * r
+            check(e <= limit, f"{what}: bf16 {name} within {limit:.3g} of "
+                  f"plain (max |diff| {e:.3g})")
+    return err
+
+
+# the ragged edges of F1-F3: lengths off the 64-row tile, sq != sk, global
+# offsets (the third case leaves its first 17 query rows no key), head
+# dims below, between and at the compiled 64 and 128 columns
+FLASH_EDGES = (
+    (1, 2, 37, 37, 16, "fp32", dict(causal=False)),
+    (1, 2, 130, 70, 32, "fp32", dict(causal=True, q_offset=10, kv_offset=40)),
+    (1, 2, 37, 70, 16, "fp32", dict(causal=True, q_offset=3, kv_offset=20)),
+    (2, 2, 100, 100, 64, "bf16", dict(causal=True, segments=True,
+                                      dropout_rate=0.3)),
+    (1, 2, 200, 200, 128, "bf16", dict(causal=True)),
+    (1, 2, 200, 130, 80, "fp32", dict(causal=False)),
+)
+
+
+def check_flash_edges(torch, fa):
+    """F1, F2 and F3 against their plain versions at the shapes of
+    ``FLASH_EDGES`` (correctness only, no timing)."""
+    for i, (b, h, sq, sk, d, kind, case) in enumerate(FLASH_EDGES):
+        kw = dict(case)
+        dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        q, do = (torch.randn((b, h, sq, d), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, h, sk, d), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        seg_q = seg_k = seed = None
+        if kw.pop("segments", False):
+            seg_q = (torch.arange(sq, device="cuda") * 3 // sq).repeat(b, 1).int()
+            seg_k = (torch.arange(sk, device="cuda") * 3 // sk).repeat(b, 1).int()
+        if kw.get("dropout_rate"):
+            seed = torch.tensor([4321], dtype=torch.int32, device="cuda")
+        skw = dict(kw, segment_ids_q=seg_q, segment_ids_kv=seg_k,
+                   dropout_seed=seed)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_with_lse(q, k, v, **skw)
+            ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, seg_q, seg_k,
+                                                  seed, **kw)
+            delta = (do.float() * ref_out.float()).sum(-1)
+            args = (q, k, v, do, ref_lse, delta)
+            dq = fa.dq_chunk(*args, **skw)
+            dk, dv = fa.dkv_chunk(*args, **skw)
+            ref_dq = fa.flash_dq_plain(*args, seg_q, seg_k, seed, **kw)
+            ref_dk, ref_dv = fa.flash_dkv_plain(*args, seg_q, seg_k, seed,
+                                                **kw)
+        torch.cuda.synchronize()
+        flash_close(torch, f"edge [b{b} h{h} sq{sq} sk{sk} d{d} {kind} "
+                    f"{case}]", (out, lse, dq, dk, dv),
+                    (ref_out, ref_lse, ref_dq, ref_dk, ref_dv))
+        blind = kw.get("kv_offset", 0) - kw.get("q_offset", 0)
+        if kw.get("causal") and blind > 0:
+            check(not out[:, :, :blind].any() and not dq[:, :, :blind].any()
+                  and bool((lse[:, :, :blind] == fa.NEG_INF).all()),
+                  "rows that see no key give output 0, lse -1e30, dq 0")
+
+
+def check_flash(torch, F, fa, timer, label, dtype, segments=False,
+                dropout=0.0):
+    """F1, F2 and F3 against their plain versions on the card; returns
+    each kernel's record.  F2/F3 take the plain forward's lse and delta,
+    so each kernel is held alone."""
+    q, k, v, do, seg = flash_inputs(torch, dtype, 11, segments)
+    seed = (torch.tensor([1234], dtype=torch.int32, device="cuda")
+            if dropout else None)
+    kw = dict(causal=True, dropout_rate=dropout)
+    skw = dict(kw, segment_ids_q=seg, segment_ids_kv=seg, dropout_seed=seed)
+    with torch.no_grad():
+        fwd = lambda: fa.flash_attention_with_lse(q, k, v, **skw)  # noqa: E731
+        fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, seg, seg, seed, **kw)  # noqa: E731
+        out, lse = fwd()
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fwd_plain()
+        delta = (do.float() * ref_out.float()).sum(-1)
+        args = (q, k, v, do, ref_lse, delta)
+        dq_k = lambda: fa.dq_chunk(*args, **skw)  # noqa: E731
+        dkv_k = lambda: fa.dkv_chunk(*args, **skw)  # noqa: E731
+        dq_p = lambda: fa.flash_dq_plain(*args, seg, seg, seed, **kw)  # noqa: E731
+        dkv_p = lambda: fa.flash_dkv_plain(*args, seg, seg, seed, **kw)  # noqa: E731
+        dq, (dk, dv) = dq_k(), dkv_k()
+        torch.cuda.synchronize()
+        ref_dq, (ref_dk, ref_dv) = dq_p(), dkv_p()
+    err = flash_close(torch, label, (out, lse, dq, dk, dv),
+                      (ref_out, ref_lse, ref_dq, ref_dk, ref_dv))
+
+    # yardstick: SDPA with the same mask (not with dropout: its mask is
+    # another function), forward and backward (dq, dk, dv together)
+    library = library_bwd = None
+    if not dropout:
+        mask = causal_mask(torch, seg) if segments else None
+        sdpa_kw = (dict(attn_mask=mask) if segments else dict(is_causal=True))
+        library = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)  # noqa: E731
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        library_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, do, retain_graph=True)
+    pairs = int(causal_mask(torch, seg).sum()) * N_HEADS * (
+        1 if segments else TRAIN_BATCH)
+    seg_bytes = 2 * seg.numel() * 4 if segments else 0
+    kind = "fp32" if dtype == torch.float32 else "bf16"
+    costs = flash_costs(q, seg_bytes, pairs)
+    lib_bwd_ms = None if library_bwd is None else timer(library_bwd)
+    recs = {}
+    for name, kernel, plain, e, lib in (
+            ("flash_fwd", fwd, fwd_plain, max(err[:2]),
+             None if library is None else timer(library)),
+            ("flash_dq", dq_k, dq_p, err[2], lib_bwd_ms),
+            ("flash_dkv", dkv_k, dkv_p, max(err[3:]), lib_bwd_ms)):
+        b_ms, b_by = bound(*costs[name.split("_")[1]], kind)
+        with torch.no_grad():
+            recs[name] = dict(max_abs_err=e, ms=timer(kernel),
+                              plain_ms=timer(plain), library_ms=lib,
+                              bound_ms=b_ms, bound_by=b_by)
+    return recs
+
+
 # --------------------------------------------- phase 3/4: the engine
 
 
@@ -417,6 +635,135 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# ----------------------------------------------- phase 5/6: training
+
+
+def gpt124m_train(torch, dtype):
+    """``bench.py``'s flash training configuration (dropout off)."""
+    from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+        TransformerConfig,
+    )
+    return TransformerConfig(
+        hidden_size=768, num_layers=12, num_attention_heads=12,
+        padded_vocab_size=50304, max_position_embeddings=SEQ,
+        hidden_dropout=0.0, attention_dropout=0.0, use_flash_attention=True,
+        dtype=dtype)
+
+
+def flash_counts(fa):
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+            "flash_dkv": fa.DKV_LAUNCHES}
+
+
+def zero_flash_counts(fa):
+    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def trainer(torch, cfg, seed, device="cuda", params=None):
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+    from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+
+    model = GPTModel(cfg, device=device)
+    model.load_params(params if params is not None
+                      else init_gpt_params(cfg, seed, device=device))
+    return model, FusedAdam(model.parameters(), lr=1e-4)
+
+
+def train_phase(torch, fa):
+    """GPT-124M training steps on one fixed batch; returns the flash
+    launch counts of the run and the (model, opt, tokens) for the
+    profile."""
+    from apex_tpu_torch.testing.l1 import train_step
+
+    cfg = gpt124m_train(torch, torch.bfloat16)
+    model, opt = trainer(torch, cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, 50257, (TRAIN_BATCH, SEQ), generator=gen,
+                           device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    losses = [train_step(model, opt, tokens) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step(model, opt, tokens) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(x) for x in losses]
+    check(all(c == cfg.num_layers * steps for c in counts.values()),
+          f"F1/F2/F3 launched {cfg.num_layers} times per step: {counts}")
+    check(all(x == x and abs(x) < 1e4 for x in losses),
+          f"the losses are finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss falls: {losses}")
+    tokens_per_step = TRAIN_BATCH * SEQ
+    log(f"train[GPT-124M, {n_params} parameters, batch {TRAIN_BATCH} x "
+        f"{SEQ}, bf16 compute]: step {wall / TIMED_STEPS * 1e3:.3f} ms = "
+        f"{tokens_per_step * TIMED_STEPS / wall:.1f} tokens/s over "
+        f"{TIMED_STEPS} timed steps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); launches {counts}")
+    return counts, (model, opt, tokens)
+
+
+def profile_train(torch, model, opt, tokens):
+    """Where one training step's time goes: device busy share and the
+    kernels with the most device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.testing.l1 import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy_us = sum(r[0] for r in rows)
+    check(busy_us > 0, "the profiler saw device time")
+    log(f"profile[GPT-124M train step]: wall {wall * 1e3:.1f} ms, device "
+        f"busy {busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the "
+        f"wall (the profiler's own cost included)")
+    for us, count, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def train_card_vs_cpu(torch, cfg, label, batch, seq):
+    """Three fp32 training steps on the card and on the CPU from the same
+    weights and batch: loss within 1e-4, grad norm within 1e-3."""
+    from apex_tpu_torch.testing.l1 import compare_traces, global_grad_norm
+    from apex_tpu_torch.testing.l1 import train_step
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+
+    params = init_gpt_params(cfg, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.padded_vocab_size, (batch, seq),
+                           generator=gen)
+    traces = {}
+    for device in ("cuda", "cpu"):
+        model, opt = trainer(torch, cfg, 5, device=device, params=params)
+        t = tokens.to(device)
+        trace = {"loss": [], "grad_norm": []}
+        for _ in range(3):
+            trace["loss"].append(float(train_step(model, opt, t)))
+            trace["grad_norm"].append(
+                float(global_grad_norm(model.parameters())))
+        traces[device] = trace
+    problems = compare_traces(traces["cuda"], traces["cpu"])
+    log(f"train card vs CPU [{label}] (fp32, TF32 off, batch {batch} x "
+        f"{seq}): card {traces['cuda']}, CPU {traces['cpu']}")
+    check(not problems, f"card and CPU training agree: {problems}")
+
+
 def main():
     import torch
 
@@ -427,6 +774,7 @@ def main():
     import torch.nn.functional as F
 
     from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.serving import fused_ops as fo
     from apex_tpu_torch.serving import paged_attention as pa
     from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
@@ -467,6 +815,15 @@ def main():
             results[("fused_residual_norm", f"{label} rows={rows}")] = rec
             log(f"kernel fused_residual_norm[{label}, {rows} rows]: "
                 f"{json.dumps(rec)}")
+    for label, dtype, kw in (("bf16", bf16, {}), ("fp32", f32, {}),
+                             ("bf16 segments", bf16, dict(segments=True)),
+                             ("bf16 dropout 0.1", bf16, dict(dropout=0.1))):
+        for name, rec in check_flash(torch, F, fa, timer, label, dtype,
+                                     **kw).items():
+            results[(name, label)] = rec
+            log(f"kernel {name}[{label}, b{TRAIN_BATCH} h{N_HEADS} s{SEQ} "
+                f"d{HEAD_DIM} causal]: {json.dumps(rec)}")
+    check_flash_edges(torch, fa)
 
     cfg = gpt124m(torch, torch.bfloat16)
     params = init_gpt_params(cfg, seed=0)
@@ -484,6 +841,17 @@ def main():
                 [[t % small.padded_vocab_size for t in p] for p in prompts],
                 "rope + GQA + SwiGLU")
 
+    counts, (model, opt, tokens) = train_phase(torch, fa)
+    launches.update(counts)
+    profile_train(torch, model, opt, tokens)
+    del model, opt, tokens
+    train_card_vs_cpu(torch, gpt124m_train(torch, torch.float32), "GPT-124M",
+                      1, 128)
+    train_card_vs_cpu(torch, dataclasses.replace(
+        small, hidden_dropout=0.0, attention_dropout=0.0,
+        use_flash_attention=True), "rope + GQA + SwiGLU", 2, 64)
+
+    flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {
         "paged_attention_decode": ("apex_tpu_torch/csrc/paged_attention.cu",
                                    "apex_tpu/serving/paged_attention.py:114",
@@ -494,6 +862,12 @@ def main():
         "fused_residual_norm": ("apex_tpu_torch/csrc/fused_residual_norm.cu",
                                 "apex_tpu/serving/fused_ops.py:41",
                                 f"bf16 rows={B}"),
+        "flash_fwd": (flash_source, "apex_tpu/ops/flash_attention.py:265",
+                      "bf16"),
+        "flash_dq": (flash_source, "apex_tpu/ops/flash_attention.py:369",
+                     "bf16"),
+        "flash_dkv": (flash_source, "apex_tpu/ops/flash_attention.py:438",
+                      "bf16"),
     }
     kernels = []
     for name, (source, replaces, variant) in meta.items():

@@ -1,0 +1,285 @@
+"""The port's training slice against the JAX package on the same weights.
+
+The JAX side runs as its own tests run it on the CPU (Pallas flash in
+interpret mode where a config asks for flash).  The port runs with
+``device="cpu"``, where the flash wrappers take their plain versions.
+Initial weights come from the JAX model's init and cross over through
+:func:`from_flax_gpt`; other inputs come from numpy seeds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from apex_tpu.normalization.fused_layer_norm import (
+    fused_layer_norm_affine as jax_layer_norm,
+)
+from apex_tpu.ops.xentropy import softmax_cross_entropy_loss as jax_xentropy
+from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+from apex_tpu.testing import l1 as jax_l1
+from apex_tpu.transformer.testing import GPTModel as JaxGPTModel
+from apex_tpu.transformer.testing import TransformerConfig as JaxConfig
+from apex_tpu_torch.normalization import fused_layer_norm_affine
+from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.serving.bridge import from_flax_gpt
+from apex_tpu_torch.testing import l1
+from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+    init_gpt_params,
+)
+from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+    TransformerConfig,
+)
+
+VOCAB = 128
+GPT = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
+           padded_vocab_size=VOCAB, max_position_embeddings=32)
+MODERN = dict(GPT, position_embedding_type="rope", num_query_groups=2,
+              swiglu=True)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _port_name(flax_name):
+    """Flax ``language_model.encoder.layers_1.mlp...`` -> the port's
+    ``language_model.encoder.layers.1.mlp...``."""
+    parts = flax_name.split(".")
+    out = []
+    for p in parts:
+        out += p.split("_", 1) if p.startswith("layers_") else [p]
+    return ".".join(out)
+
+
+@pytest.mark.parametrize("shape", [GPT, MODERN], ids=["learned_mha",
+                                                      "rope_gqa_swiglu"])
+def test_gpt_logits_loss_and_grads_match_jax(shape):
+    """fp32: logits, per-token loss and every parameter's gradient of the
+    mean loss against the JAX GPTModel (its fused-softmax core; the port
+    runs flash) on bridged weights."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, VOCAB, (3, 24)).astype(np.int32)
+    jcfg = JaxConfig(**shape, hidden_dropout=0.0, attention_dropout=0.0,
+                     tensor_axis=None)
+    jmodel = JaxGPTModel(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(tokens))["params"]
+    # non-trivial biases and norm affines, so their grads are checked too
+    params = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.asarray(x) + 0.05 * rng.standard_normal(
+            x.shape).astype(np.float32)), params)
+
+    @jax.jit
+    def jfn(p, t):
+        def mean_loss(p):
+            losses = jmodel.apply({"params": p}, t, labels=t)
+            return jnp.mean(losses), losses
+
+        (_, losses), grads = jax.value_and_grad(mean_loss, has_aux=True)(p)
+        return jmodel.apply({"params": p}, t), losses, grads
+
+    jlogits, jlosses, jgrads = jfn(params, jnp.asarray(tokens))
+    jgrads = _flat(jgrads)
+
+    model = GPTModel(TransformerConfig(**shape, hidden_dropout=0.0,
+                                       attention_dropout=0.0,
+                                       use_flash_attention=True),
+                     device="cpu")
+    model.load_params(from_flax_gpt(jax.tree_util.tree_map(np.asarray,
+                                                            params)))
+    t = torch.from_numpy(tokens).long()
+    np.testing.assert_allclose(model(t).detach().numpy(), _np(jlogits),
+                               rtol=1e-4, atol=1e-4)
+    losses = model(t, labels=t)
+    assert losses.shape == (3, 23) and losses.dtype == torch.float32
+    np.testing.assert_allclose(losses.detach().numpy(), _np(jlosses),
+                               rtol=1e-4, atol=1e-4)
+    losses.mean().backward()
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert len(got) == len(jgrads)
+    for name, g in jgrads.items():
+        port = got[_port_name(name)]
+        assert port.dtype == torch.float32
+        np.testing.assert_allclose(port.numpy(), _np(g), rtol=1e-3,
+                                   atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xentropy_matches_jax(dtype, smoothing):
+    rng = np.random.default_rng(1)
+    logits = (3 * rng.standard_normal((12, 50))).astype(np.float32)
+    labels = rng.integers(0, 50, 12).astype(np.int32)
+    labels[[2, 7]] = 0                               # padding rows
+    dloss = rng.standard_normal(12).astype(np.float32)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+
+    def jfn(x):
+        return jax_xentropy(x, jnp.asarray(labels), smoothing, 0, True)
+
+    jloss, vjp = jax.vjp(jfn, jnp.asarray(logits, jdt))
+    (jgrad,) = vjp(jnp.asarray(dloss))
+    x = torch.from_numpy(logits).to(tdt).requires_grad_()
+    loss = softmax_cross_entropy_loss(x, torch.from_numpy(labels), smoothing,
+                                      0, True)
+    loss.backward(torch.from_numpy(dloss))
+    assert loss.dtype == torch.float32 and x.grad.dtype == tdt
+    assert not loss[[2, 7]].any() and not x.grad[[2, 7]].any()
+    np.testing.assert_allclose(loss.detach().numpy(), _np(jloss), rtol=1e-5,
+                               atol=1e-5)
+    gtol = 1e-2 if dtype == "bf16" else 1e-6     # one bf16 rounding
+    np.testing.assert_allclose(x.grad.float().numpy(), _np(jgrad), rtol=gtol,
+                               atol=gtol)
+    # without half_to_float, half logits give half losses
+    half = softmax_cross_entropy_loss(x.detach(), torch.from_numpy(labels))
+    assert half.dtype == tdt
+
+
+@pytest.mark.parametrize("memory_efficient", [False, True])
+def test_layer_norm_backward_matches_jax(memory_efficient):
+    rng = np.random.default_rng(2)
+    x = (2.0 * rng.standard_normal((6, 5, 48)) + 1.0).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, 48).astype(np.float32)
+    w[3] = 0.0                          # clamped by magnitude in the recompute
+    b = (0.1 * rng.standard_normal(48)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jfn(x, w, b):
+        return jax_layer_norm(x, w, b, (48,), 1e-5, memory_efficient)
+
+    jy, vjp = jax.vjp(jfn, *map(jnp.asarray, (x, w, b)))
+    jgrads = vjp(jnp.asarray(dy))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = fused_layer_norm_affine(tx, tw, tb, 1e-5, memory_efficient)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(y.detach().numpy(), _np(jy), rtol=1e-5,
+                               atol=1e-5)
+    for got, want in zip((tx.grad, tw.grad, tb.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_steps_match_jax(adam_w_mode):
+    """Two steps (bias correction at t = 1 and 2), with weight decay."""
+    rng = np.random.default_rng(3)
+    shapes = {"a": (7, 5), "b": (11,)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(2)]
+    kw = dict(lr=1e-2, betas=(0.8, 0.95), eps=1e-6, weight_decay=0.05,
+              adam_w_mode=adam_w_mode)
+    jopt = JaxFusedAdam(**kw)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = jopt.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = FusedAdam(list(tp.values()), **kw)
+    for g in grads:
+        jp, state = jopt.step({k: jnp.asarray(v) for k, v in g.items()},
+                              state, jp)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), _np(jp[k]),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedAdam(list(tp.values()), amsgrad=True)
+
+
+def _live_traces(name):
+    """The JAX trace of ``name`` and the port's from the same initial
+    weights and tokens (``_trace_gpt``'s own keys)."""
+    jkw = {"gpt_smoke": {}, "gpt_modern": dict(
+        position_embedding_type="rope", num_query_groups=2, swiglu=True),
+        "gpt_flash": dict(dtype=jnp.bfloat16, use_flash_attention=True)}[name]
+    jcfg = JaxConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0,
+                     tensor_axis=None, **jkw)
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (4, 32), 0, VOCAB)
+    params = JaxGPTModel(jcfg).init(jax.random.PRNGKey(2), tokens)["params"]
+    got = l1.trace_gpt(name, device="cpu", params=from_flax_gpt(
+        jax.tree_util.tree_map(np.asarray, params)),
+        tokens=torch.from_numpy(np.array(tokens)))
+    return got, jax_l1.run_trace(name)
+
+
+@pytest.mark.parametrize("name", ["gpt_smoke", "gpt_modern"])
+def test_fp32_trace_matches_live_jax(name):
+    """Ten FusedAdam steps: loss within 1e-4 and grad norm within 1e-3
+    (``compare_traces``' defaults) of a live JAX ``_trace_gpt``."""
+    got, want = _live_traces(name)
+    assert not l1.compare_traces(got, want)
+    assert got["loss"][-1] < got["loss"][0]
+
+
+def test_bf16_flash_trace_matches_live_jax():
+    """``gpt_flash`` (bf16 compute, flash attention, fp32 parameters).
+
+    Both sides round to bf16 after every op, but not at the same places:
+    XLA fuses elementwise chains and rounds once per fusion, torch rounds
+    after each op, and the flash kernels sweep keys in other blocks.  Each
+    step's activations therefore differ by a few bf16 steps (2**-8
+    relative); over ten steps that reached 1.1e-4 (loss) and 1.8e-3 (grad
+    norm) relative when this test was written, so the tolerance is 1e-3
+    on the loss and 1e-2 on the grad norm: ten times the bf16 spread
+    measured, and a hundred times below the loss's fall over the trace."""
+    got, want = _live_traces("gpt_flash")
+    assert not l1.compare_traces(got, want, loss_rtol=1e-3, grad_rtol=1e-2)
+    assert want["loss"][0] - want["loss"][-1] > 0.5
+
+
+def test_dropout_is_seeded_by_the_generator():
+    """With dropout on, a generator seed fixes the step (hidden dropout
+    masks and the flash kernels' dropout seed); another seed or
+    ``generator=None`` (deterministic) gives another loss."""
+    cfg = TransformerConfig(**GPT, hidden_dropout=0.2, attention_dropout=0.3,
+                            use_flash_attention=True)
+    model = GPTModel(cfg, device="cpu")
+    model.load_params(init_gpt_params(cfg, 0, device="cpu"))
+    tokens = torch.randint(0, VOCAB, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+
+    def loss(seed):
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        return model(tokens, labels=tokens, generator=gen).mean()
+
+    a, b, c, d = loss(1), loss(1), loss(2), loss(None)
+    assert torch.isfinite(a) and a == b
+    assert a != c and a != d
+    a.backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_unported_options_raise():
+    cfg = TransformerConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTModel(cfg, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="flash"):
+        model(tokens)
+
+
+def test_trace_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTModel(l1.trace_config("gpt_smoke"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        l1.trace_gpt("gpt_smoke")
+    assert (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (0, 0, 0)
