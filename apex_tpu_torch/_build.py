@@ -26,7 +26,8 @@ __all__ = ["build", "library", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "apex_tpu_torch"
-SOURCES = ("paged_attention.cu", "fused_residual_norm.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "fused_residual_norm.cu", "flash_attention.cu",
+           "lora_delta.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 # argtypes of every launcher: pointers and the stream as c_void_p, so no
 # 64-bit address is cut to a 32-bit int
 _SIGNATURES = {
@@ -46,6 +48,7 @@ _SIGNATURES = {
     "apex_flash_fwd": [_I] + [_P] * 8 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_dq": [_I] + [_P] * 10 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_dkv": [_I] + [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_lora_delta": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

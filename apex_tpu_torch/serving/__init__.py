@@ -1,6 +1,8 @@
 """Serving runtime of the port (counterpart of :mod:`apex_tpu.serving`):
-paged KV cache, the paged-attention and fused-epilogue kernels, sampling,
-the decode model, the continuous-batching scheduler and the engine."""
+paged KV cache, the paged-attention, fused-epilogue and LoRA-delta
+kernels, sampling, the decode model, the continuous-batching scheduler,
+n-gram speculative drafting, the multi-LoRA adapter arena and the
+engine."""
 
 from apex_tpu_torch.serving.engine import ServingConfig, ServingEngine
 from apex_tpu_torch.serving.kv_cache import (
@@ -10,14 +12,28 @@ from apex_tpu_torch.serving.kv_cache import (
     PrefixCache,
     init_kv_arena,
 )
+from apex_tpu_torch.serving.lora import (
+    AdapterArena,
+    LoRAConfig,
+    OutOfAdapterSlotsError,
+)
 from apex_tpu_torch.serving.model import DecodeModel
 from apex_tpu_torch.serving.sampling import SamplingParams, sample_tokens
 from apex_tpu_torch.serving.scheduler import Request, RequestState, Scheduler
+from apex_tpu_torch.serving.speculative import (
+    NGramProposer,
+    SpeculativeConfig,
+    ngram_propose,
+)
 
 __all__ = [
+    "AdapterArena",
     "BlockAllocator",
     "DecodeModel",
     "KVCacheConfig",
+    "LoRAConfig",
+    "NGramProposer",
+    "OutOfAdapterSlotsError",
     "OutOfBlocksError",
     "PrefixCache",
     "Request",
@@ -26,6 +42,8 @@ __all__ = [
     "Scheduler",
     "ServingConfig",
     "ServingEngine",
+    "SpeculativeConfig",
     "init_kv_arena",
+    "ngram_propose",
     "sample_tokens",
 ]

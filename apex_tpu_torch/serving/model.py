@@ -10,9 +10,18 @@ package's parameter names, driven through two inference entry points:
   destinations and attended with the chunked-prefill kernel; each
   token's causal limit covers the request's whole cached context (earlier
   chunks, shared prefix blocks and the in-chunk triangle) in one sweep.
-- :meth:`DecodeModel.decode_step`: one token per slot with per-slot
-  positions, block tables and an active mask; inactive slots are data
-  (their cache writes are dropped, their length is 0).
+- :meth:`DecodeModel.decode_step`: ``[max_batch, spec_width]`` tokens
+  (``spec_width = k + 1`` with speculative decoding, 1 without) with
+  per-slot positions, block tables, an active mask and a per-slot draft
+  count; inactive slots and unused draft positions are data (their cache
+  writes are dropped, their attention limit is 0).  With drafts the step
+  is the **k+1 verify**: each slot's last token and its drafted
+  continuations attend in one multi-query sweep (K2) with per-position
+  causal limits, every position samples with the slot's policy at its
+  own output counter, and the accepted count (the longest prefix of
+  drafts matching the step's own outputs) is computed on the device.
+  Rejected drafts need no undo: their rows sit past the host-side length,
+  which does not advance over them, and the next step overwrites them.
 
 Both write the new K/V rows into the arenas **in place** (the JAX package
 donates the arenas through ``jit`` for the same effect; the cache is
@@ -22,20 +31,26 @@ are dropped before the write, as ``.at[].set(mode="drop")`` drops them.
 With an int8 cache the rows are quantized on write, one fp32 scale per
 row.
 
-The speculative k+1 verify (``decode_step`` with more than one token per
-slot) and multi-LoRA are not ported yet.
+With a :class:`~apex_tpu_torch.serving.lora.LoRAConfig` both entry points
+also take ``adapters`` (the eight ``[L, n_slots, ...]`` arena tensors) and
+``adapter_slots [max_batch]`` (each slot's arena row, data), and every
+layer adds the gathered rank-r delta (L1) to its four projections.  The
+adapter path repeats the bare path's operations in the same order, so the
+zero adapter's exact-zero delta leaves every value bit for bit as it was.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.serving.fused_ops import fused_residual_norm
 from apex_tpu_torch.serving.kv_cache import KVCacheConfig
+from apex_tpu_torch.serving.lora import LoRAConfig, lora_delta
 from apex_tpu_torch.serving.paged_attention import (
     paged_attention_decode,
     paged_prefill_attention,
@@ -126,15 +141,17 @@ class DecodeModel(nn.Module):
 
     The parameters live in the module (:meth:`load_params` copies a
     :class:`GPT3DParams` in); the cache arenas are arguments, updated in
-    place.  ``device`` defaults to the CUDA device."""
+    place, and so are the adapter tensors when ``lora`` is set.  ``device``
+    defaults to the CUDA device."""
 
     def __init__(self, config: TransformerConfig, cache: KVCacheConfig, *,
-                 device=None):
+                 lora: Optional[LoRAConfig] = None, device=None):
         super().__init__()
         cfg = serving_config(config)
         device = resolve_device(device)
         self.cfg = cfg
         self.cache = cache
+        self.lora = lora
         self.device = device
         d = cfg.head_dim
         n, g = cfg.num_attention_heads, cfg.query_groups
@@ -210,21 +227,60 @@ class DecodeModel(nn.Module):
                                             v_scales=vs_layer)
         return layer_arenas, {}
 
-    def _layer_stack(self, x, arenas, attn_core):
+    def _mlp_with_adapter(self, mlp, x, fc1_a, fc1_b, fc2_a, fc2_b, slots):
+        """``ParallelMLP`` replayed op for op with the gathered deltas
+        added: fc1's after its bias and before the activation, fc2's to
+        its output (the bias stays apart, skip-bias-add).  A zero-slot
+        gather adds exact zeros, so the bare stream stays bitwise."""
+        cfg = self.cfg
+        h, bias = mlp.dense_h_to_4h(x)
+        h = h + bias + lora_delta(x, fc1_a, fc1_b, slots)
+        if cfg.swiglu:
+            gate, gate_bias = mlp.dense_h_to_4h_gate(x)
+            h = F.silu(gate + gate_bias) * h
+        else:
+            h = F.gelu(h, approximate="tanh" if cfg.bias_gelu_fusion
+                       else "none")
+        out, out_bias = mlp.dense_4h_to_h(h)
+        out = out + lora_delta(h, fc2_a, fc2_b, slots)
+        return out, out_bias
+
+    def _layer_stack(self, x, arenas, attn_core, adapters=None,
+                     adapter_slots=None):
+        """Run the layers; with ``adapters`` (the eight arena tensors in
+        :data:`~apex_tpu_torch.serving.lora.PROJECTIONS` order) every
+        projection adds its slot-gathered delta."""
         eps = self.cfg.layernorm_epsilon
         for i, layer in enumerate(self.layers):
             layer_arenas = tuple(a[i] for a in arenas)
             ln1 = layer.input_layernorm(x)
             qkv = layer.self_attention.query_key_value(ln1)
+            if adapters is not None:
+                (qkv_a, qkv_b, dense_a, dense_b,
+                 fc1_a, fc1_b, fc2_a, fc2_b) = (a[i] for a in adapters)
+                qkv = qkv + lora_delta(ln1, qkv_a, qkv_b, adapter_slots)
             q, k, v = self._split_qkv(qkv)
             ctx = attn_core(q, k, v, layer_arenas)
             y, y_bias = layer.self_attention.dense(ctx)
+            if adapters is not None:
+                y = y + lora_delta(ctx, dense_a, dense_b, adapter_slots)
             ln2 = layer.post_attention_layernorm
             ln2_out, h = fused_residual_norm(y, x, ln2.scale, ln2.bias,
                                              bias=y_bias, eps=eps)
-            m, m_bias = layer.mlp(ln2_out)
+            if adapters is not None:
+                m, m_bias = self._mlp_with_adapter(
+                    layer.mlp, ln2_out, fc1_a, fc1_b, fc2_a, fc2_b,
+                    adapter_slots)
+            else:
+                m, m_bias = layer.mlp(ln2_out)
             x = h + m + m_bias
         return x
+
+    def _check_adapters(self, adapters, adapter_slots):
+        if (adapters is None) != (adapter_slots is None):
+            raise ValueError("pass both adapters and adapter_slots or neither")
+        if adapters is not None and self.lora is None:
+            raise ValueError("adapters given to a model built without lora")
 
     def _head(self, x):
         """Final LN + tied LM head: ``logits [s, b, vocab]``."""
@@ -249,63 +305,105 @@ class DecodeModel(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, arenas, tokens, positions, block_tables, active,
-                    temperature, top_k, top_p, seeds, steps
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One continuously batched decode step.
+                    temperature, top_k, top_p, seeds, steps, *,
+                    n_draft=None, adapters=None, adapter_slots=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One continuously batched decode or verify step.
 
         ``arenas``: ``(k, v)`` or ``(k, v, k_scales, v_scales)``, updated
-        in place; ``tokens [max_batch, 1]`` (each slot's last token),
-        ``positions [max_batch]`` (the cache index it is written at),
-        ``block_tables [max_batch, max_blocks]`` int32, ``active
-        [max_batch]`` bool and the ``[max_batch]`` sampling-policy
-        tensors.  Returns ``(out_tokens [max_batch, 1], logits
-        [max_batch, 1, vocab])``; inactive slots emit 0."""
+        in place; ``tokens [max_batch, S]`` with ``S = spec_width``
+        (column 0 each slot's last token, columns ``1..n_draft`` its
+        drafts, the rest padding), ``positions [max_batch]`` (the cache
+        index column 0 is written at), ``block_tables [max_batch,
+        max_blocks]`` int32, ``active [max_batch]`` bool, ``n_draft
+        [max_batch]`` (0..S-1, default zeros) and the ``[max_batch]``
+        sampling-policy tensors (position t of the verify draws at
+        counter ``steps + t``).  With LoRA, ``adapters`` and
+        ``adapter_slots`` as in :meth:`_layer_stack`.
+
+        Returns ``(out_tokens [max_batch, S], accepted [max_batch],
+        logits [max_batch, S, vocab])``: ``accepted`` is the longest
+        prefix of drafts matching the step's own outputs, so the host
+        emits ``out_tokens[:, :accepted + 1]``; inactive slots and
+        padding positions emit 0."""
+        self._check_adapters(adapters, adapter_slots)
         cfg = self.cfg
         cache = self.cache
         bs = cache.block_size
         B, S = tokens.shape
-        if S != 1:
-            raise NotImplementedError(
-                "decode_step takes one token per slot; the speculative "
-                "k+1 verify is not ported yet")
+        dev = tokens.device
         pos = positions.long()
-        lengths = torch.where(active, pos + 1, 0).to(torch.int32)
-        logical = (pos // bs).clamp(0, block_tables.shape[1] - 1)
-        phys = block_tables.gather(1, logical[:, None])[:, 0]
-        rows = active.nonzero().flatten()
-        dest = (phys.index_select(0, rows).long(),
-                (pos % bs).index_select(0, rows))
+        n_draft = (torch.zeros_like(pos) if n_draft is None
+                   else n_draft.long())
+        offsets = torch.arange(S, device=dev)[None, :]
+        pos_ids = pos[:, None] + offsets                    # [B, S]
+        live = active[:, None] & (offsets <= n_draft[:, None])
+        # verify position t sees cache positions < pos + t + 1, its own
+        # row included (written before the attention)
+        limits = torch.where(live, pos_ids + 1, 0).to(torch.int32)
+        lengths = torch.where(active, pos + n_draft + 1, 0).to(torch.int32)
+        logical = (pos_ids // bs).clamp(0, block_tables.shape[1] - 1)
+        phys = block_tables.gather(1, logical)
+        rows = live.reshape(-1).nonzero().flatten()         # b-major
+        dest = (phys.reshape(-1).index_select(0, rows).long(),
+                (pos_ids % bs).reshape(-1).index_select(0, rows))
 
         if cfg.position_embedding_type == "learned":
-            x = self.embedding(tokens, pos[:, None])
+            # padding positions may run past the table; their rows are
+            # never written and attend to nothing
+            x = self.embedding(
+                tokens, pos_ids.clamp(max=cfg.max_position_embeddings - 1))
         else:
             x = self.embedding(tokens)
-        rope = self._rope_tables(pos, x.dtype)          # [B, half]
+        rope = None                                     # x: [S, B, h]
+        if cfg.position_embedding_type == "rope":
+            if S == 1:
+                rope = self._rope_tables(pos, x.dtype)          # [B, half]
+            else:
+                cos, sin = self._rope_tables(pos_ids.reshape(-1), x.dtype)
+                rope = (cos.reshape(B, S, -1).transpose(0, 1),
+                        sin.reshape(B, S, -1).transpose(0, 1))
 
         def attn_core(q, k, v, layer_arenas):
-            # q [1, B, n, d]; k/v [1, B, g, d]
+            # q [S, B, n, d]; k/v [S, B, g, d]
             if rope is not None:
-                q = apply_rotary_decode(q, *rope)
-                k = apply_rotary_decode(k, *rope)
-            # write this token's row first, so it attends to itself
+                rot = apply_rotary_decode if S == 1 else apply_rotary_packed
+                q = rot(q, *rope)
+                k = rot(k, *rope)
+            # write the rows first, so each position attends to itself
             self._append_rows(layer_arenas, rows, dest, k, v)
             kv, sc = self._attend_kwargs(layer_arenas)
-            ctx = paged_attention_decode(q[0].contiguous(), *kv,
-                                         block_tables, lengths, **sc)
-            return ctx.reshape(1, B, -1)
+            if S == 1:
+                ctx = paged_attention_decode(q[0].contiguous(), *kv,
+                                             block_tables, lengths, **sc)
+                return ctx.reshape(1, B, -1)
+            ctx = paged_attention_decode(
+                q.transpose(0, 1).contiguous(), *kv, block_tables, lengths,
+                limits=limits, **sc)                     # [B, S, n, d]
+            return ctx.transpose(0, 1).reshape(S, B, -1)
 
-        x = self._layer_stack(x, arenas, attn_core)
-        logits = self._head(x).transpose(0, 1)          # [B, 1, vocab]
-        sampled = sample_tokens(logits[:, 0], temperature, top_k, top_p,
-                                seeds, steps)
-        out = torch.where(active, sampled, 0)[:, None]
-        return out, logits
+        x = self._layer_stack(x, arenas, attn_core, adapters, adapter_slots)
+        logits = self._head(x).transpose(0, 1)          # [B, S, vocab]
+
+        def rep(t):
+            return t.repeat_interleave(S, dim=0)
+
+        sampled = sample_tokens(
+            logits.reshape(B * S, -1), rep(temperature), rep(top_k),
+            rep(top_p), rep(seeds), (steps[:, None] + offsets).reshape(-1))
+        out = torch.where(live, sampled.reshape(B, S), 0)
+        # accepted = longest prefix with draft t == output t - 1
+        match = ((tokens[:, 1:] == out[:, :-1])
+                 & (offsets[:, 1:] <= n_draft[:, None]))
+        accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        accepted = torch.where(active, accepted, 0)
+        return out, accepted, logits
 
     @torch.no_grad()
     def prefill(self, arenas, tokens, position_ids, block_tables, lengths,
                 limits, dest_blocks, dest_offsets, sample_index,
-                temperature, top_k, top_p, seeds, steps
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                temperature, top_k, top_p, seeds, steps, *, adapters=None,
+                adapter_slots=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched chunked prefill of one ``[max_batch, chunk]`` slice.
 
         Per slot: ``tokens``/``position_ids [max_batch, chunk]`` (this
@@ -317,8 +415,10 @@ class DecodeModel(nn.Module):
         (per-token causal horizons, 0 = padding).  ``sample_index
         [max_batch]``: the in-chunk index of the last prompt token for
         slots whose prompt completes here (out of range = no sample).
-        Returns ``(next_tokens [max_batch], logits [max_batch, chunk,
-        vocab])``."""
+        With LoRA, ``adapters`` and ``adapter_slots`` as in
+        :meth:`decode_step`.  Returns ``(next_tokens [max_batch], logits
+        [max_batch, chunk, vocab])``."""
+        self._check_adapters(adapters, adapter_slots)
         cfg = self.cfg
         B, T = tokens.shape
         rows = self._live_rows(dest_blocks, self.cache.n_blocks)
@@ -347,7 +447,7 @@ class DecodeModel(nn.Module):
                 limits, **sc)                            # [B, T, n, d]
             return ctx.transpose(0, 1).reshape(T, B, -1)
 
-        x = self._layer_stack(x, arenas, attn_core)
+        x = self._layer_stack(x, arenas, attn_core, adapters, adapter_slots)
         logits = self._head(x).transpose(0, 1)          # [B, T, vocab]
         si = sample_index.long()
         last = logits[torch.arange(B, device=logits.device),

@@ -22,8 +22,12 @@ on CPU tensors.  The plain versions gather each slot's whole table and
 lower the masked softmax as separate ops, like the JAX package's
 ``*_unfused`` twins; they are the CPU path and the kernels' reference.
 
-The speculative k+1 verify (a 4-D ``q`` through the decode entry point)
-is not ported yet.
+The speculative k+1 verify is a 4-D ``q [batch, k+1, n_heads, head_dim]``
+with per-position ``limits [batch, k+1]`` through
+:func:`paged_attention_decode`: it takes K2's multi-query sweep (a verify
+step is a self-proposed chunk), as the JAX package routes it to
+``_multi_query_attention``, and its launches count in
+``PREFILL_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -116,24 +120,40 @@ def _ptr(t):
 
 
 def paged_attention_decode(q, k_arena, v_arena, block_tables, lengths, *,
-                           k_scales=None, v_scales=None,
+                           limits=None, k_scales=None, v_scales=None,
                            block_size: Optional[int] = None,
                            scale: Optional[float] = None):
     """One query token per slot attends over its paged context (K1).
 
     CUDA tensors launch the kernel; CPU tensors run
     :func:`paged_attention_decode_plain`.  ``k_scales``/``v_scales`` are
-    the per-row fp32 scale arenas of an int8 cache."""
+    the per-row fp32 scale arenas of an int8 cache.
+
+    **Speculative k+1 verify**: with ``q [batch, k+1, n, d]`` and
+    per-position ``limits [batch, k+1]`` (token t attends cache positions
+    ``< limits[:, t]``; 0 = padding), all k+1 positions of every slot
+    attend in one block sweep of K2 (:func:`paged_prefill_attention`),
+    ``lengths`` being the slot's cache length including the just-written
+    draft rows."""
     global DECODE_LAUNCHES
-    if q.dim() != 3:
-        raise ValueError(
-            f"decode q must be [batch, n_heads, head_dim], got "
-            f"{tuple(q.shape)} (the 4-D k+1 verify is not ported)")
-    b, n, d = q.shape
     n_blocks, bs, g, _ = k_arena.shape
     if block_size is not None and block_size != bs:
         raise ValueError(
             f"block_size ({block_size}) != arena block dim ({bs})")
+    if q.dim() == 4:
+        if limits is None:
+            raise ValueError(
+                "4-D q (the k+1 verify step) needs per-position limits")
+        return paged_prefill_attention(
+            q, k_arena, v_arena, block_tables, lengths, limits,
+            k_scales=k_scales, v_scales=v_scales, scale=scale)
+    if limits is not None:
+        raise ValueError("limits only apply to a 4-D (multi-query) q")
+    if q.dim() != 3:
+        raise ValueError(
+            f"decode q must be [batch, n_heads, head_dim] or [batch, k+1, "
+            f"n_heads, head_dim], got {tuple(q.shape)}")
+    b, n, d = q.shape
     _check_arena(d, k_arena, n, g, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_attention_decode_plain(

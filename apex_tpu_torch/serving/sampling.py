@@ -18,6 +18,7 @@ tensors (data, not shape), one entry per slot.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -30,13 +31,19 @@ _NEG = -1e30
 class SamplingParams:
     """One request's sampling policy.  ``temperature == 0`` is greedy;
     ``top_k <= 0`` / ``top_p >= 1`` leave those filters off; draw ``i``
-    of a request is keyed on ``(seed, step_offset + i)``."""
+    of a request is keyed on ``(seed, step_offset + i)``.
+
+    ``adapter_id`` names the LoRA adapter the request decodes under
+    (:mod:`.lora`): ``None``, the default, gathers the permanent zero
+    adapter and is bitwise the bare engine.  The engine resolves it to
+    an arena slot at submit (an unknown id is ``REJECTED``)."""
 
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
     step_offset: int = 0
+    adapter_id: Optional[str] = None
 
     def __post_init__(self):
         if self.temperature < 0.0:
@@ -67,9 +74,19 @@ def filtered_logits(logits, temperature, top_k, top_p):
     return torch.where(keep, x, _NEG)
 
 
+_M64 = (1 << 64) - 1
+
+
 def _generator(device, seed: int, step: int) -> torch.Generator:
+    """A generator keyed on ``(seed, step)`` through splitmix64, so every
+    bit of its seed depends on both: the CPU generator (mt19937) keeps
+    only the low 32 bits of the seed it is given."""
+    z = (((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     gen = torch.Generator(device=device)
-    gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    gen.manual_seed(z ^ (z >> 31))
     return gen
 
 

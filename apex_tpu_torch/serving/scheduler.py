@@ -81,6 +81,10 @@ class Request:
     pc_hash: int = 0                    # chain hash after block pc_blocks-1
     preemptions: int = 0                # times evicted back to the queue
     admit_seq: int = -1                 # admission order (victim selection)
+    spec_fails: int = 0                 # consecutive all-rejected proposals
+    #                                     (speculative back-off)
+    spec_quiet: int = 0                 # backed-off ticks since the last
+    #                                     probe (re-arm cadence)
 
     # wall-clock marks for the latency metrics (engine-stamped)
     t_submit: float = 0.0
@@ -218,7 +222,11 @@ class Scheduler:
         """Grow ``req.blocks`` toward covering ``n_tokens``: free list,
         then prefix-cache eviction, then (``preempt=True``) preemption of
         strictly newer requests.  Returns the token count the blocks now
-        cover."""
+        cover.
+
+        ``preempt=False`` stops the ladder at eviction: the engine's
+        speculative growth (blocks for drafted rows) uses it, so drafting
+        never throws away a neighbour's computed KV."""
         target = self.cache.blocks_for(n_tokens)
         while len(req.blocks) < target:
             want = target - len(req.blocks)

@@ -40,7 +40,23 @@ Phases (any failure exits non-zero; none is caught):
 6. three training steps in fp32 (TF32 off) on the card and on the CPU
    from the same weights, for GPT-124M at batch 1 x 128 tokens and for
    the small rope + grouped-query + SwiGLU model: each step's loss within
-   1e-4 and gradient norm within 1e-3 (relative).
+   1e-4 and gradient norm within 1e-3 (relative);
+7. speculative decoding and multi-LoRA serving at GPT-124M width (bf16
+   compute and cache, fp32 parameters and adapter arena, as in the
+   serving phases): in phase 2 beside the other kernels,
+   L1 (the gathered LoRA delta) at the four projections' (in, out) pairs
+   and S = 1, 5 and 128, and K2 at the verify width (T = k + 1 = 5, draft
+   counts 0..4, bf16 and int8 caches); then a wave of 16 motif prompts
+   (a random motif of 4-16 tokens repeated to 64-600 tokens, a 4-token
+   suffix) decoding 64 greedy tokens, with k = 4 drafting and without:
+   drafts proposed and accepted, K1 never and K2 12 times per call, the
+   two engines' streams equal up to near ties; a LoRA wave (rank 8, four
+   adapters, requests cycling over them and no adapter, a hot swap after
+   the first tick, an LRU eviction after the drain): L1 48 times per
+   call, the no-adapter streams bit for bit a bare engine's, the arena's
+   books closed; the same with k = 4 drafting and an int8 cache; four
+   requests with drafting and two adapters in fp32 on the card and on the
+   CPU; eight drafting LoRA requests under ``torch.profiler``.
 
 The lines before the last hold a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
@@ -62,6 +78,18 @@ TRAIN_BATCH, SEQ = 8, 1024          # bench.py's flash training step
 WARMUP_STEPS, TIMED_STEPS = 2, 8
 LENGTHS = [0, 1, 17, 100, 333, 512, 777, 1024]
 REPS = 30
+SPEC_K, SPEC_NEW = 4, 64            # drafts per tick; tokens per request
+RANK, ADAPTERS = 8, 4
+# the (in, out) pair of each GPT-124M projection an adapter updates
+LORA_PAIRS = {"qkv": (768, 2304), "dense": (768, 768), "fc1": (768, 3072),
+              "fc2": (3072, 768)}
+LORA_SLOTS = [0, 1, 2, 0, 3, 3, 4, 1]   # the zero adapter and repeats
+# the largest top-2 logit gap at which the bf16 engines with and without
+# drafting may part: the verify's GEMMs have k + 1 times the rows of the
+# decode step's, so cuBLAS sums them in another order, and a bf16 logit
+# of magnitude 1-2 moves in steps of 2**-6; card readings 0, 0.0156 and
+# 0.0156, the limit four such steps
+BF16_TIE = 0.0625
 
 
 def log(*args):
@@ -257,6 +285,129 @@ def check_norm(torch, F, fo, timer, dtype, rows):
     n_bytes = 4 * rows * HIDDEN * e + HIDDEN * (e + 8)   # x, res, y, new res; bias, w, beta
     b_ms, b_by = bound(n_bytes, 10 * rows * HIDDEN, "fp32")
     return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def verify_limits(torch, lengths):
+    """Per-position limits of a k+1 verify over slots of ``lengths``
+    (the draft rows included): slot i drafts min(i % 5, length - 1)
+    tokens, position t sees up to ``pos + t + 1``, the rest is padding
+    (limit 0); a slot of length 0 is inactive."""
+    limits = torch.zeros((len(lengths), SPEC_K + 1), dtype=torch.int32,
+                         device="cuda")
+    for i, n in enumerate(lengths):
+        if n:
+            w = min(i % (SPEC_K + 1), n - 1) + 1
+            limits[i, :w] = torch.arange(n - w + 1, n + 1, device="cuda")
+    return limits
+
+
+def check_verify(torch, F, pa, timer, cache_dtype):
+    """K2 at the verify width through the decode entry point (4-D q and
+    limits): fewer query rows than its 16-row tile, padding rows exact
+    zeros."""
+    _, k, v, tables, lengths, _, kw = paged_inputs(
+        torch, torch.bfloat16, cache_dtype, None, seed=9, groups=N_HEADS)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn((B, SPEC_K + 1, N_HEADS, HEAD_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    limits = verify_limits(torch, LENGTHS)
+    kernel = lambda: pa.paged_attention_decode(  # noqa: E731
+        q, k, v, tables, lengths, limits=limits, **kw)
+    plain = lambda: pa.paged_prefill_attention_plain(  # noqa: E731
+        q, k, v, tables, lengths, limits, **kw)
+    before = pa.PREFILL_LAUNCHES
+    out = kernel()
+    torch.cuda.synchronize()
+    check(pa.PREFILL_LAUNCHES == before + 1, "the verify launched K2")
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    check(int((limits == 0).sum()) > B and not out[limits == 0].any(),
+          "verify padding rows (limit 0) give exact zeros")
+    kg, vg, s = pa._gathered_kv(k, v, tables, kw.get("k_scales"),
+                                kw.get("v_scales"), 1)
+    kg = kg.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    vg = vg.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    cols = torch.arange(s, device="cuda")
+    mask = (cols[None, None, :] < limits[:, :, None])[:, None]
+    ql = q.permute(0, 2, 1, 3).contiguous()
+    library = lambda: F.scaled_dot_product_attention(ql, kg, vg, attn_mask=mask)  # noqa: E731
+    b_ms, b_by = bound(*paged_cost(q, k, tables, lengths, limits, kw), "bf16")
+    return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def lora_inputs(torch, x_dtype, w_dtype, proj, S, strided):
+    """x [S, 8, in] (a sequence-major view of a [8, S, in] tensor when
+    ``strided``), the arena's A [5, in, 8] and pre-scaled B [5, 8, out]
+    with slot 0 the zero adapter, and the slot vector."""
+    n_in, n_out = LORA_PAIRS[proj]
+    gen = torch.Generator(device="cuda").manual_seed(n_in + n_out + S)
+    n_slots = ADAPTERS + 1
+    if strided:
+        x = torch.randn((B, S, n_in), generator=gen, device="cuda")
+        x = x.to(x_dtype).transpose(0, 1)
+    else:
+        x = torch.randn((S, B, n_in), generator=gen, device="cuda").to(x_dtype)
+    a = 0.25 * torch.randn((n_slots, n_in, RANK), generator=gen, device="cuda")
+    b = 0.5 * torch.randn((n_slots, RANK, n_out), generator=gen, device="cuda")
+    a[0] = 0.0
+    b[0] = 0.0
+    slots = torch.tensor(LORA_SLOTS, dtype=torch.int32, device="cuda")
+    return x, a.to(w_dtype), b.to(w_dtype), slots
+
+
+def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
+    """L1 against its plain version: the zero adapter's rows exactly 0;
+    fp32 within 1e-5 of the output's RMS times sqrt(in / 768) (both sum
+    ``in`` products of the first product in another order, so their
+    difference grows with the square root of its length; card readings
+    1.2e-5 of the RMS at in = 3072, 0.8e-5 at 768); bf16 within 0.01 of
+    the RMS plus one bf16 step at the element's own magnitude (2**-7 of
+    it: both round fp32 sums that differ in the last bits once each, so
+    an element near a rounding boundary may land one step apart, and a
+    step at 4 RMS is 0.03 RMS; card readings up to 0.015 of the RMS)."""
+    x, a, b, slots = lora_inputs(torch, x_dtype, w_dtype, proj, S,
+                                 strided=S == SPEC_K + 1)
+    kernel = lambda: lo.lora_delta(x, a, b, slots)  # noqa: E731
+    plain = lambda: lo.lora_delta_plain(x, a, b, slots)  # noqa: E731
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    rms = ref.float().square().mean().sqrt().item()
+    err = diff.max().item()
+    zero = slots == 0
+    check(not out[:, zero].any(), f"L1 {proj} S={S}: zero-slot rows are 0")
+    if out.dtype == torch.float32:
+        limit = 1e-5 * rms * (LORA_PAIRS[proj][0] / 768) ** 0.5
+        check(err <= limit, f"L1 {proj} S={S} fp32: max |kernel - plain| "
+              f"{err:.3g} within {limit:.3g} (rms {rms:.3g})")
+    else:
+        limit = 0.01 * rms + 2.0 ** -7 * ref.float().abs()
+        check(bool((diff <= limit).all()), f"L1 {proj} S={S} bf16: max "
+              f"|kernel - plain| {err:.3g} (rms {rms:.3g})")
+    rec = dict(max_abs_err=err, err_over_rms=err / rms)
+    if not timed:
+        return rec
+    ag_idx = slots.long()
+
+    def library():
+        ag = a.index_select(0, ag_idx)
+        bg = b.index_select(0, ag_idx)
+        return torch.bmm(torch.bmm(x.transpose(0, 1).to(a.dtype), ag), bg)
+
+    n_in, n_out = LORA_PAIRS[proj]
+    distinct = len(set(LORA_SLOTS))
+    n_bytes = (x.numel() * x.element_size() + out.numel() * out.element_size()
+               + distinct * RANK * (n_in + n_out) * a.element_size()
+               + slots.numel() * 4)
+    n_ops = 2 * S * B * RANK * (n_in + n_out)
+    b_ms, b_by = bound(n_bytes, n_ops,
+                       "fp32" if x_dtype == torch.float32 else "bf16")
+    return dict(rec, ms=timer(kernel), plain_ms=timer(plain),
                 library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
 
 
@@ -478,9 +629,26 @@ def wave(np, n=16, seed=1):
     return [rng.integers(1, 50257, int(m)).tolist() for m in lens]
 
 
-def serve(engine, prompts, n_new, stagger=True):
-    """Submit 4 up front and one more every second tick; drain."""
+def motif_wave(np, n=16, seed=1):
+    """Template-heavy prompts: a random motif of 4-16 tokens repeated to
+    64-600 tokens, then a 4-token random suffix."""
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(n):
+        motif = rng.integers(1, 50257, int(rng.integers(4, 17))).tolist()
+        total = int(rng.integers(64, 601))
+        body = (motif * (total // len(motif) + 1))[:total]
+        prompts.append(body + rng.integers(1, 50257, 4).tolist())
+    return prompts
+
+
+def serve(engine, prompts, n_new, stagger=True, samplings=None,
+          after_first_tick=None):
+    """Submit 4 up front and one more every second tick (each with its
+    entry of ``samplings``); run ``after_first_tick`` once the first tick
+    is done; drain."""
     reqs, pending, step = [], list(prompts), 0
+    samplings = list(samplings or [None] * len(prompts))
     t0 = time.perf_counter()
     while pending or not engine.scheduler.idle:
         if not stagger:
@@ -488,25 +656,48 @@ def serve(engine, prompts, n_new, stagger=True):
         else:
             take = 4 if step == 0 else int(step % 2 == 0)
         for _ in range(min(take, len(pending))):
-            reqs.append(engine.submit(pending.pop(0), n_new))
+            reqs.append(engine.submit(pending.pop(0), n_new,
+                                      sampling=samplings.pop(0)))
         engine.step()
+        if step == 0 and after_first_tick is not None:
+            after_first_tick()
         step += 1
         check(step < 10_000, "the wave drains")
     return reqs, time.perf_counter() - t0
 
 
-def zero_counts(pa, fo):
+def zero_counts(pa, fo, lo):
     pa.DECODE_LAUNCHES = pa.PREFILL_LAUNCHES = 0
     fo.RESIDUAL_NORM_LAUNCHES = 0
+    lo.LAUNCHES = 0
 
 
-def read_counts(pa, fo):
+def read_counts(pa, fo, lo):
     return {"paged_attention_decode": pa.DECODE_LAUNCHES,
             "paged_prefill_attention": pa.PREFILL_LAUNCHES,
-            "fused_residual_norm": fo.RESIDUAL_NORM_LAUNCHES}
+            "fused_residual_norm": fo.RESIDUAL_NORM_LAUNCHES,
+            "lora_delta": lo.LAUNCHES}
 
 
-def engine_phase(torch, np, pa, fo, params, cache_dtype, prompts):
+def calls_of(eng, base=(0, 0)):
+    """(prefill calls, decode calls) since ``base``."""
+    return eng.prefill_calls - base[0], eng.decode_calls - base[1]
+
+
+def check_path_counts(counts, calls, L, spec, lora):
+    """The kernels the path must have launched, once per layer per call
+    of the kind that runs them."""
+    prefill, decode = calls
+    k1 = 0 if spec else L * decode
+    k2 = L * (prefill + (decode if spec else 0))
+    l1 = 4 * L * (prefill + decode) if lora else 0
+    want = {"paged_attention_decode": k1, "paged_prefill_attention": k2,
+            "fused_residual_norm": L * (prefill + decode), "lora_delta": l1}
+    check(counts == want, f"launches {counts} == {want} for {prefill} "
+          f"prefill + {decode} decode calls")
+
+
+def engine_phase(torch, np, pa, fo, lo, params, cache_dtype, prompts):
     from apex_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = gpt124m(torch, torch.bfloat16)
@@ -516,9 +707,9 @@ def engine_phase(torch, np, pa, fo, params, cache_dtype, prompts):
     serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up, not counted
     base = (eng.prefill_calls, eng.decode_calls, eng.tokens_generated,
             len(eng.tpot_ms))
-    zero_counts(pa, fo)
+    zero_counts(pa, fo, lo)
     reqs, wall = serve(eng, prompts, 32)
-    counts = read_counts(pa, fo)
+    counts = read_counts(pa, fo, lo)
     prefill_calls = eng.prefill_calls - base[0]
     decode_calls = eng.decode_calls - base[1]
     tokens = eng.tokens_generated - base[2]
@@ -528,14 +719,9 @@ def engine_phase(torch, np, pa, fo, params, cache_dtype, prompts):
               f"request {req.rid} finished with its 32 tokens")
         check(all(0 <= t < cfg.padded_vocab_size for t in req.output_tokens),
               f"request {req.rid}'s tokens lie in the vocabulary")
-    L = cfg.num_layers
-    check(all(c > 0 for c in counts.values()), f"every kernel launched: {counts}")
-    check(counts["paged_attention_decode"] == L * decode_calls,
-          f"K1 launched once per layer per decode call: {counts}")
-    check(counts["paged_prefill_attention"] == L * prefill_calls,
-          f"K2 launched once per layer per prefill call: {counts}")
-    check(counts["fused_residual_norm"] == L * (decode_calls + prefill_calls),
-          f"K3 launched once per layer per call: {counts}")
+    check(prefill_calls > 0 and decode_calls > 0, "both calls ran")
+    check_path_counts(counts, (prefill_calls, decode_calls), cfg.num_layers,
+                      spec=False, lora=False)
     name = str(cache_dtype).replace("torch.", "")
     log(f"engine[{name} cache]: {len(reqs)} requests, {tokens} tokens in "
         f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; TPOT p50 "
@@ -569,26 +755,58 @@ def profile_engine(torch, np, params, prompts):
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
 
 
-def top2_gap(torch, model, tokens):
-    """The CPU model's gap between its two best logits after ``tokens``."""
+def top2_gap(torch, model, tokens, adapters=None, adapter_slot=0):
+    """The model's gap between its two best logits after ``tokens`` (on
+    the model's device; with ``adapters``, under arena slot
+    ``adapter_slot``)."""
     from apex_tpu_torch.serving import init_kv_arena
 
     n = len(tokens)
     bs = model.cache.block_size
     nb = -(-n // bs)
-    arenas = init_kv_arena(model.cache, device="cpu")
-    i32 = dict(dtype=torch.int32)
+    dev = model.device
+    arenas = init_kv_arena(model.cache, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.long, device=dev)
     tables = torch.zeros((1, model.cache.max_blocks_per_request), **i32)
-    tables[0, :nb] = torch.arange(nb)
-    pos = torch.arange(n)[None]
+    tables[0, :nb] = torch.arange(nb, **i32)
+    pos = torch.arange(n, **i64)[None]
+    kw = {}
+    if adapters is not None:
+        kw = dict(adapters=adapters,
+                  adapter_slots=torch.tensor([adapter_slot], **i32))
     _, logits = model.prefill(
-        arenas, torch.tensor([tokens]), pos, tables,
+        arenas, torch.tensor([tokens], **i64), pos, tables,
         torch.tensor([n], **i32), (pos + 1).int(), pos // bs, pos % bs,
-        torch.tensor([n - 1]), torch.zeros(1), torch.zeros(1, dtype=torch.long),
-        torch.ones(1), torch.zeros(1, dtype=torch.long),
-        torch.zeros(1, dtype=torch.long))
+        torch.tensor([n - 1], **i64), torch.zeros(1, device=dev),
+        torch.zeros(1, **i64), torch.ones(1, device=dev),
+        torch.zeros(1, **i64), torch.zeros(1, **i64), **kw)
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0] - top[1])
+
+
+
+def compare_streams(torch, label, got, want, model, bound, adapters=None,
+                    slots=None):
+    """Streams ``got`` against ``want``: identical, or parting first where
+    ``model`` (the engine that produced ``want``) sees its two best
+    logits within ``bound``."""
+    same = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.output_tokens == w.output_tokens:
+            same += 1
+            continue
+        at = next(j for j, (a, b) in enumerate(zip(g.output_tokens,
+                                                   w.output_tokens)) if a != b)
+        gap = top2_gap(torch, model, list(map(int, w.prompt))
+                       + w.output_tokens[:at], adapters,
+                       0 if slots is None else slots[i])
+        log(f"{label}: request {i} parts at token {at} ({g.output_tokens[at]}"
+            f" vs {w.output_tokens[at]}); top-2 logit gap {gap:.3g}")
+        check(gap <= bound, f"{label}: streams part only at near ties "
+              f"(gap {gap:.3g} <= {bound})")
+    log(f"{label}: agreement {same} of {len(want)} streams identical, the "
+        f"rest part at near ties")
 
 
 def modern(torch):
@@ -615,24 +833,245 @@ def card_vs_cpu(torch, cfg, params, prompts, label):
     cpu = ServingEngine(cfg, shape, cpu_params, device="cpu")
     g_reqs, _ = serve(gpu, three, 32, stagger=False)
     c_reqs, _ = serve(cpu, three, 32, stagger=False)
-    for g, c, prompt in zip(g_reqs, c_reqs, three):
-        if g.output_tokens == c.output_tokens:
-            continue
-        at = next(i for i, (a, b) in enumerate(zip(g.output_tokens,
-                                                   c.output_tokens)) if a != b)
-        gap = top2_gap(torch, cpu.model, prompt + c.output_tokens[:at])
-        log(f"card vs CPU: request {c.rid} diverges at token {at} "
-            f"(card {g.output_tokens[at]}, CPU {c.output_tokens[at]}); "
-            f"CPU top-2 logit gap {gap:.3g}")
-        check(gap <= 1e-3, "card and CPU agree up to near-ties")
-    log(f"card vs CPU [{label}] (fp32, TF32 off): {len(three)} streams of "
-        f"32 tokens checked, prompts {[len(p) for p in three]}")
+    compare_streams(torch, f"card vs CPU [{label}, fp32, TF32 off]", g_reqs,
+                    c_reqs, cpu.model, 1e-3)
+    log(f"card vs CPU [{label}]: {len(three)} streams of 32 tokens, prompts "
+        f"{[len(p) for p in three]}")
 
 
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# ------------------------------------ phase 7: speculation and LoRA
+
+
+class CountingProposer:
+    """The engine's proposer, counting the ticks that drafted (each
+    reports one verify outcome)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.ticks = 0
+
+    def propose(self, req, max_k):
+        return self.inner.propose(req, max_k)
+
+    def observe(self, req, proposed, accepted):
+        self.ticks += 1
+        self.inner.observe(req, proposed, accepted)
+
+
+def serving_shape(torch, **kw):
+    """The serving shape of the engine phases, a bf16 KV cache unless
+    ``kw`` names another."""
+    from apex_tpu_torch.serving import ServingConfig
+
+    kw.setdefault("cache_dtype", torch.bfloat16)
+    return ServingConfig(max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ,
+                         prefill_len=CHUNK, **kw)
+
+
+def spec_phase(torch, np, pa, fo, lo, params, prompts):
+    """The motif wave with k = 4 drafting and without (bf16)."""
+    from apex_tpu_torch.serving import ServingEngine, SpeculativeConfig
+
+    cfg = gpt124m(torch, torch.bfloat16)
+    runs, launches = {}, {}
+    for label, spec in (("plain", None), ("k=4", SpeculativeConfig(k=SPEC_K))):
+        eng = ServingEngine(cfg, serving_shape(torch, speculative=spec), params)
+        serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up
+        base = calls_of(eng)
+        tokens0, prop0, acc0 = (eng.tokens_generated, eng.spec_proposed,
+                                eng.spec_accepted)
+        if spec is not None:
+            eng.proposer = CountingProposer(eng.proposer)
+        zero_counts(pa, fo, lo)
+        reqs, wall = serve(eng, prompts, SPEC_NEW)
+        counts = read_counts(pa, fo, lo)
+        calls = calls_of(eng, base)
+        check_path_counts(counts, calls, cfg.num_layers, spec is not None,
+                          False)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for req in reqs:
+            check(req.state.value == "finished"
+                  and len(req.output_tokens) == SPEC_NEW,
+                  f"request {req.rid} finished with its {SPEC_NEW} tokens")
+        tokens = eng.tokens_generated - tokens0
+        line = (f"spec[{label}]: {len(reqs)} requests, {tokens} tokens in "
+                f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+                f"{calls[0]} prefill + {calls[1]} decode calls")
+        if spec is not None:
+            proposed = eng.spec_proposed - prop0
+            accepted = eng.spec_accepted - acc0
+            ticks = eng.proposer.ticks
+            check(proposed > 0 and accepted > 0,
+                  f"drafts proposed ({proposed}) and accepted ({accepted})")
+            line += (f"; {proposed} drafted, {accepted} accepted = "
+                     f"acceptance {accepted / proposed:.3f}; mean accepted "
+                     f"length {accepted / ticks:.3f} over {ticks} drafting "
+                     f"slot-ticks")
+        log(line)
+        runs[label] = (eng, reqs)
+    plain_eng, plain = runs["plain"]
+    compare_streams(torch, "spec vs plain (bf16)", runs["k=4"][1], plain,
+                    plain_eng.model, BF16_TIE)
+    return launches
+
+
+def lora_phase(torch, np, pa, fo, lo, params, prompts, spec_int8=False):
+    """The LoRA wave (bf16 cache, or k = 4 drafting over an int8 cache):
+    requests cycle over t0-t3 and no adapter, t2 is hot-swapped after the
+    first tick, t4 evicts the coldest adapter after the drain; the
+    no-adapter streams must equal a bare engine's bit for bit."""
+    from apex_tpu_torch.serving import (
+        LoRAConfig,
+        SamplingParams,
+        ServingEngine,
+        SpeculativeConfig,
+    )
+
+    cfg = gpt124m(torch, torch.bfloat16)
+    extra = (dict(speculative=SpeculativeConfig(k=SPEC_K),
+                  cache_dtype=torch.int8) if spec_int8 else {})
+    label = "lora+spec+int8" if spec_int8 else "lora"
+    lora_cfg = LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16)
+    tuned = ServingEngine(cfg, serving_shape(torch, lora=lora_cfg, **extra), params)
+    bare = ServingEngine(cfg, serving_shape(torch, **extra), params)
+    ids = [f"t{i}" for i in range(ADAPTERS)]
+    for aid in ids:
+        tuned.register_adapter(aid)
+    for eng in (tuned, bare):
+        serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up
+    cycle = ids + [None]
+    samplings = [SamplingParams(adapter_id=cycle[i % len(cycle)])
+                 for i in range(len(prompts))]
+    base = calls_of(tuned)
+    zero_counts(pa, fo, lo)
+    reqs, wall = serve(
+        tuned, prompts, SPEC_NEW, samplings=samplings,
+        after_first_tick=lambda: tuned.register_adapter("t2", seed=1234))
+    counts = read_counts(pa, fo, lo)
+    calls = calls_of(tuned, base)
+    check_path_counts(counts, calls, cfg.num_layers, spec_int8, True)
+    arena = tuned.adapter_arena
+    check(arena.active == 0, "no adapter left pinned after the wave")
+    arena.check()
+    slot = tuned.register_adapter("t4")
+    check(arena.evictions == 1 and arena.resident("t4")
+          and len(arena) == ADAPTERS, f"t4 (slot {slot}) evicted one adapter")
+    base_late = calls_of(tuned)
+    zero_counts(pa, fo, lo)
+    late, _ = serve(tuned, prompts[:1], SPEC_NEW, stagger=False,
+                    samplings=[SamplingParams(adapter_id="t4")])
+    late_counts = read_counts(pa, fo, lo)
+    check_path_counts(late_counts, calls_of(tuned, base_late),
+                      cfg.num_layers, spec_int8, True)
+    check(late[0].state.value == "finished" and arena.active == 0,
+          "the request on the new adapter finished and unpinned")
+    arena.check()
+    for k, v in late_counts.items():
+        counts[k] += v
+    bare_base = calls_of(bare)
+    bare_reqs, bare_wall = serve(bare, prompts, SPEC_NEW)
+    bare_calls = calls_of(bare, bare_base)
+    nones = [i for i, sp in enumerate(samplings) if sp.adapter_id is None]
+    for i in nones:
+        check(reqs[i].output_tokens == bare_reqs[i].output_tokens,
+              f"{label}: request {i} without an adapter is bit for bit the "
+              f"bare engine's")
+    moved = sum(reqs[i].output_tokens != bare_reqs[i].output_tokens
+                for i in range(len(reqs)) if i not in nones)
+    check(moved > 0, f"{label}: the adapters change the streams")
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    log(f"{label}: {len(reqs)} requests ({len(nones)} without an adapter, "
+        f"identical to the bare engine's), {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tokens/s (bare engine {tokens / bare_wall:.1f});"
+        f" {calls[0]} prefill + {calls[1]} decode calls (bare engine "
+        f"{bare_calls[0]} + {bare_calls[1]}); adapter streams "
+        f"moved by their adapter {moved}/{len(reqs) - len(nones)}; hot swap "
+        f"of t2, eviction for t4 ({arena.evictions}); launches {counts}")
+    return counts
+
+
+def card_vs_cpu_lora(torch, params, prompts):
+    """Four requests with k = 4 drafting and two adapters, 16 tokens
+    each, in fp32 on the card and on the CPU."""
+    from apex_tpu_torch.serving import (
+        LoRAConfig,
+        SamplingParams,
+        ServingEngine,
+        SpeculativeConfig,
+    )
+
+    cfg = gpt124m(torch, torch.float32)
+    shape = serving_shape(
+        torch, cache_dtype=torch.float32, speculative=SpeculativeConfig(k=SPEC_K),
+        lora=LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16))
+    four = sorted(prompts, key=len)[:4]
+    ids = ["t0", "t1", None, "t0"]
+    engines = {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else type(params)(
+            *(_to_cpu(part) for part in params))
+        eng = ServingEngine(cfg, shape, p, device=device)
+        for aid in ("t0", "t1"):
+            eng.register_adapter(aid)
+        reqs, _ = serve(eng, four, 16, stagger=False,
+                        samplings=[SamplingParams(adapter_id=a) for a in ids])
+        engines[device] = (eng, reqs)
+    cpu, c_reqs = engines["cpu"]
+    slots = [cpu.adapter_arena.slot_of(a) if a else 0 for a in ids]
+    compare_streams(torch, "card vs CPU [spec + LoRA, fp32, TF32 off]",
+                    engines["cuda"][1], c_reqs, cpu.model, 1e-3,
+                    adapters=cpu.adapters, slots=slots)
+    log(f"card vs CPU [spec + LoRA]: 4 streams of 16 tokens, "
+        f"prompts {[len(p) for p in four]}, adapters {ids}; card drafted "
+        f"{engines['cuda'][0].spec_proposed}, accepted "
+        f"{engines['cuda'][0].spec_accepted}")
+
+
+def profile_spec_lora(torch, params, prompts):
+    """Where the time of a drafting LoRA wave goes (torch.profiler, device
+    activity only: eight requests of 32 tokens, since sorting the host
+    events of the whole wave takes the profiler about a minute)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.serving import (
+        LoRAConfig,
+        SamplingParams,
+        ServingEngine,
+        SpeculativeConfig,
+    )
+
+    eng = ServingEngine(gpt124m(torch, torch.bfloat16), serving_shape(
+        torch, speculative=SpeculativeConfig(k=SPEC_K),
+        lora=LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16)), params)
+    ids = [f"t{i}" for i in range(ADAPTERS)]
+    for aid in ids:
+        eng.register_adapter(aid)
+    serve(eng, [prompts[1][:64]], 4, stagger=False)
+    cycle = ids + [None]
+    eight = prompts[:8]
+    samplings = [SamplingParams(adapter_id=cycle[i % len(cycle)])
+                 for i in range(len(eight))]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = serve(eng, eight, 32, samplings=samplings)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy_us = sum(r[0] for r in rows)
+    check(busy_us > 0, "the profiler saw device time")
+    log(f"profile[spec k=4 + LoRA wave, 8 x 32 tokens, bf16]: wall "
+        f"{wall * 1e3:.1f} ms, device "
+        f"busy {busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the "
+        f"wall (the profiler's own cost included)")
+    for us, count, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
 
 
 # ----------------------------------------------- phase 5/6: training
@@ -776,6 +1215,7 @@ def main():
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.serving import fused_ops as fo
+    from apex_tpu_torch.serving import lora as lo
     from apex_tpu_torch.serving import paged_attention as pa
     from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
         init_gpt_params,
@@ -809,6 +1249,25 @@ def main():
                               groups)
             results[(kname, label)] = rec
             log(f"kernel {kname}[{label} cache]: {json.dumps(rec)}")
+    for label, cache_dtype in (("bf16", bf16), ("int8", i8)):
+        rec = check_verify(torch, F, pa, timer, cache_dtype)
+        results[("paged_prefill_attention", f"{label} verify")] = rec
+        log(f"kernel paged_prefill_attention[{label} cache, verify T="
+            f"{SPEC_K + 1} through the decode entry]: {json.dumps(rec)}")
+    # (x, arena): bf16 and fp32 throughout, and the serving phases' bf16
+    # activations over the fp32 arena (the arena is in param_dtype)
+    for label, x_dtype, w_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32),
+                                    ("bf16/fp32", bf16, f32)):
+        for proj in LORA_PAIRS:
+            for S in (1, SPEC_K + 1, CHUNK):
+                rec = check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S)
+                results[("lora_delta", f"{label} {proj} S={S}")] = rec
+                log(f"kernel lora_delta[x/arena {label}, {proj} "
+                    f"{LORA_PAIRS[proj]}, S={S}, B={B}, rank {RANK}]: "
+                    f"{json.dumps(rec)}")
+    rec = check_lora(torch, lo, timer, f32, bf16, "fc2", CHUNK, timed=False)
+    log(f"kernel lora_delta[x/arena fp32/bf16, fc2, S={CHUNK}]: "
+        f"{json.dumps(rec)}")
     for label, dtype in (("bf16", bf16), ("fp32", f32)):
         for rows in (B, B * CHUNK):
             rec = check_norm(torch, F, fo, timer, dtype, rows)
@@ -830,7 +1289,8 @@ def main():
     prompts = wave(np)
     launches = {}
     for cache_dtype in (bf16, i8):
-        counts = engine_phase(torch, np, pa, fo, params, cache_dtype, prompts)
+        counts = engine_phase(torch, np, pa, fo, lo, params, cache_dtype,
+                              prompts)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     profile_engine(torch, np, params, prompts)
@@ -851,6 +1311,16 @@ def main():
         small, hidden_dropout=0.0, attention_dropout=0.0,
         use_flash_attention=True), "rope + GQA + SwiGLU", 2, 64)
 
+    motifs = motif_wave(np)
+    for counts in (spec_phase(torch, np, pa, fo, lo, params, motifs),
+                   lora_phase(torch, np, pa, fo, lo, params, motifs),
+                   lora_phase(torch, np, pa, fo, lo, params, motifs,
+                              spec_int8=True)):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    card_vs_cpu_lora(torch, params, motifs)
+    profile_spec_lora(torch, params, motifs)
+
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {
         "paged_attention_decode": ("apex_tpu_torch/csrc/paged_attention.cu",
@@ -868,10 +1338,13 @@ def main():
                      "bf16"),
         "flash_dkv": (flash_source, "apex_tpu/ops/flash_attention.py:438",
                       "bf16"),
+        "lora_delta": ("apex_tpu_torch/csrc/lora_delta.cu",
+                       "apex_tpu/serving/lora.py:445", "bf16/fp32 qkv S=1"),
     }
     kernels = []
     for name, (source, replaces, variant) in meta.items():
-        rec = results[(name, variant)]
+        rec = {k: v for k, v in results[(name, variant)].items()
+               if k != "err_over_rms"}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **rec})

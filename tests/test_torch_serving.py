@@ -38,6 +38,7 @@ from apex_tpu_torch.serving import (
     init_kv_arena,
 )
 from apex_tpu_torch.serving import fused_ops, paged_attention
+from apex_tpu_torch.serving.lora import LoRAConfig, init_adapter_arena
 from apex_tpu_torch.serving.bridge import from_jax_params
 from apex_tpu_torch.serving.sampling import filtered_logits, sample_tokens
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
@@ -227,14 +228,15 @@ def test_prefill_and_decode_logits_match_jax(shape):
     toks = np.asarray(j_next, np.int32)[:, None]
     positions = lengths.copy()
     active = np.ones((B,), bool)
-    _, j_out, _, j_dlogits = eng._decode(
+    _, j_out, j_acc, j_dlogits = eng._decode(
         j_arenas, eng.params, toks, positions, jnp.asarray(tables), active,
         np.zeros((B,), np.int32), *_greedy(B))
-    t_out, t_dlogits = model.decode_step(
+    t_out, t_acc, t_dlogits = model.decode_step(
         arenas, *_t(toks, positions, tables, active), *_t(*_greedy(B)))
     np.testing.assert_allclose(t_dlogits.numpy(), np.asarray(j_dlogits),
                                atol=1e-4, rtol=0)
     np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(t_acc.numpy(), np.asarray(j_acc))
 
 
 # ---------------------------------------------------------------- (c)
@@ -396,8 +398,11 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert {"speculative.py", "lora.py", "engine.py"} <= {
+        p.name for p in files}
     bad = []
-    for path in _port_files():
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -444,3 +449,5 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         init_kv_arena(cache)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_gpt_params(tcfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_adapter_arena(tcfg, LoRAConfig(rank=2, max_adapters=1))
