@@ -15,10 +15,20 @@ Ported so far:
   standalone_gpt`, :mod:`apex_tpu_torch.optimizers`,
   :mod:`apex_tpu_torch.testing.l1`), whose attention runs the flash
   forward and backward kernels (``csrc/flash_attention.cu``) through
-  :mod:`apex_tpu_torch.ops.flash_attention`.
+  :mod:`apex_tpu_torch.ops.flash_attention`;
+- speculative k+1 verify and multi-LoRA serving, with the gathered
+  LoRA-delta kernel (``csrc/lora_delta.cu``);
+- the normalization API (:mod:`apex_tpu_torch.normalization`: fused
+  LayerNorm and RMSNorm, affine or not, mixed-dtype modules, the
+  memory-efficient backward) and the row-norm entry points
+  :func:`apex_tpu_torch.ops.pallas_norm.pallas_layer_norm` /
+  ``pallas_rms_norm``, whose forwards are the row LayerNorm and RMSNorm
+  kernels (``csrc/row_norm.cu``).
 
-Entry points run on the CUDA device unless given ``device="cpu"``, where
-each kernel's plain PyTorch version runs instead.
+Every TPU kernel of the JAX package has its hand-written counterpart
+here, nine in all.  Entry points run on the CUDA device unless given
+``device="cpu"`` or CPU tensors, where each kernel's plain PyTorch version
+runs instead.
 """
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",

@@ -27,7 +27,7 @@ __all__ = ["build", "library", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "apex_tpu_torch"
 SOURCES = ("paged_attention.cu", "fused_residual_norm.cu", "flash_attention.cu",
-           "lora_delta.cu")
+           "lora_delta.cu", "row_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,7 @@ _SIGNATURES = {
     "apex_flash_dq": [_I] + [_P] * 10 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_dkv": [_I] + [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_lora_delta": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
+    "apex_row_norm": [_I, _I, _I] + [_P] * 4 + [_I, _I, _F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

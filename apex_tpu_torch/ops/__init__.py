@@ -1,3 +1,6 @@
-"""Attention and loss ops (port of :mod:`apex_tpu.ops`): flash attention
-with its CUDA kernels, the fused softmax cross entropy, and the attention
-mask enum."""
+"""Attention, loss and norm ops (port of :mod:`apex_tpu.ops`): flash
+attention with its CUDA kernels, the fused softmax cross entropy, the
+attention mask enum, and the row LayerNorm/RMSNorm kernels of
+:mod:`apex_tpu_torch.ops.pallas_norm`."""
+
+from apex_tpu_torch.ops import pallas_norm  # noqa: F401

@@ -20,6 +20,10 @@ decode model's split relies on.
 stacking its ``layers_<i>`` subtrees into the ``[L, ...]`` layer stack,
 for :meth:`apex_tpu_torch.transformer.testing.standalone_gpt.GPTModel.
 load_params` (or the serving engine).
+
+:func:`from_flax_norm` turns a Flax norm module's parameters (``scale``
+and, for LayerNorm, ``bias``) into the state dict of the port's module
+of the same name (:mod:`apex_tpu_torch.normalization`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     merge_layer_stack,
 )
 
-__all__ = ["from_jax_params", "from_flax_gpt"]
+__all__ = ["from_jax_params", "from_flax_gpt", "from_flax_norm"]
 
 
 def _tree(tree) -> dict:
@@ -80,3 +84,14 @@ def from_flax_gpt(params: Any) -> GPT3DParams:
     return GPT3DParams(embedding=_tree(_part(lm, "embedding")),
                        layers=stack(per_layer),
                        final_ln=encoder["final_layernorm"])
+
+
+def from_flax_norm(params: Any) -> dict:
+    """The state dict of the port's ``FusedLayerNorm``/``FusedRMSNorm``
+    (and their mixed variants) from the Flax module's parameters: its
+    ``{"scale", "bias"}`` leaves, or the ``{"params": ...}`` tree that
+    ``init`` returns."""
+    if isinstance(params, Mapping) and "params" in params:
+        params = params["params"]
+    return {name: _tree(params[name]) for name in ("scale", "bias")
+            if name in params}

@@ -21,6 +21,12 @@ Phases (any failure exits non-zero; none is caught):
      and with attention dropout; then, unmeasured, at the ragged shapes
      of ``FLASH_EDGES`` (lengths off the tile, sq != sk, offsets that
      leave rows no key, head dims 16 to 128);
+   - the row norms N1 (LayerNorm) and N2 (RMSNorm) at GPT-124M's training
+     activation (8192 rows of 768) with bf16 x over fp32 parameters, in
+     fp32, and in bf16 throughout, beside ``F.layer_norm`` /
+     ``F.rms_norm``; then, unmeasured, at the shapes of
+     ``ROW_NORM_EDGES`` (hidden 1 to 32768, 0, 1 and 70 rows, a 1-D and
+     a strided x, fp16), and a row wider than the kernels take raises;
 3. the serving engine at GPT-124M width (random weights from a seed,
    bf16 compute) serving 16 staggered requests of 64-600 prompt tokens
    and 32 greedy tokens each, once with a bf16 and once with an int8 KV
@@ -56,7 +62,16 @@ Phases (any failure exits non-zero; none is caught):
    call, the no-adapter streams bit for bit a bare engine's, the arena's
    books closed; the same with k = 4 drafting and an int8 cache; four
    requests with drafting and two adapters in fp32 on the card and on the
-   CPU; eight drafting LoRA requests under ``torch.profiler``.
+   CPU; eight drafting LoRA requests under ``torch.profiler``;
+8. the norm path: ``pallas_layer_norm`` and ``pallas_rms_norm`` forward
+   and backward at ``[8, 1024, 768]``, 10 passes each, bf16 x and fp32
+   parameters all requiring gradients, a seeded cotangent: N1 (N2) once
+   per forward and never in a backward, the gradients bit for bit those
+   of the same Function over the plain forward; the same in fp32 on the
+   card and on the CPU (y, dx, dw, db within 1e-5 of each one's RMS);
+   ``FusedRMSNorm``, ``MixedFusedLayerNorm`` and a non-affine
+   ``FusedLayerNorm``, with ``memory_efficient`` off and on, card vs CPU
+   in fp32 at the same limit.
 
 The lines before the last hold a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
@@ -286,6 +301,245 @@ def check_norm(torch, F, fo, timer, dtype, rows):
     b_ms, b_by = bound(n_bytes, 10 * rows * HIDDEN, "fp32")
     return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
                 library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+
+
+# --------------------------------- phase 2 and 8: the row norms N1/N2
+
+
+def row_norm_close(torch, what, out, ref):
+    """N1/N2 against plain: fp32 within 1e-5 of the plain output's RMS;
+    bf16 and fp16 within one step of the type at the element's own
+    magnitude (2**-7 of it for bf16, 2**-10 for fp16) beyond that, since
+    both round fp32 rows that differ in their last bits once each.
+    Returns the largest difference."""
+    if not out.numel():
+        return 0.0
+    diff = (out.float() - ref.float()).abs()
+    rms = ref.float().square().mean().sqrt().item()
+    err = diff.max().item()
+    floor = 1e-5 * rms
+    if out.dtype == torch.float32:
+        check(err <= floor, f"{what}: max |kernel - plain| {err:.3g} within "
+              f"{floor:.3g} (rms {rms:.3g})")
+    else:
+        step = 2.0 ** -7 if out.dtype == torch.bfloat16 else 2.0 ** -10
+        limit = floor + step * ref.float().abs()
+        check(bool((diff <= limit).all()), f"{what}: |kernel - plain| "
+              f"within one step (max {err:.3g}, rms {rms:.3g})")
+    return err
+
+
+def row_norm_inputs(torch, shape, x_dtype, w_dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hidden = shape[-1]
+    x = (2.0 * torch.randn(shape, generator=gen, device="cuda") + 0.5).to(x_dtype)
+    w = (torch.rand((hidden,), generator=gen, device="cuda") + 0.5).to(w_dtype)
+    b = (0.1 * torch.randn((hidden,), generator=gen, device="cuda")).to(w_dtype)
+    return x, w, b
+
+
+def row_norm_calls(pn, kind, x, w, b):
+    """(kernel, plain) callables of N1 (``kind`` "ln") or N2."""
+    if kind == "ln":
+        return (lambda: pn.pallas_layer_norm(x, w, b),
+                lambda: pn.layer_norm_plain(x, w, b))
+    return (lambda: pn.pallas_rms_norm(x, w), lambda: pn.rms_norm_plain(x, w))
+
+
+def launches_of(pn, kind):
+    return pn.LAYER_NORM_LAUNCHES if kind == "ln" else pn.RMS_NORM_LAUNCHES
+
+
+def check_row_norm(torch, F, pn, timer, kind, x_dtype, w_dtype):
+    """N1 or N2 against its plain version at the norm path's rows, with
+    its times; the yardstick is ``F.layer_norm`` / ``F.rms_norm`` with
+    the parameters cast to x's dtype."""
+    rows, hidden = TRAIN_BATCH * SEQ, HIDDEN
+    x, w, b = row_norm_inputs(torch, (rows, hidden), x_dtype, w_dtype,
+                              seed=31 if kind == "ln" else 32)
+    kernel, plain = row_norm_calls(pn, kind, x, w, b)
+    before = launches_of(pn, kind)
+    out = kernel()
+    torch.cuda.synchronize()
+    check(launches_of(pn, kind) == before + 1, f"{kind} launched its kernel")
+    err = row_norm_close(torch, f"{kind} {x_dtype}/{w_dtype}", out, plain())
+    wl, bl = w.to(x_dtype), b.to(x_dtype)
+    if kind == "ln":
+        library = lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5)  # noqa: E731
+    elif hasattr(F, "rms_norm"):
+        library = lambda: F.rms_norm(x, (hidden,), wl, 1e-5)  # noqa: E731
+    else:
+        library = None
+    n_params = 2 if kind == "ln" else 1
+    n_bytes = 2 * x.numel() * x.element_size() + n_params * hidden * w.element_size()
+    n_ops = (8 if kind == "ln" else 4) * x.numel()
+    b_ms, b_by = bound(n_bytes, n_ops, "fp32")
+    return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=None if library is None else timer(library),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+# unmeasured edges of N1/N2: (x shape, x dtype, parameter dtype, layout)
+ROW_NORM_EDGES = (
+    ((64, 96), "bf16", "fp32", "contiguous"),
+    ((64, 100), "fp32", "fp32", "contiguous"),
+    ((64, 1024), "bf16", "bf16", "contiguous"),
+    ((16, 12288), "fp32", "fp32", "contiguous"),
+    ((4, 32768), "bf16", "fp32", "contiguous"),
+    ((1, 768), "fp32", "fp32", "contiguous"),
+    ((70, 768), "fp16", "fp16", "contiguous"),
+    ((70, 768), "fp16", "fp32", "contiguous"),
+    ((768,), "bf16", "fp32", "contiguous"),
+    ((3, 70, 768), "fp32", "bf16", "transposed"),
+    ((0, 768), "bf16", "fp32", "contiguous"),
+    ((8, 1), "fp32", "fp32", "contiguous"),
+)
+
+
+def check_row_norm_edges(torch, pn):
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "fp16": torch.float16}
+    for i, (shape, xd, wd, layout) in enumerate(ROW_NORM_EDGES):
+        x, w, b = row_norm_inputs(torch, shape, dtypes[xd], dtypes[wd], 40 + i)
+        if layout == "transposed":          # [3, 768, 70] seen as [3, 70, 768]
+            x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+            check(not x.is_contiguous(), "the edge's x is a strided view")
+        rows = x.numel() // shape[-1]
+        for kind in ("ln", "rms"):
+            kernel, plain = row_norm_calls(pn, kind, x, w, b)
+            before = launches_of(pn, kind)
+            out = kernel()
+            torch.cuda.synchronize()
+            check(launches_of(pn, kind) == before + (1 if rows else 0),
+                  f"{kind} {shape}: one launch per call, none for 0 rows")
+            check(out.shape == x.shape and out.dtype == x.dtype,
+                  f"{kind} {shape}: x's shape and dtype")
+            err = row_norm_close(torch, f"{kind} edge {shape} {xd}/{wd} "
+                                 f"{layout}", out, plain())
+            log(f"kernel {kind} edge {shape} {xd}/{wd} {layout}: max "
+                f"|kernel - plain| {err:.3g}")
+    wide = torch.zeros((2, pn.MAX_HIDDEN + 1), device="cuda")
+    try:
+        pn.pallas_rms_norm(wide, torch.ones(pn.MAX_HIDDEN + 1, device="cuda"))
+    except ValueError as e:
+        log(f"kernel rms hidden {pn.MAX_HIDDEN + 1}: raises ({e})")
+    else:
+        check(False, "a row wider than MAX_HIDDEN raises")
+
+
+NORM_SHAPE = (TRAIN_BATCH, SEQ, HIDDEN)     # GPT-124M's training activation
+NORM_PASSES = 10
+
+
+def norm_path_leaves(torch, dtype, device, seed=21):
+    """x, weight, bias and the cotangent of the norm path, drawn on the
+    CPU from ``seed`` (so the card and the CPU get the same values)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = 2.0 * torch.randn(NORM_SHAPE, generator=gen) + 0.5
+    w = torch.rand((HIDDEN,), generator=gen) + 0.5
+    b = 0.1 * torch.randn((HIDDEN,), generator=gen)
+    g = torch.randn(NORM_SHAPE, generator=gen)
+    x, g = (t.to(dtype).to(device) for t in (x, g))
+    w, b = (t.to(device) for t in (w, b))
+    return [t.requires_grad_() for t in (x, w, b)], g
+
+
+def norm_grads(torch, kind, fn, leaves, g):
+    """``[y, dx, dw(, db)]`` of ``fn(x, w, b)`` (N2 takes no bias)."""
+    used = leaves if kind == "ln" else leaves[:2]
+    y = fn(*leaves)
+    return [y] + list(torch.autograd.grad(y, used, g))
+
+
+def within_rms(what, got, want, frac=1e-5):
+    """``got`` within ``frac`` of ``want``'s RMS; returns the ratio."""
+    err = (got.detach().float().cpu() - want.detach().float().cpu()).abs().max().item()
+    rms = want.detach().float().square().mean().sqrt().item()
+    log(f"  {what}: max |card - CPU| {err:.3g} = {err / rms:.3g} of rms {rms:.3g}")
+    check(err <= frac * rms, f"{what}: within {frac} of the RMS")
+    return err / rms
+
+
+def norm_path_phase(torch, pn, tn):
+    """``pallas_layer_norm`` and ``pallas_rms_norm`` forward and backward
+    at GPT-124M's training activation, 10 passes each, bf16 x over fp32
+    parameters: N1/N2 once per forward and never in a backward; gradients
+    bit for bit those of the same Function over the plain forward; then
+    fp32 card vs CPU, and the norm modules card vs CPU."""
+    entries = {
+        "ln": (lambda x, w, b: pn.pallas_layer_norm(x, w, b),
+               lambda x, w, b: pn.LayerNormKernelFunction.apply(
+                   x, w, b, 1e-5, pn.layer_norm_plain)),
+        "rms": (lambda x, w, b: pn.pallas_rms_norm(x, w),
+                lambda x, w, b: pn.RMSNormKernelFunction.apply(
+                    x, w, 1e-5, pn.rms_norm_plain)),
+    }
+    leaves, g = norm_path_leaves(torch, torch.bfloat16, "cuda")
+    for kind, (fn, _) in entries.items():     # warm-up, not counted
+        norm_grads(torch, kind, fn, leaves, g)
+    torch.cuda.synchronize()
+    pn.LAYER_NORM_LAUNCHES = pn.RMS_NORM_LAUNCHES = 0
+    walls = {"ln": [], "rms": []}
+    outs = {}
+    for _ in range(NORM_PASSES):
+        for kind, (fn, _) in entries.items():
+            t0 = time.perf_counter()
+            before = launches_of(pn, kind)
+            y = fn(*leaves)
+            check(launches_of(pn, kind) == before + 1,
+                  f"{kind}: one launch per forward")
+            grads = torch.autograd.grad(
+                y, leaves if kind == "ln" else leaves[:2], g)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            check(launches_of(pn, kind) == before + 1,
+                  f"{kind}: no launch in the backward")
+            outs[kind] = [y] + list(grads)
+    counts = {"pallas_layer_norm": pn.LAYER_NORM_LAUNCHES,
+              "pallas_rms_norm": pn.RMS_NORM_LAUNCHES}
+    check(counts == {"pallas_layer_norm": NORM_PASSES,
+                     "pallas_rms_norm": NORM_PASSES},
+          f"N1/N2 launched once per forward: {counts}")
+    for kind, (_, plain_fn) in entries.items():
+        ref = norm_grads(torch, kind, plain_fn, leaves, g)
+        torch.cuda.synchronize()
+        y, *grads = outs[kind]
+        row_norm_close(torch, f"norm path {kind} y", y, ref[0])
+        for name, got, want in zip(("dx", "dw", "db"), grads, ref[1:]):
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"norm path {kind} {name}: bit for bit the plain forward's")
+        log(f"norm path[{kind}, {list(NORM_SHAPE)} bf16 x, fp32 params]: "
+            f"forward + backward {statistics.median(walls[kind]) * 1e3:.3f} ms "
+            f"(median of {NORM_PASSES}, host clock); dx, dw, db bit for bit "
+            f"the plain forward's; dtypes {[str(t.dtype) for t in grads]}")
+
+    log("norm path card vs CPU (fp32, same seed):")
+    for kind, (fn, _) in entries.items():
+        card = norm_grads(torch, kind, fn,
+                          *norm_path_leaves(torch, torch.float32, "cuda"))
+        cpu = norm_grads(torch, kind, fn,
+                         *norm_path_leaves(torch, torch.float32, "cpu"))
+        for name, a, c in zip(("y", "dx", "dw", "db"), card, cpu):
+            within_rms(f"{kind} {name}", a, c)
+    modules = (("FusedRMSNorm", dict()), ("MixedFusedLayerNorm", dict()),
+               ("FusedLayerNorm", dict(elementwise_affine=False)))
+    for name, kw in modules:
+        for memory_efficient in (False, True):
+            results = []
+            for device in ("cuda", "cpu"):
+                (x, w, b), g = norm_path_leaves(torch, torch.float32, device)
+                mod = getattr(tn, name)(HIDDEN, memory_efficient=memory_efficient,
+                                        device=device, **kw)
+                with torch.no_grad():
+                    for p, v in zip(mod.parameters(), (w, b)):
+                        p.copy_(v)
+                params = list(mod.parameters())
+                y = mod(x)
+                results.append([y] + list(torch.autograd.grad(y, [x] + params, g)))
+            for what, a, c in zip(("y", "dx", "dscale", "dbias"), *results):
+                within_rms(f"{name}({kw}, memory_efficient={memory_efficient}) "
+                           f"{what}", a, c)
+    return counts
 
 
 def verify_limits(torch, lengths):
@@ -1213,7 +1467,9 @@ def main():
     import torch.nn.functional as F
 
     from apex_tpu_torch import _build
+    from apex_tpu_torch import normalization as tn
     from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import pallas_norm as pn
     from apex_tpu_torch.serving import fused_ops as fo
     from apex_tpu_torch.serving import lora as lo
     from apex_tpu_torch.serving import paged_attention as pa
@@ -1274,6 +1530,14 @@ def main():
             results[("fused_residual_norm", f"{label} rows={rows}")] = rec
             log(f"kernel fused_residual_norm[{label}, {rows} rows]: "
                 f"{json.dumps(rec)}")
+    for label, x_dtype, w_dtype in (("bf16/fp32", bf16, f32), ("fp32", f32, f32),
+                                    ("bf16", bf16, bf16)):
+        for name, kind in (("pallas_layer_norm", "ln"), ("pallas_rms_norm", "rms")):
+            rec = check_row_norm(torch, F, pn, timer, kind, x_dtype, w_dtype)
+            results[(name, f"{label} rows={TRAIN_BATCH * SEQ}")] = rec
+            log(f"kernel {name}[x/params {label}, {TRAIN_BATCH * SEQ} x "
+                f"{HIDDEN}]: {json.dumps(rec)}")
+    check_row_norm_edges(torch, pn)
     for label, dtype, kw in (("bf16", bf16, {}), ("fp32", f32, {}),
                              ("bf16 segments", bf16, dict(segments=True)),
                              ("bf16 dropout 0.1", bf16, dict(dropout=0.1))):
@@ -1321,6 +1585,8 @@ def main():
     card_vs_cpu_lora(torch, params, motifs)
     profile_spec_lora(torch, params, motifs)
 
+    launches.update(norm_path_phase(torch, pn, tn))
+
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {
         "paged_attention_decode": ("apex_tpu_torch/csrc/paged_attention.cu",
@@ -1340,7 +1606,14 @@ def main():
                       "bf16"),
         "lora_delta": ("apex_tpu_torch/csrc/lora_delta.cu",
                        "apex_tpu/serving/lora.py:445", "bf16/fp32 qkv S=1"),
+        "pallas_layer_norm": ("apex_tpu_torch/csrc/row_norm.cu",
+                              "apex_tpu/ops/pallas_norm.py:50",
+                              f"bf16/fp32 rows={TRAIN_BATCH * SEQ}"),
+        "pallas_rms_norm": ("apex_tpu_torch/csrc/row_norm.cu",
+                            "apex_tpu/ops/pallas_norm.py:60",
+                            f"bf16/fp32 rows={TRAIN_BATCH * SEQ}"),
     }
+    check(len(meta) == 9, "the kernels line lists all nine kernels")
     kernels = []
     for name, (source, replaces, variant) in meta.items():
         rec = {k: v for k, v in results[(name, variant)].items()

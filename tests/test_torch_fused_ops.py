@@ -68,7 +68,8 @@ def test_layer_norm_matches_jax(dtype):
     want = jax_layer_norm(jnp.asarray(x, jdt), jnp.asarray(w), jnp.asarray(b),
                           (HIDDEN,))
     got = fused_layer_norm_affine(torch.from_numpy(x).to(tdt),
-                                  torch.from_numpy(w), torch.from_numpy(b))
+                                  torch.from_numpy(w), torch.from_numpy(b),
+                                  (HIDDEN,))
     assert got.dtype == tdt
     tol = dict(atol=1e-2, rtol=1e-2) if dtype == "bf16" else \
         dict(atol=1e-5, rtol=1e-5)

@@ -166,7 +166,7 @@ def test_layer_norm_backward_matches_jax(memory_efficient):
     jy, vjp = jax.vjp(jfn, *map(jnp.asarray, (x, w, b)))
     jgrads = vjp(jnp.asarray(dy))
     tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
-    y = fused_layer_norm_affine(tx, tw, tb, 1e-5, memory_efficient)
+    y = fused_layer_norm_affine(tx, tw, tb, (48,), 1e-5, memory_efficient)
     y.backward(torch.from_numpy(dy))
     np.testing.assert_allclose(y.detach().numpy(), _np(jy), rtol=1e-5,
                                atol=1e-5)
