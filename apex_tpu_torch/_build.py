@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``*.cu`` source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+(with ``-I csrc``, so the sources share ``attention_core.cuh``) into one
 shared library with a plain C interface, ``build/apex_tpu_torch/
 libkernels.so`` beside the package, and loaded with :mod:`ctypes`.  The
-build runs at first use and again whenever the sources or the flags change
-(their SHA-256 is kept beside the library).  The sources compile in
-parallel, one ``nvcc`` each, and link in one more call.
+build runs at first use and again whenever a source, a header or the flags
+change (the SHA-256 of every ``*.cu`` and ``*.cuh`` under ``csrc/`` and of
+the flags is kept beside the library).  The sources compile in parallel,
+one ``nvcc`` each, and link in one more call; the tensor-core kernels
+reach ``cuTensorMapEncodeTiled`` through the runtime's driver entry point,
+so the link line needs no ``-lcuda``.
 
 Nothing here falls back: without ``nvcc`` or on a failed compile the build
 raises, and a kernel wrapper handed a CUDA tensor raises with it.
@@ -26,8 +30,6 @@ __all__ = ["build", "library", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "apex_tpu_torch"
-SOURCES = ("paged_attention.cu", "fused_residual_norm.cu", "flash_attention.cu",
-           "lora_delta.cu", "row_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,9 +45,13 @@ _SIGNATURES = {
         [_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
     "apex_paged_attention_prefill":
         [_I, _I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "apex_paged_prefill_tc": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "apex_paged_prefill_tc_smem": [_I, _I],
     "apex_fused_residual_norm":
         [_I, _I] + [_P] * 7 + [_I, _I, _F, _P],
     "apex_flash_fwd": [_I] + [_P] * 8 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_flash_fwd_tc": [_P] * 8 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_flash_fwd_tc_smem": [_I],
     "apex_flash_dq": [_I] + [_P] * 10 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_dkv": [_I] + [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_lora_delta": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
@@ -54,7 +60,8 @@ _SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
-# what the last build printed (ptxas register and shared-memory use)
+# what the build of the loaded library printed (ptxas register and
+# shared-memory use), kept beside it as libkernels.log
 last_build_log = ""
 
 
@@ -72,10 +79,11 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """SHA-256 of the flags and of every source and header in ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 
@@ -85,16 +93,21 @@ def build() -> Path:
     global last_build_log
     lib = BUILD_DIR / "libkernels.so"
     stamp = BUILD_DIR / "libkernels.sha256"
+    saved_log = BUILD_DIR / "libkernels.log"
     digest = _digest()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        if saved_log.exists():
+            last_build_log = saved_log.read_text()
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.{threading.get_ident()}"
     jobs = []
-    for name in SOURCES:
-        obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+    for src in sorted(CSRC.glob("*.cu")):
+        name = src.name
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+               str(obj)]
         jobs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -116,11 +129,12 @@ def build() -> Path:
         if link.returncode:
             raise RuntimeError(f"linking libkernels.so failed:\n{link.stdout}")
         os.replace(tmp, lib)
+        last_build_log = "\n".join(logs)
+        saved_log.write_text(last_build_log)
         stamp.write_text(digest)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    last_build_log = "\n".join(logs)
     return lib
 
 

@@ -16,10 +16,11 @@
 //
 // What bounds it on the H100: operations.  At the training shape (head_dim
 // 64, sequence 1024) every K/V element read feeds 64 query rows of a tile,
-// far above the card's operations-per-byte balance point.  This first
-// version does the products in fp32 on the CUDA cores, not the tensor
-// cores, so it sits well above the bf16 tensor-core bound; wgmma and TMA
-// are later work.  What the design does keep is the flash structure:
+// far above the card's operations-per-byte balance point.  These first
+// versions do the products in fp32 on the CUDA cores, not the tensor
+// cores, so they sit well above the bf16 tensor-core bound; the forward's
+// tensor-core route is below, the backward's is later work.  What the
+// design does keep is the flash structure:
 //   - one CTA of 256 threads per (batch*head, 64-row tile); the sweep over
 //     the other sequence is a loop inside the CTA (the TPU grid's
 //     sequential axis), with the running state in registers, so nothing of
@@ -37,11 +38,40 @@
 // Head dims up to 128 are taken: the tiles are compiled for 64 or 128
 // columns and a smaller head dim is zero-filled in shared memory.
 //
+// F1 has a second route, flash_fwd_tc_kernel, for bf16 q, k and v with a
+// head dim that is a multiple of 8 up to 128 (the Python wrapper's
+// fwd_route() chooses it; fp32 and other head dims stay on the kernel
+// above).  It is built on the shared Hopper core (attention_core.cuh):
+//   - one CTA per (batch*head, 128 query rows): two consumer warpgroups of
+//     64 rows each and one producer warp; heavy tiles first, as above;
+//   - the producer loads the Q tile once and then K and V tiles of 64 keys
+//     with TMA through 3-D tensor maps over [b*h, s, d] (rows past a
+//     head's sk and columns past d arrive as zeros, never from the next
+//     head) into a two-stage ring with a full and an empty mbarrier per
+//     stage, the tile's segment ids beside it;
+//   - the consumers run S = Q K^T and O += P V as wgmma on the tensor
+//     cores, the masks, scale and online softmax on the fp32 accumulator
+//     fragment, and the dropout hash per fragment element at its global
+//     (row, col), after the row sum and before P is rounded to bf16: the
+//     same rounding points, guards and dropout bits as the kernel above;
+//     a tile with nothing to mask (inside the causal triangle, no
+//     segments, not ragged) only scales;
+//   - at head dim 64 two CTAs share an SM, so one CTA's softmax runs while
+//     the other's products occupy the tensor cores.
+// What bounds it: against the tensor cores' bf16 rate, the bytes of q, k,
+// v and out (read and written once) and the products are about even at
+// the training shape; what holds this version back is latency: within a
+// warpgroup the products, the softmax and the waits run one after another
+// (issuing tile j + 1's Q K^T beside tile j's P V needs about 16 more
+// registers a thread, which spill under the two-CTA cap of 112).
+//
 // Each launcher is a plain C function that returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
@@ -457,6 +487,171 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
 }
 
+
+// ------------------------------------------------- F1 on the tensor cores
+
+constexpr int kTcStages = 2;                   // K/V ring depth
+constexpr int kTcConsumers = 256;              // two warpgroups of 64 query rows
+constexpr int kTcThreads = kTcConsumers + 32;  // and one producer warp
+constexpr int kTcRows = 128;                   // query rows of a CTA
+
+// Shared memory of flash_fwd_tc_kernel, as offsets from a 1024-byte-aligned
+// base: Q [128 x D], the ring's K and V tiles [64 x D] (swizzled bf16
+// panels), the ring's segment ids [64], then the mbarriers.
+template <int D>
+struct FwdTcSmem {
+  static constexpr uint32_t kTile = (D / 64) * apex_core::kPanelBytes;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = 2 * kTile;
+  static constexpr uint32_t v = k + kTcStages * kTile;
+  static constexpr uint32_t seg = v + kTcStages * kTile;
+  static constexpr uint32_t bars = seg + kTcStages * 64 * sizeof(int);
+  static constexpr size_t bytes = bars + (2 * kTcStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// Number of 64-key tiles any row of the 128-row q tile at row0 can see.
+__device__ __forceinline__ int live_k_tiles_tc(const Params& p, int row0) {
+  const int n = (p.sk + kTile - 1) / kTile;
+  if (!p.causal) return n;
+  const int last_row = min(row0 + kTcRows, p.sq) - 1;
+  const int last_col = p.q_offset + last_row - p.kv_offset;
+  return last_col < 0 ? 0 : min(n, last_col / kTile + 1);
+}
+
+// At D = 64 two CTAs share an SM (96 registers a thread, no spills), so
+// one CTA's softmax overlaps the other's products on the tensor cores.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 64 ? 2 : 1) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, Params p) {
+  using L = FwdTcSmem<D>;
+  using namespace apex_core;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  int* seg_s = reinterpret_cast<int*>(smem + L::seg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kTcStages;
+  uint64_t* q_full = empty + kTcStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest sweeps first
+  const int n_live = live_k_tiles_tc(p, row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kTcConsumers);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::kTile);
+      for (int w = 0; w < 2; ++w)
+        for (int pn = 0; pn < kPanels; ++pn)
+          tma_load_3d(smem + L::q + w * L::kTile + pn * kPanelBytes, &q_map, q_full, pn * 64,
+                      row0 + 64 * w, bh);
+    }
+    for (int jt = 0; jt < n_live; ++jt) {
+      const int st = jt % kTcStages;
+      if (jt >= kTcStages) mbar_wait(&empty[st], (jt / kTcStages - 1) & 1);
+      const int col0 = jt * kTile;
+      if (p.seg_k)
+        for (int i = lane; i < kTile; i += 32) {
+          const int pos = col0 + i;
+          seg_s[st * kTile + i] = pos < p.sk ? p.seg_k[(size_t)b * p.sk + pos] : -1;
+        }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTile);
+        for (int pn = 0; pn < kPanels; ++pn) {
+          tma_load_3d(smem + L::k + st * L::kTile + pn * kPanelBytes, &k_map, &full[st], pn * 64,
+                      col0, bh);
+          tma_load_3d(smem + L::v + st * L::kTile + pn * kPanelBytes, &v_map, &full[st], pn * 64,
+                      col0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups: wg owns query rows row0 + 64 wg + [0, 64)
+  const int wg = warp / 4;
+  const int rows[2] = {row0 + 64 * wg + frag_row(0), row0 + 64 * wg + frag_row(2)};
+  int seg_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    seg_q[h] = p.seg_q && rows[h] < p.sq ? p.seg_q[(size_t)b * p.sq + rows[h]] : -2;
+  const uint32_t head = p.seed ? head_hash(p.seed, bh) : 0u;
+  const uint32_t q_tile = smem_addr(smem + L::q + wg * L::kTile);
+
+  TileCore<D> core;
+  core.init();
+  mbar_wait(q_full, 0);
+  for (int jt = 0; jt < n_live; ++jt) {
+    const int st = jt % kTcStages;
+    const int col0 = jt * kTile;
+    mbar_wait(&full[st], (jt / kTcStages) & 1);
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    TileCore<D>::scores(s, q_tile, kPanelBytes, smem_addr(smem + L::k + st * L::kTile),
+                        kPanelBytes);
+    // only a ragged, segmented or diagonal tile has entries to mask
+    const bool masked = col0 + kTile > p.sk || p.seg_q ||
+                        (p.causal && p.kv_offset + col0 + kTile - 1 > p.q_offset + row0 + 64 * wg);
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1, c = frag_col(i), col = col0 + c;
+        const bool vis = col < p.sk && !(p.causal && p.q_offset + rows[h] < p.kv_offset + col) &&
+                         (!p.seg_q || seg_q[h] == seg_s[st * kTile + c]);
+        s[i] = vis ? s[i] * p.scale : kNegInf;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= p.scale;
+    }
+    core.softmax(s);
+    if (p.seed) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1, col = col0 + frag_col(i);
+        s[i] = keep(head, p.q_offset + rows[h], p.kv_offset + col, p.thresh) ? s[i] * p.inv_keep
+                                                                            : 0.f;
+      }
+    }
+    core.accumulate(s, smem_addr(smem + L::v + st * L::kTile), kPanelBytes);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= p.sq) continue;
+    const float l_safe = core.l[h] == 0.f ? 1.f : core.l[h];
+    __nv_bfloat16* orow = out + ((size_t)bh * p.sq + row) * p.d;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int i = 2 * h; i < 32; i += 4) {
+        const int c = pn * 64 + frag_col(i);
+        if (c < p.d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(core.o[pn][i] / l_safe, core.o[pn][i + 1] / l_safe);
+      }
+    if (lane % 4 == 0)
+      lse[(size_t)bh * p.sq + row] = core.l[h] == 0.f ? kNegInf : core.m[h] + logf(l_safe);
+  }
+}
+
 // ------------------------------------------------------------ launchers
 
 template <typename Kernel>
@@ -530,6 +725,32 @@ cudaError_t launch_dkv(int bh, const Params& p, const void* q, const void* k, co
   return cudaGetLastError();
 }
 
+
+template <int D>
+cudaError_t launch_fwd_tc(int bh, const Params& p, const void* q, const void* k, const void* v,
+                          void* out, void* lse, cudaStream_t s) {
+  using apex_core::make_map_3d;
+  const uint64_t row = (uint64_t)p.d * sizeof(__nv_bfloat16);
+  CUtensorMap qm, km, vm;
+  cudaError_t err = make_map_3d(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, p.d, p.sq, bh, row,
+                                row * p.sq, 64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_map_3d(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, p.d, p.sk, bh, row, row * p.sk,
+                      64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_map_3d(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, p.d, p.sk, bh, row, row * p.sk,
+                      64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const size_t smem = FwdTcSmem<D>::bytes;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.sq + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, s>>>(qm, km, vm, static_cast<__nv_bfloat16*>(out),
+                                        static_cast<float*>(lse), p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Dispatch on (dtype, head dim <= 64 or <= 128); anything else is refused.
@@ -553,6 +774,30 @@ extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k, const voi
 #define APEX_FWD(T, D) launch_fwd<T, D>(bh, p, q, k, v, out, lse, s)
   APEX_FLASH_DISPATCH(APEX_FWD)
 #undef APEX_FWD
+}
+
+// F1 on the tensor cores: bf16 q, k, v ([b*h, s, d] contiguous, 16-byte
+// aligned), d a multiple of 8 up to 128, sk > 0; anything else is refused.
+extern "C" int apex_flash_fwd_tc(const void* q, const void* k, const void* v, const void* seg_q,
+                                 const void* seg_k, const void* seed, void* out, void* lse, int bh,
+                                 int heads, int sq, int sk, int d, int causal, int q_offset,
+                                 int kv_offset, float scale, unsigned int thresh, float inv_keep,
+                                 void* stream) {
+  if (bh == 0 || sq == 0) return (int)cudaSuccess;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) %
+                        16) == 0;
+  if (d < 8 || d > 128 || d % 8 || sk < 1 || !aligned) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(heads, sq, sk, d, scale, causal, q_offset, kv_offset, seg_q, seg_k,
+                               seed, thresh, inv_keep);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return (int)launch_fwd_tc<64>(bh, p, q, k, v, out, lse, s);
+  return (int)launch_fwd_tc<128>(bh, p, q, k, v, out, lse, s);
+}
+
+// Dynamic shared memory of flash_fwd_tc_kernel for head dim d (bytes).
+extern "C" int apex_flash_fwd_tc_smem(int d) {
+  return (int)(d <= 64 ? FwdTcSmem<64>::bytes : FwdTcSmem<128>::bytes);
 }
 
 extern "C" int apex_flash_dq(int dtype, const void* q, const void* k, const void* v,

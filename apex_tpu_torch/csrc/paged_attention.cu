@@ -29,11 +29,44 @@
 // -1e30 with the all-masked guard (m_safe) and l == 0 -> 1 at the end, so a
 // length or limit of 0 gives exact zeros.
 //
+// K2 has a second route, paged_prefill_tc_kernel, for bf16 q over a bf16
+// or int8 cache with a head dim that is a multiple of 8 (bf16) or 16
+// (int8) up to 128 and a block size that divides 64 in multiples of 8 (the
+// Python wrapper's prefill_route() chooses it; fp32 and other shapes stay
+// on the kernel above, as does K1, bit for bit).  It is built on the shared
+// Hopper core (attention_core.cuh):
+//   - one CTA per (slot, kv group, 64 query rows), rows being (token, head
+//     of the group) pairs as above: one consumer warpgroup and one
+//     producer warp;
+//   - the producer reads the slot's block-table row and brings each live
+//     page of K and V in with one TMA load per page (a 3-D tensor map over
+//     the arena as [n_blocks * bs, g, d], a box of [bs, 1, d]) into a
+//     two-stage ring with full/empty mbarriers, 64 keys per stage; page
+//     slots past the sweep load out of bounds and arrive as zeros.  The
+//     sweep is min(live blocks, ceil(largest limit of the tile / bs))
+//     pages, as above;
+//   - the consumers run Q K^T and P V as wgmma, with the per-row limits,
+//     the scale and the online softmax on the fp32 accumulator fragment;
+//   - an int8 cache is not dequantised into bf16: its values are exact in
+//     bf16, so the consumers copy each int8 page into a bf16 tile unscaled
+//     (then fence.proxy.async before the wgmma reads it), fold the K row
+//     scale into the score column, s = scale * k_scale[c] * (q . k[c]),
+//     and the V row scale into P before its rounding, P'[r, c] =
+//     P[r, c] * v_scale[c];
+//   - rounding point: P (P' for int8) is rounded to bf16 before P V.  The
+//     kernel above and the TPU kernel's einsum("tns,snd->tnd", p, v) take
+//     P in fp32; bf16 P is the rounding F1 and SDPA make, and the one the
+//     TPU's MXU makes for an fp32 einsum at default precision.
+// What bounds it: bytes, as above; each CTA reads its slot's live pages
+// once per 64 query rows.
+//
 // Each launcher is a plain C function that returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
@@ -257,6 +290,259 @@ cudaError_t dispatch(int q_dtype, int kv_dtype, const void* q, const void* k, co
   return cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------------- K2 on the tensor cores
+
+constexpr int kPfStages = 2;                   // K/V ring depth
+constexpr int kPfConsumers = 128;              // one warpgroup of 64 query rows
+constexpr int kPfThreads = kPfConsumers + 32;  // and one producer warp
+
+// Shared memory of paged_prefill_tc_kernel, as offsets from a
+// 1024-byte-aligned base: Q [64 x D] (swizzled bf16 panels); the ring's K
+// and V tiles of 64 keys, as swizzled bf16 panels or, for an int8 cache,
+// as raw [64 x D] bytes with the bf16 tiles they are copied into and the
+// tile's K and V row scales; then the mbarriers.
+template <bool INT8, int D>
+struct PrefillTcSmem {
+  static constexpr uint32_t kTile = (D / 64) * apex_core::kPanelBytes;
+  static constexpr uint32_t kStage = INT8 ? 64 * D : kTile;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = kTile;
+  static constexpr uint32_t v = k + kPfStages * kStage;
+  static constexpr uint32_t conv_k = v + kPfStages * kStage;
+  static constexpr uint32_t conv_v = conv_k + (INT8 ? kTile : 0);
+  static constexpr uint32_t scales = conv_v + (INT8 ? kTile : 0);
+  static constexpr uint32_t bars = scales + (INT8 ? kPfStages * 2 * 64 * sizeof(float) : 0);
+  static constexpr size_t bytes = bars + 2 * kPfStages * sizeof(uint64_t) + 1024;
+};
+
+// The sweep of one tile of query rows, computed by a whole warp: the
+// number of cache positions swept (whole live blocks up to the largest
+// limit of the tile's tokens) and of 64-key tiles.
+struct Sweep {
+  int tokens, tiles;
+};
+
+__device__ __forceinline__ Sweep prefill_sweep(const int* limits, int length, int b, int T,
+                                               int hpg, int bs, int max_blocks) {
+  const int t_lo = blockIdx.z * 64 / hpg;
+  const int t_hi = min(T - 1, (blockIdx.z * 64 + 63) / hpg);
+  int max_lim = 0;
+  for (int t = t_lo + threadIdx.x % 32; t <= t_hi; t += 32)
+    max_lim = max(max_lim, limits[(size_t)b * T + t]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) max_lim = max(max_lim, __shfl_xor_sync(0xffffffffu, max_lim, o));
+  const int live_blocks = min((max(length, 0) + bs - 1) / bs, max_blocks);
+  const int blocks = min(live_blocks, (max_lim + bs - 1) / bs);
+  return {blocks * bs, (blocks * bs + 63) / 64};
+}
+
+// 16 int8 values of a raw tile row -> 16 bf16 at column c (a multiple of
+// 16) of row r of a swizzled tile.
+__device__ __forceinline__ void int8_to_bf16(uint8_t* tile, const int8_t* src, int r, int c) {
+  const int4 raw = *reinterpret_cast<const int4*>(src);
+  const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = apex_core::pack_bf16((float)x[2 * i], (float)x[2 * i + 1]);
+  uint8_t* panel = tile + (c / 64) * apex_core::kPanelBytes;
+  *reinterpret_cast<uint4*>(panel + apex_core::swizzled(r, c % 64)) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(panel + apex_core::swizzled(r, c % 64 + 8)) =
+      make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <bool INT8, int D>
+__global__ void __launch_bounds__(kPfThreads) paged_prefill_tc_kernel(
+    const __grid_constant__ CUtensorMap k_map,  // [n_blocks * bs, g, d]
+    const __grid_constant__ CUtensorMap v_map,
+    const __nv_bfloat16* __restrict__ q,   // [B, T, n, d]
+    const float* __restrict__ k_scales,    // [n_blocks, bs, g] (int8 only)
+    const float* __restrict__ v_scales,
+    const int* __restrict__ tables,        // [B, max_blocks]
+    const int* __restrict__ lengths,       // [B]
+    const int* __restrict__ limits,        // [B, T]
+    __nv_bfloat16* __restrict__ out,       // [B, T, n, d]
+    int T, int n, int g, int d, int bs, int max_blocks, int cache_rows, float scale) {
+  using L = PrefillTcSmem<INT8, D>;
+  using namespace apex_core;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  float* scales = reinterpret_cast<float*>(smem + L::scales);  // [stage][k, v][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kPfStages;
+
+  const int b = blockIdx.x, grp = blockIdx.y;
+  const int hpg = n / g;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* table = tables + (size_t)b * max_blocks;
+  const Sweep sweep = prefill_sweep(limits, lengths[b], b, T, hpg, bs, max_blocks);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kPfStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kPfConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kPfConsumers / 32) {  // the producer warp
+    const int pages = 64 / bs;      // pages per 64-key tile
+    const int live_pages = sweep.tokens / bs;
+    for (int jt = 0; jt < sweep.tiles; ++jt) {
+      const int st = jt % kPfStages;
+      if (jt >= kPfStages) mbar_wait(&empty[st], (jt / kPfStages - 1) & 1);
+      if (INT8)
+        for (int i = lane; i < 64; i += 32) {
+          const int pos = jt * 64 + i;
+          float ks = 0.f, vs = 0.f;
+          if (pos < sweep.tokens) {
+            const size_t row = ((size_t)table[pos / bs] * bs + pos % bs) * g + grp;
+            ks = k_scales[row];
+            vs = v_scales[row];
+          }
+          scales[(st * 2) * 64 + i] = ks;
+          scales[(st * 2 + 1) * 64 + i] = vs;
+        }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * L::kStage);
+        for (int pg = 0; pg < pages; ++pg) {
+          const int page = jt * pages + pg;
+          const int row = page < live_pages ? table[page] * bs : cache_rows;  // else all zeros
+          if (INT8) {
+            const uint32_t off = st * L::kStage + pg * bs * D;
+            tma_load_3d(smem + L::k + off, &k_map, &full[st], 0, grp, row);
+            tma_load_3d(smem + L::v + off, &v_map, &full[st], 0, grp, row);
+          } else {
+            for (int pn = 0; pn < kPanels; ++pn) {
+              const uint32_t off = st * L::kStage + pn * kPanelBytes + pg * bs * 128;
+              tma_load_3d(smem + L::k + off, &k_map, &full[st], pn * 64, grp, row);
+              tma_load_3d(smem + L::v + off, &v_map, &full[st], pn * 64, grp, row);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows r = z * 64 + [0, 64) are (token r / hpg,
+  // head grp * hpg + r % hpg)
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.z * 64;
+  for (int idx = tid; idx < 64 * (D / 8); idx += kPfConsumers) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int t = (r0 + r) / hpg, h = grp * hpg + (r0 + r) % hpg;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (t < T && c < d) val = *reinterpret_cast<const uint4*>(q + (((size_t)b * T + t) * n + h) * d + c);
+    *reinterpret_cast<uint4*>(smem + L::q + (c / 64) * kPanelBytes + swizzled(r, c % 64)) = val;
+  }
+  fence_proxy_async();
+  named_barrier(1, kPfConsumers);
+
+  int tok[2], head[2], lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + frag_row(2 * h);
+    tok[h] = r / hpg;
+    head[h] = grp * hpg + r % hpg;
+    lim[h] = tok[h] < T ? limits[(size_t)b * T + tok[h]] : 0;
+  }
+
+  TileCore<D> core;
+  core.init();
+  for (int jt = 0; jt < sweep.tiles; ++jt) {
+    const int st = jt % kPfStages;
+    mbar_wait(&full[st], (jt / kPfStages) & 1);
+    uint32_t k_tile = smem_addr(smem + L::k + st * L::kStage);
+    uint32_t v_tile = smem_addr(smem + L::v + st * L::kStage);
+    if (INT8) {
+      named_barrier(1, kPfConsumers);  // the last tile's products are done with conv_k/v
+      const int8_t* rk = reinterpret_cast<const int8_t*>(smem + L::k + st * L::kStage);
+      const int8_t* rv = reinterpret_cast<const int8_t*>(smem + L::v + st * L::kStage);
+      for (int idx = tid; idx < 64 * (D / 16); idx += kPfConsumers) {
+        const int r = idx / (D / 16), c = (idx % (D / 16)) * 16;
+        int8_to_bf16(smem + L::conv_k, rk + r * D + c, r, c);
+        int8_to_bf16(smem + L::conv_v, rv + r * D + c, r, c);
+      }
+      fence_proxy_async();
+      named_barrier(1, kPfConsumers);
+      k_tile = smem_addr(smem + L::conv_k);
+      v_tile = smem_addr(smem + L::conv_v);
+    }
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    TileCore<D>::scores(s, smem_addr(smem + L::q), kPanelBytes, k_tile, kPanelBytes);
+    const float* ks = scales + (st * 2) * 64;
+    const float* vs = ks + 64;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, c = frag_col(i), pos = jt * 64 + c;
+      const bool live = pos < lim[h] && pos < sweep.tokens;
+      s[i] = live ? s[i] * (INT8 ? scale * ks[c] : scale) : kNegInf;
+    }
+    core.softmax(s);
+    if (INT8) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= vs[frag_col(i)];
+    }
+    core.accumulate(s, v_tile, kPanelBytes);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (tok[h] >= T) continue;
+    const float l_safe = core.l[h] == 0.f ? 1.f : core.l[h];
+    __nv_bfloat16* orow = out + (((size_t)b * T + tok[h]) * n + head[h]) * d;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int i = 2 * h; i < 32; i += 4) {
+        const int c = pn * 64 + frag_col(i);
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(core.o[pn][i] / l_safe, core.o[pn][i + 1] / l_safe);
+      }
+  }
+}
+
+template <bool INT8, int D>
+cudaError_t launch_prefill_tc(const void* q, const void* k, const void* v, const void* ks,
+                              const void* vs, const void* tables, const void* lengths,
+                              const void* limits, void* out, int B, int T, int n, int g, int d,
+                              int bs, int max_blocks, int n_blocks, float scale,
+                              cudaStream_t stream) {
+  using apex_core::make_map_3d;
+  const CUtensorMapDataType type =
+      INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t es = INT8 ? 1 : 2;
+  const uint64_t rows = (uint64_t)n_blocks * bs;
+  const uint32_t box0 = INT8 ? D : 64;
+  const CUtensorMapSwizzle swz = INT8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap km, vm;
+  cudaError_t err = make_map_3d(&km, type, k, d, g, rows, d * es, (uint64_t)g * d * es, box0, 1,
+                                bs, swz);
+  if (err == cudaSuccess)
+    err = make_map_3d(&vm, type, v, d, g, rows, d * es, (uint64_t)g * d * es, box0, 1, bs, swz);
+  if (err != cudaSuccess) return err;
+  const size_t smem = PrefillTcSmem<INT8, D>::bytes;
+  auto kernel = paged_prefill_tc_kernel<INT8, D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B, g, (T * (n / g) + 63) / 64);
+  kernel<<<grid, kPfThreads, smem, stream>>>(
+      km, vm, static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<const int*>(limits),
+      static_cast<__nv_bfloat16*>(out), T, n, g, d, bs, max_blocks, (int)rows, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int apex_paged_attention_decode(
@@ -276,4 +562,40 @@ extern "C" int apex_paged_attention_prefill(
   return (int)dispatch<true>(q_dtype, kv_dtype, q, k, v, ks, vs, tables, lengths, limits, out,
                              B, T, n, g, d, bs, max_blocks, q_tile, scale,
                              static_cast<cudaStream_t>(stream));
+}
+
+
+// K2 on the tensor cores: bf16 q over a bf16 (kv_dtype 1) or int8 (2, with
+// its fp32 row scales) cache; d a multiple of 8 (bf16) or 16 (int8) up to
+// 128, bs a multiple of 8 dividing 64, 16-byte-aligned q and arenas;
+// anything else is refused.
+extern "C" int apex_paged_prefill_tc(int kv_dtype, const void* q, const void* k, const void* v,
+                                     const void* ks, const void* vs, const void* tables,
+                                     const void* lengths, const void* limits, void* out, int B,
+                                     int T, int n, int g, int d, int bs, int max_blocks,
+                                     int n_blocks, float scale, void* stream) {
+  if (B == 0 || T == 0) return (int)cudaSuccess;
+  const bool int8 = kv_dtype == kI8;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) %
+                        16) == 0;
+  if ((kv_dtype != kBF16 && !int8) || (int8 && (!ks || !vs)) || d < 8 || d > 128 ||
+      d % (int8 ? 16 : 8) || bs < 8 || bs % 8 || 64 % bs || g < 1 || n % g || n_blocks < 1 ||
+      !aligned)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define APEX_PF_TC(I8, D_)                                                                    \
+  launch_prefill_tc<I8, D_>(q, k, v, ks, vs, tables, lengths, limits, out, B, T, n, g, d, bs, \
+                            max_blocks, n_blocks, scale, s)
+  if (int8) return (int)(d <= 64 ? APEX_PF_TC(true, 64) : APEX_PF_TC(true, 128));
+  return (int)(d <= 64 ? APEX_PF_TC(false, 64) : APEX_PF_TC(false, 128));
+#undef APEX_PF_TC
+}
+
+// Dynamic shared memory of paged_prefill_tc_kernel for a cache dtype and
+// head dim d (bytes).
+extern "C" int apex_paged_prefill_tc_smem(int kv_dtype, int d) {
+  if (kv_dtype == kI8)
+    return (int)(d <= 64 ? PrefillTcSmem<true, 64>::bytes : PrefillTcSmem<true, 128>::bytes);
+  return (int)(d <= 64 ? PrefillTcSmem<false, 64>::bytes : PrefillTcSmem<false, 128>::bytes);
 }

@@ -13,7 +13,12 @@ Three kernels carry it, F1-F3 of the port (``csrc/flash_attention.cu``;
 the source's note says how they are built):
 
 - F1, the forward (``flash_attention_with_lse``): blockwise online softmax,
-  returning ``(out, lse)``;
+  returning ``(out, lse)``.  It has two routes, chosen by
+  :func:`fwd_route` from the operands' dtype and shape: ``"tc"``, the
+  Hopper tensor-core kernel (wgmma, TMA, an mbarrier ring; bf16 q, k, v,
+  head dim a multiple of 8 up to 128), and ``"simt"``, the CUDA-core
+  kernel, for fp32 (exact fp32) and the head dims the first does not
+  take.  A failed build or launch on either raises;
 - F2, ``dq_chunk``: dq from ``(q, k, v, do, lse, delta)``;
 - F3, ``dkv_chunk``: dk and dv over the transposed blocking.
 
@@ -58,6 +63,7 @@ __all__ = [
     "flash_dq_plain",
     "flash_dkv_plain",
     "keep_mask",
+    "fwd_route",
 ]
 
 NEG_INF = -1e30
@@ -65,8 +71,11 @@ DEFAULT_BLOCK_K = 512
 _LANES = 128
 _M32 = 0xFFFFFFFF
 
-# launches of each kernel since the count was last set to 0
+# launches of each kernel since the count was last set to 0; F1's total
+# is also counted per route
 FWD_LAUNCHES = 0
+FWD_TC_LAUNCHES = 0
+FWD_SIMT_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 
@@ -337,10 +346,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def fwd_route(q, k, v) -> str:
+    """The F1 kernel that operands of these dtypes and shapes take:
+    ``"tc"`` (the tensor-core kernel) for bf16 q, k and v with a head dim
+    that is a multiple of 8 up to 128, at least one key and 16-byte-aligned
+    storage (TMA's rule for a tensor's base and row stride); ``"simt"``
+    for anything else."""
+    d = q.shape[-1]
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and d % 8 == 0
+            and 0 < d <= 128 and k.shape[2] > 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "tc"
+    return "simt"
+
+
 def _fwd(q, k, v, seg_q, seg_k, seed, *, causal, scale, q_offset,
-         kv_offset, dropout_rate):
-    """F1 on CUDA tensors, its plain version on CPU tensors."""
-    global FWD_LAUNCHES
+         kv_offset, dropout_rate, route=None):
+    """F1 on CUDA tensors, its plain version on CPU tensors.  ``route``
+    names the kernel (``"tc"`` or ``"simt"``); by default
+    :func:`fwd_route` chooses it."""
+    global FWD_LAUNCHES, FWD_TC_LAUNCHES, FWD_SIMT_LAUNCHES
     _check_shapes(q, k, v, seg_q, seg_k)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, seg_q, seg_k, seed, causal=causal,
@@ -356,16 +381,28 @@ def _fwd(q, k, v, seg_q, seg_k, seed, *, causal, scale, q_offset,
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     seed_t, thresh, inv = _dropout_args(seed, dropout_rate, q.device)
+    route = route or fwd_route(q, k, v)
+    lib = _build.library()
+    if route == "tc":
+        fn, lead = lib.apex_flash_fwd_tc, ()
+    elif route == "simt":
+        fn, lead = lib.apex_flash_fwd, (_DTYPE_CODES[q.dtype],)
+    else:
+        raise ValueError(f"unknown flash forward route {route!r}")
     with torch.cuda.device(q.device):
-        rc = _build.library().apex_flash_fwd(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(seg_q), _ptr(seg_k), _ptr(seed_t), out.data_ptr(),
-            lse.data_ptr(), b * h, h, sq, sk, d, int(causal), q_offset,
-            kv_offset, _resolve(scale, d), thresh, inv,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        rc = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(seg_q), _ptr(seg_k), _ptr(seed_t), out.data_ptr(),
+                lse.data_ptr(), b * h, h, sq, sk, d, int(causal), q_offset,
+                kv_offset, _resolve(scale, d), thresh, inv,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"flash forward kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash forward kernel ({route}) launch failed: "
+                           f"CUDA error {rc}")
     FWD_LAUNCHES += 1
+    if route == "tc":
+        FWD_TC_LAUNCHES += 1
+    else:
+        FWD_SIMT_LAUNCHES += 1
     return out, lse
 
 

@@ -18,7 +18,13 @@ Port of :mod:`apex_tpu.serving.paged_attention`, with the same layouts::
 the hand-written kernels of ``csrc/paged_attention.cu`` on CUDA tensors
 (K1 and K2 of the port; the source's note says how they are built) and
 run :func:`paged_attention_decode_plain` / :func:`paged_prefill_attention_plain`
-on CPU tensors.  The plain versions gather each slot's whole table and
+on CPU tensors.  K2 has two routes, chosen by :func:`prefill_route` from
+the operands' dtypes and shapes: ``"tc"``, the Hopper tensor-core kernel
+(wgmma, TMA page loads, an mbarrier ring; bf16 q over a bf16 or int8
+cache), which rounds P to bf16 before P.V as F1 and SDPA do, and
+``"simt"``, the CUDA-core kernel with fp32 P, for fp32 (exact fp32) and
+the shapes the first does not take.  A failed build or launch on either
+raises.  The plain versions gather each slot's whole table and
 lower the masked softmax as separate ops, like the JAX package's
 ``*_unfused`` twins; they are the CPU path and the kernels' reference.
 
@@ -43,17 +49,23 @@ __all__ = [
     "paged_attention_decode_plain",
     "paged_prefill_attention",
     "paged_prefill_attention_plain",
+    "prefill_route",
 ]
 
 NEG_INF = -1e30
 
-# launches of each kernel since the count was last set to 0
+# launches of each kernel since the count was last set to 0; K2's total
+# is also counted per route
 DECODE_LAUNCHES = 0
 PREFILL_LAUNCHES = 0
+PREFILL_TC_LAUNCHES = 0
+PREFILL_SIMT_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# query rows (tokens x heads of one KV group) one prefill CTA works on
-_PREFILL_ROWS = 16
+# query rows ((token, head of one KV group) pairs) of one K2 CTA: the tc
+# route's tile (one wgmma warpgroup, compiled), and the simt route's
+_PREFILL_ROWS = 64
+_SIMT_PREFILL_ROWS = 16
 
 
 def _resolve(scale: Optional[float], d: int) -> float:
@@ -188,7 +200,6 @@ def paged_prefill_attention(q, k_arena, v_arena, block_tables, lengths,
     own just-scattered rows; ``limits`` the per-token causal horizon.
     CUDA tensors launch the kernel; CPU tensors run
     :func:`paged_prefill_attention_plain`."""
-    global PREFILL_LAUNCHES
     if q.dim() != 4:
         raise ValueError(
             f"prefill q must be [batch, chunk, n_heads, head_dim], got "
@@ -204,21 +215,63 @@ def paged_prefill_attention(q, k_arena, v_arena, block_tables, lengths,
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_operands(q, k_arena, v_arena, block_tables, lengths, limits,
                          k_scales, v_scales)
+    return _launch_prefill(prefill_route(q, k_arena, v_arena), q, k_arena,
+                           v_arena, block_tables, lengths, limits, k_scales,
+                           v_scales, scale)
+
+
+def prefill_route(q, k_arena, v_arena) -> str:
+    """The K2 kernel that operands of these dtypes and shapes take:
+    ``"tc"`` (the tensor-core kernel) for bf16 q over a bf16 or int8
+    cache, a head dim that is a multiple of 8 (bf16 cache) or 16 (int8:
+    TMA's 16-byte row rule) up to 128, a block size that is a multiple of
+    8 dividing 64, and 16-byte-aligned q and arenas; ``"simt"`` for
+    anything else."""
+    d = q.shape[-1]
+    bs = k_arena.shape[1]
+    row = 16 if k_arena.dtype == torch.int8 else 8
+    if (q.dtype == torch.bfloat16
+            and k_arena.dtype in (torch.bfloat16, torch.int8)
+            and v_arena.dtype == k_arena.dtype
+            and d % row == 0 and 0 < d <= 128
+            and bs % 8 == 0 and 64 % bs == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_arena, v_arena))):
+        return "tc"
+    return "simt"
+
+
+def _launch_prefill(route, q, k_arena, v_arena, block_tables, lengths,
+                    limits, k_scales, v_scales, scale):
+    """K2 on checked CUDA operands through the kernel ``route`` names."""
+    global PREFILL_LAUNCHES, PREFILL_TC_LAUNCHES, PREFILL_SIMT_LAUNCHES
+    b, T, n, d = q.shape
+    n_blocks, bs, g, _ = k_arena.shape
     out = torch.empty_like(q)
-    q_tile = max(1, _PREFILL_ROWS // (n // g))
-    fn = _build.library().apex_paged_attention_prefill
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype],
-                q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+    lib = _build.library()
+    operands = (q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
                 _ptr(k_scales), _ptr(v_scales), block_tables.data_ptr(),
                 lengths.data_ptr(), limits.data_ptr(), out.data_ptr(),
-                b, T, n, g, d, bs, block_tables.shape[1], q_tile,
-                _resolve(scale, d),
+                b, T, n, g, d, bs, block_tables.shape[1])
+    if route == "tc":
+        fn, lead = lib.apex_paged_prefill_tc, (_DTYPE_CODES[k_arena.dtype],)
+        tail = (n_blocks,)
+    elif route == "simt":
+        fn = lib.apex_paged_attention_prefill
+        lead = (_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype])
+        tail = (max(1, _SIMT_PREFILL_ROWS // (n // g)),)
+    else:
+        raise ValueError(f"unknown paged prefill route {route!r}")
+    with torch.cuda.device(q.device):
+        rc = fn(*lead, *operands, *tail, _resolve(scale, d),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(
-            f"paged prefill kernel launch failed: CUDA error {rc}")
+            f"paged prefill kernel ({route}) launch failed: CUDA error {rc}")
     PREFILL_LAUNCHES += 1
+    if route == "tc":
+        PREFILL_TC_LAUNCHES += 1
+    else:
+        PREFILL_SIMT_LAUNCHES += 1
     return out
 
 

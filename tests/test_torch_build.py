@@ -1,0 +1,79 @@
+"""The build of the port's kernel library (``apex_tpu_torch/_build.py``),
+checked without ``nvcc``: what its digest covers, and what it compiles
+with which flags."""
+
+import shutil
+import subprocess
+
+import pytest
+
+from apex_tpu_torch import _build
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of ``csrc/`` that ``_build`` reads instead of the package's."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    return copy
+
+
+def test_digest_changes_with_a_header(csrc_copy):
+    """An edit to a shared header must rebuild the library, as an edit to
+    a source does: the digest covers every ``*.cu`` and ``*.cuh``."""
+    header = csrc_copy / "attention_core.cuh"
+    assert header.exists()
+    before = _build._digest()
+    assert _build._digest() == before
+    header.write_text(header.read_text() + "\n// edited\n")
+    after_header = _build._digest()
+    assert after_header != before
+    source = csrc_copy / "paged_attention.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build._digest() not in (before, after_header)
+    (csrc_copy / "extra.cuh").write_text("#pragma once\n")
+    assert _build._digest() not in (before, after_header)
+
+
+def test_every_source_compiles_with_the_header_directory(csrc_copy,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """Each ``*.cu`` gets its own ``nvcc -I csrc -c`` (headers are not
+    compiled alone), and a failed compile raises with every log."""
+    calls = []
+
+    class FailedCompile:
+        returncode = 1
+
+        def __init__(self, cmd, **_):
+            calls.append(cmd)
+
+        def communicate(self):
+            return "error: stand-in compiler", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FailedCompile)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    compiled = sorted(cmd[cmd.index("-c") + 1] for cmd in calls)
+    assert compiled == sorted(str(p) for p in csrc_copy.glob("*.cu"))
+    assert "attention_core.cuh" not in " ".join(compiled)
+    for cmd in calls:
+        assert cmd[cmd.index("-I") + 1] == str(csrc_copy)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+def test_the_tensor_core_entry_points_are_bound():
+    """Both tensor-core launchers and their shared-memory queries have
+    ctypes signatures, beside the kernels they sit next to."""
+    sig = _build._SIGNATURES
+    for name in ("apex_flash_fwd_tc", "apex_paged_prefill_tc",
+                 "apex_flash_fwd_tc_smem", "apex_paged_prefill_tc_smem"):
+        assert name in sig
+    # the tc launchers take the simt ones' operands less q's dtype (K2's
+    # trades the simt query tile for the arena's block count)
+    assert sig["apex_flash_fwd_tc"] == sig["apex_flash_fwd"][1:]
+    assert sig["apex_paged_prefill_tc"] == sig[
+        "apex_paged_attention_prefill"][1:]

@@ -196,3 +196,45 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         fa.dkv_chunk(x, x, x, x, lse, lse, causal=True)
     assert (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (0, 0, 0)
+
+
+def _unaligned(shape, dtype):
+    """A tensor of ``shape`` whose storage starts 2 bytes off a 16-byte
+    boundary (a view with an offset)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+# (q dtype, head dim, keys, layout) -> the F1 route a CUDA call takes
+FWD_ROUTES = [
+    ("bf16", 24, 70, "aligned", "tc"),
+    ("bf16", 64, 1024, "aligned", "tc"),
+    ("bf16", 80, 130, "aligned", "tc"),
+    ("bf16", 128, 200, "aligned", "tc"),
+    ("fp32", 64, 1024, "aligned", "simt"),
+    ("fp32", 128, 200, "aligned", "simt"),
+    ("bf16", 20, 70, "aligned", "simt"),
+    ("bf16", 136, 70, "aligned", "simt"),
+    ("bf16", 64, 0, "aligned", "simt"),
+    ("bf16", 64, 70, "offset", "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype, d, sk, layout, route", FWD_ROUTES)
+def test_fwd_route(dtype, d, sk, layout, route):
+    """bf16 with a head dim that is a multiple of 8 up to 128 (TMA's
+    16-byte row rule) takes the tensor-core kernel; fp32 (exact fp32),
+    other head dims, no keys and storage off a 16-byte boundary take the
+    CUDA-core one."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    make = _unaligned if layout == "offset" else (
+        lambda shape, dtype: torch.zeros(shape, dtype=dtype))
+    q = make((1, 2, 37, d), dt)
+    k, v = (make((1, 2, sk, d), dt) for _ in range(2))
+    assert fa.fwd_route(q, k, v) == route
+    # the route is the operands' property: the CPU path ignores it
+    if sk:
+        out, _ = fa.flash_attention_with_lse(q.float(), k.float(), v.float())
+        assert out.shape == q.shape
+    assert (fa.FWD_LAUNCHES, fa.FWD_TC_LAUNCHES, fa.FWD_SIMT_LAUNCHES) == (
+        0, 0, 0)

@@ -187,3 +187,152 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not any(tmp_path.iterdir())
+
+
+def _route_operands(q_dtype, cache_dtype, d, bs=16, offset=False):
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    q = torch.zeros((2, 5, 4, d), dtype=dt[q_dtype])
+    if offset:
+        q = torch.zeros(q.numel() + 8, dtype=q.dtype)[1:q.numel() + 1].view(
+            q.shape)
+    k, v = (torch.zeros((6, bs, 2, d), dtype=dt[cache_dtype])
+            for _ in range(2))
+    return q, k, v
+
+
+# (q dtype, cache dtype, head dim, block size, layout) -> K2's route
+PREFILL_ROUTES = [
+    ("bf16", "bf16", 24, 16, "aligned", "tc"),
+    ("bf16", "bf16", 64, 16, "aligned", "tc"),
+    ("bf16", "bf16", 80, 16, "aligned", "tc"),
+    ("bf16", "bf16", 128, 16, "aligned", "tc"),
+    ("bf16", "int8", 64, 16, "aligned", "tc"),
+    ("bf16", "int8", 128, 8, "aligned", "tc"),
+    ("bf16", "bf16", 64, 64, "aligned", "tc"),
+    ("fp32", "fp32", 64, 16, "aligned", "simt"),
+    ("fp32", "bf16", 64, 16, "aligned", "simt"),
+    ("fp32", "int8", 64, 16, "aligned", "simt"),
+    ("bf16", "bf16", 20, 16, "aligned", "simt"),
+    ("bf16", "fp32", 64, 16, "aligned", "simt"),
+    ("bf16", "int8", 24, 16, "aligned", "simt"),
+    ("bf16", "bf16", 64, 4, "aligned", "simt"),
+    ("bf16", "bf16", 64, 24, "aligned", "simt"),
+    ("bf16", "bf16", 136, 16, "aligned", "simt"),
+    ("bf16", "bf16", 64, 16, "offset", "simt"),
+]
+
+
+@pytest.mark.parametrize("q_dtype, cache_dtype, d, bs, layout, route",
+                         PREFILL_ROUTES)
+def test_prefill_route(q_dtype, cache_dtype, d, bs, layout, route):
+    """bf16 q over a bf16 or int8 cache takes the tensor-core kernel when
+    TMA can load its pages (rows a multiple of 16 bytes, 16-byte-aligned
+    storage) and a block size divides the 64-key tile in multiples of 8;
+    fp32 (exact fp32) and every other shape take the CUDA-core one."""
+    q, k, v = _route_operands(q_dtype, cache_dtype, d, bs,
+                              offset=layout == "offset")
+    assert pa.prefill_route(q, k, v) == route
+    assert (pa.PREFILL_LAUNCHES, pa.PREFILL_TC_LAUNCHES,
+            pa.PREFILL_SIMT_LAUNCHES) == (0, 0, 0)
+
+
+# the tensor-core route's arithmetic (csrc/paged_attention.cu,
+# paged_prefill_tc_kernel), in plain torch: 64-key tiles with the online
+# softmax, raw cache values (int8 unscaled) against bf16 q, the K row
+# scale on the score column, P * v_scale rounded to bf16 before P.V, fp32
+# accumulation, l summing the unscaled P
+TC_TILE = 64
+
+
+def _tc_rounding(q, k_arena, v_arena, tables, lengths, limits, k_scales,
+                 v_scales, scale):
+    b, T, n, d = q.shape
+    _, bs, g, _ = k_arena.shape
+    hpg = n // g
+    idx = tables.long()
+    k = k_arena[idx].float().reshape(b, -1, g, d).repeat_interleave(hpg, 2)
+    v = v_arena[idx].float().reshape(b, -1, g, d).repeat_interleave(hpg, 2)
+    s_len = k.shape[1]
+    ks = vs = torch.ones((b, s_len, n))
+    if k_scales is not None:
+        ks = k_scales[idx].reshape(b, -1, g).repeat_interleave(hpg, 2)
+        vs = v_scales[idx].reshape(b, -1, g).repeat_interleave(hpg, 2)
+    qf = q.bfloat16().float()
+    m = torch.full((b, T, n), NEG)
+    l = torch.zeros((b, T, n))
+    acc = torch.zeros((b, T, n, d))
+    for j0 in range(0, s_len, TC_TILE):
+        j1 = min(j0 + TC_TILE, s_len)
+        s = torch.einsum("btnd,bsnd->btns", qf, k[:, j0:j1])
+        s = s * (scale * ks[:, j0:j1].permute(0, 2, 1)[:, None])
+        cols = torch.arange(j0, j1)
+        s = torch.where(cols < limits.long()[:, :, None, None], s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(m_new <= NEG * 0.5, 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+        l = l * alpha + p.sum(-1)
+        p = (p * vs[:, j0:j1].permute(0, 2, 1)[:, None]).bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum("btns,bsnd->btnd", p,
+                                                     v[:, j0:j1])
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)[..., None]).bfloat16()
+
+
+NEG = -1e30
+
+
+@pytest.mark.parametrize("hpg", [1, 2])
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_tc_rounding_contract_matches_jax(cache_dtype, hpg):
+    """The tensor-core route's rounding (bf16 P, scales folded into the
+    score column and into P) stays within the card's 2e-2 of the JAX
+    kernel (Pallas in interpret mode, fp32 P), on a verify-style batch:
+    ragged draft counts, padding rows of limit 0, two 64-key tiles."""
+    rng = np.random.default_rng(40 + hpg)
+    bs, g, d, n_blocks, max_blocks = 16, 2, 16, 24, 6
+    shape = (n_blocks, bs, g, d)
+    if cache_dtype == "int8":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        jk, jv = jnp.asarray(k), jnp.asarray(v)
+        jsc = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+        tks, tvs = torch.from_numpy(ks), torch.from_numpy(vs)
+    else:
+        k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        tk, tv = k.bfloat16(), v.bfloat16()
+        jk = jnp.asarray(tk.float().numpy(), jnp.bfloat16)
+        jv = jnp.asarray(tv.float().numpy(), jnp.bfloat16)
+        jsc, tks, tvs = {}, None, None
+    lengths = np.array([0, 9, 70, 96], np.int32)
+    b, T, n = len(lengths), 5, g * hpg
+    tables = np.stack([rng.permutation(n_blocks)[:max_blocks]
+                       for _ in range(b)]).astype(np.int32)
+    limits = np.zeros((b, T), np.int32)
+    for i, length in enumerate(lengths):
+        if length:
+            w = min(i + 1, T, int(length))      # drafts 0..3 plus one
+            limits[i, :w] = np.arange(length - w + 1, length + 1)
+    q = torch.from_numpy(rng.standard_normal((b, T, n, d)).astype(
+        np.float32)).bfloat16()
+    want = jax_pa.paged_prefill_attention(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16), jk, jv,
+        jnp.asarray(tables), jnp.asarray(lengths), jnp.asarray(limits), **jsc)
+    got = _tc_rounding(q, tk, tv, torch.from_numpy(tables),
+                       torch.from_numpy(lengths), torch.from_numpy(limits),
+                       tks, tvs, 1.0 / d ** 0.5)
+    np.testing.assert_allclose(got.float().numpy(), _to_np(want), atol=2e-2,
+                               rtol=2e-2)
+    pad = torch.from_numpy(limits == 0)
+    assert int(pad.sum()) > b and not got[pad].any()
+    # the contract is not the plain version's: P is rounded (the check
+    # would hold a kernel that kept fp32 P to nothing)
+    plain = pa.paged_prefill_attention_plain(
+        q, tk, tv, torch.from_numpy(tables), torch.from_numpy(lengths),
+        torch.from_numpy(limits),
+        **({} if tks is None else dict(k_scales=tks, v_scales=tvs)))
+    assert not torch.equal(got, plain)
