@@ -54,6 +54,10 @@ _SIGNATURES = {
     "apex_flash_fwd_tc_smem": [_I],
     "apex_flash_dq": [_I] + [_P] * 10 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_dkv": [_I] + [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_flash_dq_tc": [_P] * 10 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_flash_dkv_tc": [_P] * 11 + [_I] * 8 + [_F, _U, _F, _P],
+    "apex_flash_dq_tc_smem": [_I],
+    "apex_flash_dkv_tc_smem": [_I],
     "apex_lora_delta": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
     "apex_row_norm": [_I, _I, _I] + [_P] * 4 + [_I, _I, _F, _P],
 }

@@ -1,14 +1,17 @@
-// The Hopper attention core shared by the tensor-core flash forward (F1,
-// flash_attention.cu) and the tensor-core paged chunked prefill / k+1
-// verify (K2, paged_attention.cu).
+// The Hopper attention core shared by the tensor-core flash forward (F1)
+// and backward (F2, F3) in flash_attention.cu and the tensor-core paged
+// chunked prefill / k+1 verify (K2, paged_attention.cu).
 //
-// Both kernels are one algorithm with two loaders: a tile of 64 query rows
-// per consumer warpgroup sweeps 64-key tiles of K and V with the online
-// softmax.  This header holds what they share, written from raw PTX (no
-// CuTe, no CUTLASS), so a source that includes it builds in seconds:
+// The forward kernels are one algorithm with two loaders: a tile of 64
+// query rows per consumer warpgroup sweeps 64-key tiles of K and V with
+// the online softmax.  The backward kernels sweep the same tiles with the
+// same two product shapes.  This header holds what they share, written
+// from raw PTX (no CuTe, no CUTLASS), so a source that includes it builds
+// in seconds:
 //   - mbarriers (init, arrive, arrive with an expected byte count, a
 //     parity wait) and the proxy fence a generic-proxy store to shared
-//     memory needs before a wgmma or TMA reads it;
+//     memory needs before a wgmma or TMA reads it; setmaxnreg, which
+//     moves registers from a producer warpgroup to the consumers;
 //   - TMA tile loads (cp.async.bulk.tensor.3d) from a CUtensorMap passed
 //     as a __grid_constant__ kernel parameter, and the host-side encoder,
 //     reached through cudaGetDriverEntryPoint so the library links
@@ -16,10 +19,13 @@
 //   - wgmma descriptors for 128-byte-swizzled bf16 tiles: K-major (Q and
 //     K, the head dim contiguous) and MN-major (V as the B operand of
 //     P.V, read transposed through the descriptor);
-//   - TileCore: S = Q K^T (wgmma m64n64k16, both operands in shared
-//     memory), the online softmax on the fp32 accumulator fragment, and
-//     O += P V (wgmma m64n64k16 with P as the A operand in registers,
-//     rounded to bf16, one product per 64-column panel of the head dim).
+//   - the two products: abt_async, s = A B^T (wgmma m64n64k16, both
+//     operands K-major in shared memory: Q K^T, dO V^T and their
+//     transposes), and mma_rs, acc += A B (wgmma m64n64k16 with A a fp32
+//     fragment rounded to bf16 in registers and B MN-major, one product
+//     per 64-column panel: P V, dS K, P^T dO, dS^T Q);
+//   - TileCore: S = Q K^T, the online softmax on the fp32 accumulator
+//     fragment, and O += P V.
 //
 // Tile layout in shared memory.  A [rows x 64] bf16 panel holds 128-byte
 // rows; the 16-byte chunk c of row r sits at chunk c ^ (r % 8) (the
@@ -96,6 +102,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // (wgmma operand reads, TMA) only after this fence.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Move registers between the warpgroups of a CTA: a warpgroup lowers its
+// per-thread count to N (giving the rest to the CTA's pool) or raises it
+// to N (waiting for the pool).  Every thread of the warpgroup runs it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // A barrier among `threads` threads only (id 0 is __syncthreads').
@@ -205,6 +223,55 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// ------------------------------------------------------------ products
+//
+// The two shapes every attention product here takes, as free functions so
+// that the forward's TileCore and the backward kernels share them.
+
+// Start s (+)= A B^T, m64n64 over a depth of D (D / 16 k16 steps): A [64 x
+// D] and B [64 x D] both K-major in swizzled panels `a_panel` / `b_panel`
+// bytes apart.  The caller fences before and commits and waits after, so
+// two such products can be in flight together.
+template <int D>
+__device__ __forceinline__ void abt_async(float (&s)[32], uint32_t a, uint32_t a_panel, uint32_t b,
+                                          uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss(s, desc_kmajor(a + (kk >> 2) * a_panel + off), desc_kmajor(b + (kk >> 2) * b_panel + off),
+             kk > 0);
+  }
+}
+
+// acc[q] += A B_q for each 64-column panel q of B: A [64 x 64] is a fp32
+// accumulator fragment of the warpgroup, rounded to bf16 as the register
+// operand (the fragment of a k16 step has the accumulator's map over 16
+// columns); B [64 x 64 kPanels] lies MN-major (its 64 rows are the depth)
+// in swizzled panels `b_panel` bytes apart.  Returns after the products
+// land.
+template <int kPanels>
+__device__ __forceinline__ void mma_rs(float (&acc)[kPanels][32], const float (&a32)[32], uint32_t b,
+                                       uint32_t b_panel) {
+  uint32_t a[16];  // the four k16 steps' A fragments
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(a32[2 * i], a32[2 * i + 1]);
+  fence_regs(a);
+#pragma unroll
+  for (int q = 0; q < kPanels; ++q) fence_regs(acc[q]);
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < kPanels; ++q)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+      wgmma_rs_bt(acc[q], frag, desc_mnmajor(b + q * b_panel + kk * 16 * 128, b_panel));
+    }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int q = 0; q < kPanels; ++q) fence_regs(acc[q]);
+}
+
 // ------------------------------------------------------------- the core
 
 // Fragment coordinates of accumulator element i of this thread: its row
@@ -249,12 +316,7 @@ struct TileCore {
   __device__ __forceinline__ static void scores(float (&s)[32], uint32_t q, uint32_t q_panel,
                                                 uint32_t k, uint32_t k_panel) {
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk & 3) * 32;
-      wgmma_ss(s, desc_kmajor(q + (kk >> 2) * q_panel + off),
-               desc_kmajor(k + (kk >> 2) * k_panel + off), kk > 0);
-    }
+    abt_async<D>(s, q, q_panel, k, k_panel);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -296,24 +358,7 @@ struct TileCore {
   // O += P V: P (the fp32 tile in s) rounded to bf16 as the A operand;
   // V [64 keys x D] as swizzled panels `v_panel` bytes apart.
   __device__ __forceinline__ void accumulate(const float (&p)[32], uint32_t v, uint32_t v_panel) {
-    uint32_t a[16];  // the four k16 steps' A fragments
-#pragma unroll
-    for (int i = 0; i < 16; ++i) a[i] = pack_bf16(p[2 * i], p[2 * i + 1]);
-    fence_regs(a);
-#pragma unroll
-    for (int q = 0; q < kPanels; ++q) fence_regs(o[q]);
-    wgmma_fence();
-#pragma unroll
-    for (int q = 0; q < kPanels; ++q)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t frag[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-        wgmma_rs_bt(o[q], frag, desc_mnmajor(v + q * v_panel + kk * 16 * 128, v_panel));
-      }
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int q = 0; q < kPanels; ++q) fence_regs(o[q]);
+    mma_rs<kPanels>(o, p, v, v_panel);
   }
 
   // 1 / l with l == 0 -> 1, so a row that saw no key gives exact zeros.

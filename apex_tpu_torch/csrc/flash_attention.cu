@@ -16,11 +16,10 @@
 //
 // What bounds it on the H100: operations.  At the training shape (head_dim
 // 64, sequence 1024) every K/V element read feeds 64 query rows of a tile,
-// far above the card's operations-per-byte balance point.  These first
-// versions do the products in fp32 on the CUDA cores, not the tensor
-// cores, so they sit well above the bf16 tensor-core bound; the forward's
-// tensor-core route is below, the backward's is later work.  What the
-// design does keep is the flash structure:
+// far above the card's operations-per-byte balance point.  The first
+// versions below (the "simt" route) do the products in fp32 on the CUDA
+// cores, not the tensor cores, so they sit well above the bf16
+// tensor-core bound.  What their design keeps is the flash structure:
 //   - one CTA of 256 threads per (batch*head, 64-row tile); the sweep over
 //     the other sequence is a loop inside the CTA (the TPU grid's
 //     sequential axis), with the running state in registers, so nothing of
@@ -38,38 +37,72 @@
 // Head dims up to 128 are taken: the tiles are compiled for 64 or 128
 // columns and a smaller head dim is zero-filled in shared memory.
 //
-// F1 has a second route, flash_fwd_tc_kernel, for bf16 q, k and v with a
-// head dim that is a multiple of 8 up to 128 (the Python wrapper's
-// fwd_route() chooses it; fp32 and other head dims stay on the kernel
-// above).  It is built on the shared Hopper core (attention_core.cuh):
-//   - one CTA per (batch*head, 128 query rows): two consumer warpgroups of
-//     64 rows each and one producer warp; heavy tiles first, as above;
-//   - the producer loads the Q tile once and then K and V tiles of 64 keys
-//     with TMA through 3-D tensor maps over [b*h, s, d] (rows past a
-//     head's sk and columns past d arrive as zeros, never from the next
-//     head) into a two-stage ring with a full and an empty mbarrier per
-//     stage, the tile's segment ids beside it;
-//   - the consumers run S = Q K^T and O += P V as wgmma on the tensor
-//     cores, the masks, scale and online softmax on the fp32 accumulator
-//     fragment, and the dropout hash per fragment element at its global
-//     (row, col), after the row sum and before P is rounded to bf16: the
-//     same rounding points, guards and dropout bits as the kernel above;
-//     a tile with nothing to mask (inside the causal triangle, no
-//     segments, not ragged) only scales;
-//   - at head dim 64 two CTAs share an SM, so one CTA's softmax runs while
-//     the other's products occupy the tensor cores.
-// What bounds it: against the tensor cores' bf16 rate, the bytes of q, k,
-// v and out (read and written once) and the products are about even at
-// the training shape; what holds this version back is latency: within a
-// warpgroup the products, the softmax and the waits run one after another
-// (issuing tile j + 1's Q K^T beside tile j's P V needs about 16 more
-// registers a thread, which spill under the two-CTA cap of 112).
+// Each of F1, F2 and F3 has a second route, a tensor-core kernel, for bf16
+// operands with a head dim that is a multiple of 8 up to 128 (the Python
+// wrappers' fwd_route() and bwd_route() choose it; fp32 and other head
+// dims stay on the kernels above).  All three are built on the shared
+// Hopper core (attention_core.cuh) and share its frame:
+//   - one CTA per (batch*head, 128 rows of the outer sequence): two
+//     consumer warpgroups of 64 rows each and one producer warp (F3: a
+//     producer warpgroup, below); heavy tiles first, as above;
+//   - the producer loads the CTA's own operands once and then 64-row tiles
+//     of the other sequence with TMA through 3-D tensor maps over
+//     [b*h, s, d] (rows past a head's length and columns past d arrive as
+//     zeros, never from the next head) into a two-stage ring with a full
+//     and an empty mbarrier per stage, the tile's per-row values beside
+//     it;
+//   - every product is a wgmma on the tensor cores, with the masks, scale,
+//     exponent and dropout on the fp32 accumulator fragment at each
+//     element's global (row, col): the same rounding points, guards and
+//     dropout bits as the kernels above; a tile with nothing to mask
+//     (inside the causal triangle, no segments, not ragged) only scales,
+//     and a warpgroup skips the products of a tile it cannot see;
+//   - the exponent is the hardware's (__expf: ex2.approx, a few ulp), as
+//     in the forward: P feeds a bf16 rounding right after.
+// flash_fwd_tc_kernel (F1): the CTA loads its 128 query rows of Q; the
+// ring carries K and V tiles and their segment ids; S = Q K^T, the online
+// softmax, dropout after the row sum, and O += P V (P rounded to bf16 in
+// registers).  At head dim 64 two CTAs share an SM, so one CTA's softmax
+// runs while the other's products occupy the tensor cores.  Against the
+// tensor cores' bf16 rate, the bytes of q, k, v and out and the products
+// are about even at the training shape; what holds this version back is
+// latency: within a warpgroup the products, the softmax and the waits
+// run one after another (starting tile j + 1's Q K^T beside tile j's P V
+// needs about 16 more registers a thread, which spill under the two-CTA
+// cap of 112).
+// flash_dq_tc_kernel (F2): the CTA loads Q and dO of its 128 rows; the ring
+// carries K and V tiles and the keys' segment ids; a thread's two rows'
+// lse and delta stay in registers.  Per tile: S = Q K^T and dP = dO V^T
+// in flight together, dS = P (dP - delta) scale, dq += dS K (dS rounded
+// to K's bf16 in registers, K the MN-major B operand from the tile that
+// served Q K^T).
+// flash_dkv_tc_kernel (F3): the CTA loads K and V of its 128 keys and owns
+// their dk and dv (no atomics, deterministic); the ring carries Q and dO
+// tiles with the queries' lse_safe, delta and segment ids, and the sweep
+// starts at the first query tile that can see the CTA's first key.  Per
+// tile: S^T = K Q^T and dP^T = V dO^T in flight together (the fragment's
+// rows are keys, its columns queries), P_drop and dS on the fragment, then
+// dv += P_drop^T dO and dk += dS^T Q (both rounded to bf16 in registers,
+// dO and Q the MN-major B operands).  dk and dv are fp32 sums in the
+// tensor cores' order, so they are not bit-identical to the plain
+// version's; the rounding points are.
+// The backward kernels hold two accumulator fragments per tile beside
+// their outputs (F2 at head dim 64: 153 registers a thread), more than
+// the two-CTA cap of 112 allows, so one CTA runs per SM; F3 holds dk and
+// dv too and takes registers from its producer warpgroup (setmaxnreg).
+// What bounds them: the tensor cores' bf16 rate (14 d operations per
+// visible (row, key) pair over F2 and F3, of which the two recomputed
+// score products are 4 d); as in the forward, what holds them back is
+// latency within a warpgroup, where the products, the elementwise work
+// and the waits run one after another.
 //
 // Each launcher is a plain C function that returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "attention_core.cuh"
 
@@ -652,6 +685,379 @@ __global__ void __launch_bounds__(kTcThreads, D == 64 ? 2 : 1) flash_fwd_tc_kern
   }
 }
 
+// ---------------------------------------------- F2, F3 on the tensor cores
+
+// Shared memory of flash_dq_tc_kernel and flash_dkv_tc_kernel, as offsets
+// from a 1024-byte-aligned base: the two operands a CTA loads once
+// ([128 x D] each: F2's Q and dO, F3's K and V), the ring's two operands
+// ([64 x D] a stage: F2's K and V tiles, F3's Q and dO tiles), three
+// 64-entry rows a stage (F2: the keys' segment ids; F3: the queries'
+// lse_safe, delta and segment ids), then the mbarriers.
+template <int D>
+struct BwdTcSmem {
+  static constexpr uint32_t kTile = (D / 64) * apex_core::kPanelBytes;  // [64 x D]
+  static constexpr uint32_t a = 0;
+  static constexpr uint32_t b = 2 * kTile;
+  static constexpr uint32_t ring_a = 4 * kTile;
+  static constexpr uint32_t ring_b = ring_a + kTcStages * kTile;
+  static constexpr uint32_t rows = ring_b + kTcStages * kTile;
+  static constexpr uint32_t bars = rows + 3 * kTcStages * 64 * 4;
+  static constexpr size_t bytes = bars + (2 * kTcStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// The barriers of a backward CTA: full / empty per ring stage, and one for
+// the operands loaded once.
+struct BwdBars {
+  uint64_t *full, *empty, *once;
+};
+
+__device__ __forceinline__ BwdBars bwd_bars(uint8_t* base) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  BwdBars bars{full, full + kTcStages, full + 2 * kTcStages};
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      apex_core::mbar_init(&bars.full[st], 1);
+      apex_core::mbar_init(&bars.empty[st], kTcConsumers);
+    }
+    apex_core::mbar_init(bars.once, 1);
+    apex_core::fence_barrier_init();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// TMA loads of rows [row0, row0 + 128) of one head of `map` into two
+// [64 x D] blocks at dst (the operands a CTA loads once), counted on `bar`
+// (the caller expects the bytes).
+template <int D>
+__device__ __forceinline__ void load_once(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int row0, int bh) {
+  for (int w = 0; w < 2; ++w)
+    for (int pn = 0; pn < D / 64; ++pn)
+      apex_core::tma_load_3d(dst + w * BwdTcSmem<D>::kTile + pn * apex_core::kPanelBytes, map, bar,
+                             pn * 64, row0 + 64 * w, bh);
+}
+
+// TMA loads of rows [row0, row0 + 64) of one head of `map` into one
+// [64 x D] ring tile at dst.
+template <int D>
+__device__ __forceinline__ void load_tile_tc(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int row0, int bh) {
+  for (int pn = 0; pn < D / 64; ++pn)
+    apex_core::tma_load_3d(dst + pn * apex_core::kPanelBytes, map, bar, pn * 64, row0, bh);
+}
+
+// F2: dq of 128 query rows (two consumer warpgroups of 64) over the key
+// tiles they can see.  Per tile: S = Q K^T and dP = dO V^T in flight
+// together, then P = exp(S scale - lse_safe) masked, dropout on dP, dS =
+// P (dP - delta) scale on the fp32 fragment, and dq += dS K with dS
+// rounded to bf16 as the register operand and K read MN-major from the
+// same ring tile that served Q K^T.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, Params p) {
+  using L = BwdTcSmem<D>;
+  using namespace apex_core;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  int* seg_s = reinterpret_cast<int*>(smem + L::rows);
+  const BwdBars bars = bwd_bars(smem + L::bars);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // longest sweeps first
+  const int n_live = live_k_tiles_tc(p, row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == kTcConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.once, 4 * L::kTile);
+      load_once<D>(smem + L::a, &q_map, bars.once, row0, bh);
+      load_once<D>(smem + L::b, &do_map, bars.once, row0, bh);
+    }
+    for (int jt = 0; jt < n_live; ++jt) {
+      const int st = jt % kTcStages;
+      if (jt >= kTcStages) mbar_wait(&bars.empty[st], (jt / kTcStages - 1) & 1);
+      const int col0 = jt * kTile;
+      if (p.seg_k)
+        for (int i = lane; i < kTile; i += 32) {
+          const int pos = col0 + i;
+          seg_s[st * kTile + i] = pos < p.sk ? p.seg_k[(size_t)b * p.sk + pos] : -1;
+        }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&bars.full[st], 2 * L::kTile);
+        load_tile_tc<D>(smem + L::ring_a + st * L::kTile, &k_map, &bars.full[st], col0, bh);
+        load_tile_tc<D>(smem + L::ring_b + st * L::kTile, &v_map, &bars.full[st], col0, bh);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups: wg owns query rows r_lo + [0, 64); a thread's
+  // two rows' lse_safe, delta and segment id stay in registers
+  const int wg = warp / 4;
+  const int r_lo = row0 + 64 * wg;
+  const int rows[2] = {r_lo + frag_row(0), r_lo + frag_row(2)};
+  float lse_safe[2], dlt[2];
+  int seg_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = rows[h] < p.sq;
+    const float x = in ? lse[(size_t)bh * p.sq + rows[h]] : 0.f;
+    lse_safe[h] = x <= kNegInf * 0.5f ? 0.f : x;
+    dlt[h] = in ? delta[(size_t)bh * p.sq + rows[h]] : 0.f;
+    seg_q[h] = p.seg_q && in ? p.seg_q[(size_t)b * p.sq + rows[h]] : -2;
+  }
+  const uint32_t head = p.seed ? head_hash(p.seed, bh) : 0u;
+  const int last_row = min(r_lo + 63, p.sq - 1);  // of this warpgroup
+  const uint32_t q_tile = smem_addr(smem + L::a + wg * L::kTile);
+  const uint32_t do_tile = smem_addr(smem + L::b + wg * L::kTile);
+
+  float acc[kPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  mbar_wait(bars.once, 0);
+  for (int jt = 0; jt < n_live; ++jt) {
+    const int st = jt % kTcStages;
+    const int col0 = jt * kTile;
+    mbar_wait(&bars.full[st], (jt / kTcStages) & 1);
+    // a tile none of this warpgroup's rows can see adds nothing to dq
+    const bool blind = r_lo >= p.sq || (p.causal && p.q_offset + last_row < p.kv_offset + col0);
+    if (!blind) {
+      const uint32_t k_tile = smem_addr(smem + L::ring_a + st * L::kTile);
+      const uint32_t v_tile = smem_addr(smem + L::ring_b + st * L::kTile);
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+      abt_async<D>(s, q_tile, kPanelBytes, k_tile, kPanelBytes);
+      abt_async<D>(dp, do_tile, kPanelBytes, v_tile, kPanelBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      // only a ragged, segmented or diagonal tile has entries to mask
+      const bool masked = col0 + kTile > p.sk || p.seg_q ||
+                          (p.causal && p.kv_offset + col0 + kTile - 1 > p.q_offset + r_lo);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1, c = frag_col(i), col = col0 + c;
+          const bool vis = col < p.sk && !(p.causal && p.q_offset + rows[h] < p.kv_offset + col) &&
+                           (!p.seg_q || seg_q[h] == seg_s[st * kTile + c]);
+          s[i] = vis ? s[i] * p.scale : kNegInf;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= p.scale;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const float pr = __expf(s[i] - lse_safe[h]);  // masked: exp(-1e30 - x) = 0
+        float g = dp[i];
+        if (p.seed)
+          g = keep(head, p.q_offset + rows[h], p.kv_offset + col0 + frag_col(i), p.thresh)
+                  ? g * p.inv_keep
+                  : 0.f;
+        s[i] = pr * (g - dlt[h]) * p.scale;
+      }
+      mma_rs<kPanels>(acc, s, k_tile, kPanelBytes);
+    }
+    mbar_arrive(&bars.empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.sq) continue;
+    __nv_bfloat16* orow = dq + ((size_t)bh * p.sq + rows[h]) * p.d;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int i = 2 * h; i < 32; i += 4) {
+        const int c = pn * 64 + frag_col(i);
+        if (c < p.d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(acc[pn][i], acc[pn][i + 1]);
+      }
+  }
+}
+
+// F3 holds dk and dv beside the S^T and dP^T fragments (192 fp32 a thread
+// at head dim 128), more than the 168 registers a thread that 288 threads
+// get (a quarter of the SM's registers for each of its four schedulers,
+// three warps on one of them).  So its producer is a whole warpgroup that
+// gives registers away: 384 threads enter with 168 each, the producer
+// warpgroup drops to 40 and the consumers rise to 232 (the CTA's total is
+// unchanged: 128 x 128 = 256 x 64).
+constexpr int kDkvTcThreads = kTcConsumers + 128;
+constexpr int kDkvProducerRegs = 40;
+constexpr int kDkvConsumerRegs = 232;
+
+// F3: dk and dv of 128 keys (two consumer warpgroups of 64) over the query
+// tiles that can see them; the CTA owns its keys' dk and dv outright (no
+// atomics).  The fragment's rows are keys and its columns queries, so the
+// per-query lse_safe, delta and segment ids come from the ring's rows by
+// column.  Per tile: S^T = K Q^T and dP^T = V dO^T in flight together,
+// P, dropout and dS on the fp32 fragment (P_drop left in S^T's registers,
+// dS in dP^T's), then dv += P_drop^T dO and dk += dS^T Q with the
+// fragments rounded to bf16 and dO, Q read MN-major from the ring tiles
+// that served the scores.
+template <int D>
+__global__ void __launch_bounds__(kDkvTcThreads, 1) flash_dkv_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, Params p) {
+  using L = BwdTcSmem<D>;
+  using namespace apex_core;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  float* lse_s = reinterpret_cast<float*>(smem + L::rows);
+  float* delta_s = lse_s + kTcStages * kTile;
+  int* seg_s = reinterpret_cast<int*>(delta_s + kTcStages * kTile);
+  const BwdBars bars = bwd_bars(smem + L::bars);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int col0 = blockIdx.y * kTcRows;  // early keys have the longest causal sweeps
+  const int first = first_q_tile(p, col0);
+  const int n_tiles = max((p.sq + kTile - 1) / kTile - first, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp >= kTcConsumers / 32) {  // the producer warpgroup: one warp loads
+    setmaxnreg_dec<kDkvProducerRegs>();
+    if (warp > kTcConsumers / 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bars.once, 4 * L::kTile);
+      load_once<D>(smem + L::a, &k_map, bars.once, col0, bh);
+      load_once<D>(smem + L::b, &v_map, bars.once, col0, bh);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kTcStages;
+      if (j >= kTcStages) mbar_wait(&bars.empty[st], (j / kTcStages - 1) & 1);
+      const int row0 = (first + j) * kTile;
+      for (int i = lane; i < kTile; i += 32) {
+        const int pos = row0 + i;
+        const bool in = pos < p.sq;
+        const float x = in ? lse[(size_t)bh * p.sq + pos] : 0.f;
+        lse_s[st * kTile + i] = x <= kNegInf * 0.5f ? 0.f : x;
+        delta_s[st * kTile + i] = in ? delta[(size_t)bh * p.sq + pos] : 0.f;
+        if (p.seg_q) seg_s[st * kTile + i] = in ? p.seg_q[(size_t)b * p.sq + pos] : -1;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&bars.full[st], 2 * L::kTile);
+        load_tile_tc<D>(smem + L::ring_a + st * L::kTile, &q_map, &bars.full[st], row0, bh);
+        load_tile_tc<D>(smem + L::ring_b + st * L::kTile, &do_map, &bars.full[st], row0, bh);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroups: wg owns keys k_lo + [0, 64)
+  setmaxnreg_inc<kDkvConsumerRegs>();
+  const int wg = warp / 4;
+  const int k_lo = col0 + 64 * wg;
+  const int keys[2] = {k_lo + frag_row(0), k_lo + frag_row(2)};
+  int seg_k[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    seg_k[h] = p.seg_k && keys[h] < p.sk ? p.seg_k[(size_t)b * p.sk + keys[h]] : -2;
+  const uint32_t head = p.seed ? head_hash(p.seed, bh) : 0u;
+  const uint32_t k_tile = smem_addr(smem + L::a + wg * L::kTile);
+  const uint32_t v_tile = smem_addr(smem + L::b + wg * L::kTile);
+
+  float dk_acc[kPanels][32], dv_acc[kPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[pn][i] = dv_acc[pn][i] = 0.f;
+  mbar_wait(bars.once, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kTcStages;
+    const int row0 = (first + j) * kTile;
+    mbar_wait(&bars.full[st], (j / kTcStages) & 1);
+    // a tile whose queries see none of this warpgroup's keys adds nothing
+    const bool blind = k_lo >= p.sk ||
+                       (p.causal && p.q_offset + min(row0 + kTile, p.sq) - 1 < p.kv_offset + k_lo);
+    if (!blind) {
+      const uint32_t q_tile = smem_addr(smem + L::ring_a + st * L::kTile);
+      const uint32_t do_tile = smem_addr(smem + L::ring_b + st * L::kTile);
+      const float* lse_t = lse_s + st * kTile;
+      const float* delta_t = delta_s + st * kTile;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+      abt_async<D>(s, k_tile, kPanelBytes, q_tile, kPanelBytes);
+      abt_async<D>(dp, v_tile, kPanelBytes, do_tile, kPanelBytes);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool masked = row0 + kTile > p.sq || k_lo + kTile > p.sk || p.seg_q ||
+                          (p.causal && p.kv_offset + k_lo + kTile - 1 > p.q_offset + row0);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1, c = frag_col(i), row = row0 + c;
+          const bool vis = row < p.sq && keys[h] < p.sk &&
+                           !(p.causal && p.q_offset + row < p.kv_offset + keys[h]) &&
+                           (!p.seg_q || seg_s[st * kTile + c] == seg_k[h]);
+          s[i] = vis ? s[i] * p.scale : kNegInf;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= p.scale;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = frag_col(i);
+        const float pr = __expf(s[i] - lse_t[c]);  // masked: exp(-1e30 - x) = 0
+        float pd = pr, g = dp[i];
+        if (p.seed) {
+          const bool kept =
+              keep(head, p.q_offset + row0 + c, p.kv_offset + keys[(i >> 1) & 1], p.thresh);
+          pd = kept ? pr * p.inv_keep : 0.f;
+          g = kept ? g * p.inv_keep : 0.f;
+        }
+        s[i] = pd;
+        dp[i] = pr * (g - delta_t[c]) * p.scale;
+      }
+      mma_rs<kPanels>(dv_acc, s, do_tile, kPanelBytes);
+      mma_rs<kPanels>(dk_acc, dp, q_tile, kPanelBytes);
+    }
+    mbar_arrive(&bars.empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (keys[h] >= p.sk) continue;
+    const size_t off = ((size_t)bh * p.sk + keys[h]) * p.d;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int i = 2 * h; i < 32; i += 4) {
+        const int c = pn * 64 + frag_col(i);
+        if (c < p.d) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+              __floats2bfloat162_rn(dk_acc[pn][i], dk_acc[pn][i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+              __floats2bfloat162_rn(dv_acc[pn][i], dv_acc[pn][i + 1]);
+        }
+      }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 
 template <typename Kernel>
@@ -726,20 +1132,22 @@ cudaError_t launch_dkv(int bh, const Params& p, const void* q, const void* k, co
 }
 
 
+// A 3-D tensor map over a bf16 [bh, rows, d] tensor in 64 x 64 boxes with
+// the 128-byte swizzle: rows past a head's `rows` and columns past d
+// arrive as zeros, never from the next head.
+cudaError_t head_map(CUtensorMap* map, const void* base, int rows, int bh, int d) {
+  const uint64_t row = (uint64_t)d * sizeof(__nv_bfloat16);
+  return apex_core::make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, d, rows, bh, row,
+                                row * rows, 64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int D>
 cudaError_t launch_fwd_tc(int bh, const Params& p, const void* q, const void* k, const void* v,
                           void* out, void* lse, cudaStream_t s) {
-  using apex_core::make_map_3d;
-  const uint64_t row = (uint64_t)p.d * sizeof(__nv_bfloat16);
   CUtensorMap qm, km, vm;
-  cudaError_t err = make_map_3d(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, p.d, p.sq, bh, row,
-                                row * p.sq, 64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess)
-    err = make_map_3d(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, p.d, p.sk, bh, row, row * p.sk,
-                      64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == cudaSuccess)
-    err = make_map_3d(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, p.d, p.sk, bh, row, row * p.sk,
-                      64, 64, 1, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = head_map(&qm, q, p.sq, bh, p.d);
+  if (err == cudaSuccess) err = head_map(&km, k, p.sk, bh, p.d);
+  if (err == cudaSuccess) err = head_map(&vm, v, p.sk, bh, p.d);
   if (err != cudaSuccess) return err;
   const size_t smem = FwdTcSmem<D>::bytes;
   auto kernel = flash_fwd_tc_kernel<D>;
@@ -748,6 +1156,53 @@ cudaError_t launch_fwd_tc(int bh, const Params& p, const void* q, const void* k,
   const dim3 grid(bh, (p.sq + kTcRows - 1) / kTcRows);
   kernel<<<grid, kTcThreads, smem, s>>>(qm, km, vm, static_cast<__nv_bfloat16*>(out),
                                         static_cast<float*>(lse), p);
+  return cudaGetLastError();
+}
+
+// The four tensor maps of a backward launch: q, k, v, dout.
+cudaError_t bwd_maps(CUtensorMap (&m)[4], int bh, const Params& p, const void* q, const void* k,
+                     const void* v, const void* dout) {
+  cudaError_t err = head_map(&m[0], q, p.sq, bh, p.d);
+  if (err == cudaSuccess) err = head_map(&m[1], k, p.sk, bh, p.d);
+  if (err == cudaSuccess) err = head_map(&m[2], v, p.sk, bh, p.d);
+  if (err == cudaSuccess) err = head_map(&m[3], dout, p.sq, bh, p.d);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dq_tc(int bh, const Params& p, const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta, void* dq,
+                         cudaStream_t s) {
+  CUtensorMap m[4];
+  cudaError_t err = bwd_maps(m, bh, p, q, k, v, dout);
+  if (err != cudaSuccess) return err;
+  const size_t smem = BwdTcSmem<D>::bytes;
+  auto kernel = flash_dq_tc_kernel<D>;
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.sq + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, s>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+                                        static_cast<const float*>(delta),
+                                        static_cast<__nv_bfloat16*>(dq), p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(int bh, const Params& p, const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta, void* dk,
+                          void* dv, cudaStream_t s) {
+  CUtensorMap m[4];
+  cudaError_t err = bwd_maps(m, bh, p, q, k, v, dout);
+  if (err != cudaSuccess) return err;
+  const size_t smem = BwdTcSmem<D>::bytes;
+  auto kernel = flash_dkv_tc_kernel<D>;
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.sk + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kDkvTcThreads, smem, s>>>(m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+                                           static_cast<const float*>(delta),
+                                           static_cast<__nv_bfloat16*>(dk),
+                                           static_cast<__nv_bfloat16*>(dv), p);
   return cudaGetLastError();
 }
 
@@ -776,18 +1231,22 @@ extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k, const voi
 #undef APEX_FWD
 }
 
-// F1 on the tensor cores: bf16 q, k, v ([b*h, s, d] contiguous, 16-byte
-// aligned), d a multiple of 8 up to 128, sk > 0; anything else is refused.
+// What the tensor-core kernels take: bf16 operands ([b*h, s, d]
+// contiguous, 16-byte aligned), d a multiple of 8 up to 128, sk > 0.
+static bool tc_operands(std::initializer_list<const void*> ptrs, int d, int sk) {
+  uintptr_t bits = 0;
+  for (const void* ptr : ptrs) bits |= reinterpret_cast<uintptr_t>(ptr);
+  return bits % 16 == 0 && d >= 8 && d <= 128 && d % 8 == 0 && sk >= 1;
+}
+
+// F1 on the tensor cores; operands tc_operands refuses are refused.
 extern "C" int apex_flash_fwd_tc(const void* q, const void* k, const void* v, const void* seg_q,
                                  const void* seg_k, const void* seed, void* out, void* lse, int bh,
                                  int heads, int sq, int sk, int d, int causal, int q_offset,
                                  int kv_offset, float scale, unsigned int thresh, float inv_keep,
                                  void* stream) {
   if (bh == 0 || sq == 0) return (int)cudaSuccess;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v)) %
-                        16) == 0;
-  if (d < 8 || d > 128 || d % 8 || sk < 1 || !aligned) return (int)cudaErrorInvalidValue;
+  if (!tc_operands({q, k, v}, d, sk)) return (int)cudaErrorInvalidValue;
   const Params p = make_params(heads, sq, sk, d, scale, causal, q_offset, kv_offset, seg_q, seg_k,
                                seed, thresh, inv_keep);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -829,5 +1288,51 @@ extern "C" int apex_flash_dkv(int dtype, const void* q, const void* k, const voi
   APEX_FLASH_DISPATCH(APEX_DKV)
 #undef APEX_DKV
 }
+
+// F2 on the tensor cores; operands tc_operands refuses are refused.
+extern "C" int apex_flash_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, const void* seg_q,
+                                const void* seg_k, const void* seed, void* dq, int bh, int heads,
+                                int sq, int sk, int d, int causal, int q_offset, int kv_offset,
+                                float scale, unsigned int thresh, float inv_keep, void* stream) {
+  if (bh == 0 || sq == 0) return (int)cudaSuccess;
+  if (!tc_operands({q, k, v, dout}, d, sk)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(heads, sq, sk, d, scale, causal, q_offset, kv_offset, seg_q, seg_k,
+                               seed, thresh, inv_keep);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return (int)launch_dq_tc<64>(bh, p, q, k, v, dout, lse, delta, dq, s);
+  return (int)launch_dq_tc<128>(bh, p, q, k, v, dout, lse, delta, dq, s);
+}
+
+// F3 on the tensor cores; operands tc_operands refuses are refused.  With
+// no query rows dk and dv are zeros (a tensor map needs every dimension
+// positive, so no kernel runs).
+extern "C" int apex_flash_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* seg_q,
+                                 const void* seg_k, const void* seed, void* dk, void* dv, int bh,
+                                 int heads, int sq, int sk, int d, int causal, int q_offset,
+                                 int kv_offset, float scale, unsigned int thresh, float inv_keep,
+                                 void* stream) {
+  if (bh == 0 || sk == 0) return (int)cudaSuccess;
+  if (!tc_operands({q, k, v, dout}, d, sk)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq == 0) {
+    const size_t bytes = (size_t)bh * sk * d * sizeof(__nv_bfloat16);
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, s);
+    return (int)err;
+  }
+  const Params p = make_params(heads, sq, sk, d, scale, causal, q_offset, kv_offset, seg_q, seg_k,
+                               seed, thresh, inv_keep);
+  if (d <= 64) return (int)launch_dkv_tc<64>(bh, p, q, k, v, dout, lse, delta, dk, dv, s);
+  return (int)launch_dkv_tc<128>(bh, p, q, k, v, dout, lse, delta, dk, dv, s);
+}
+
+// Dynamic shared memory of flash_dq_tc_kernel / flash_dkv_tc_kernel for
+// head dim d (bytes; the two share one layout).
+extern "C" int apex_flash_dq_tc_smem(int d) {
+  return (int)(d <= 64 ? BwdTcSmem<64>::bytes : BwdTcSmem<128>::bytes);
+}
+extern "C" int apex_flash_dkv_tc_smem(int d) { return apex_flash_dq_tc_smem(d); }
 
 #undef APEX_FLASH_DISPATCH

@@ -22,6 +22,13 @@ the source's note says how they are built):
 - F2, ``dq_chunk``: dq from ``(q, k, v, do, lse, delta)``;
 - F3, ``dkv_chunk``: dk and dv over the transposed blocking.
 
+F2 and F3 have the same two routes, chosen together by :func:`bwd_route`
+from ``q, k, v, do``: ``"tc"`` (bf16, head dim a multiple of 8 up to 128)
+and ``"simt"`` for the rest.  On the tc route dk and dv are fp32 sums in
+the tensor cores' order, so they differ from the simt route's (which are
+bit-identical to the plain version's in bf16) within the rounding of
+their bf16 outputs; the rounding points are the same.
+
 :class:`FlashAttentionFunction` ties them together as the JAX
 ``custom_vjp`` does: it saves ``(q, k, v, segments, seed, out, lse)``,
 computes ``delta = sum(do * out)`` in fp32 and calls F2 and F3.  On CUDA
@@ -42,11 +49,15 @@ bit for bit, so the same seed drops the same entries on both sides;
 int or a one-element tensor, which may live on the card).
 
 The plain versions sweep K/V in blocks of the JAX package's default
-``block_k`` (512); the CUDA kernels tile by 64.
+``block_k`` (512); the CUDA kernels tile by 64.  The entry points take the
+JAX package's ``block_q`` / ``block_k`` in the same places and validate
+them (:func:`resolve_default_blocks`), as tiling hints that neither the
+kernels nor the plain versions use.
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional
 
 import torch
@@ -64,20 +75,27 @@ __all__ = [
     "flash_dkv_plain",
     "keep_mask",
     "fwd_route",
+    "bwd_route",
+    "resolve_default_blocks",
 ]
 
 NEG_INF = -1e30
+DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
 _LANES = 128
 _M32 = 0xFFFFFFFF
 
-# launches of each kernel since the count was last set to 0; F1's total
+# launches of each kernel since the count was last set to 0; each total
 # is also counted per route
 FWD_LAUNCHES = 0
 FWD_TC_LAUNCHES = 0
 FWD_SIMT_LAUNCHES = 0
 DQ_LAUNCHES = 0
+DQ_TC_LAUNCHES = 0
+DQ_SIMT_LAUNCHES = 0
 DKV_LAUNCHES = 0
+DKV_TC_LAUNCHES = 0
+DKV_SIMT_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,6 +106,20 @@ def _resolve(scale: Optional[float], d: int) -> float:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def resolve_default_blocks(block_q=None, block_k=None):
+    """``(block_q, block_k)`` with an unset one at the JAX package's default
+    (256, 512); raise unless each is a positive int.  The port's kernels
+    tile by 64 and its plain versions sweep in blocks of
+    ``DEFAULT_BLOCK_K`` whatever is given."""
+    block_q = DEFAULT_BLOCK_Q if block_q is None else block_q
+    block_k = DEFAULT_BLOCK_K if block_k is None else block_k
+    for name, x in (("block_q", block_q), ("block_k", block_k)):
+        if (isinstance(x, bool) or not isinstance(x, numbers.Integral)
+                or x <= 0):
+            raise ValueError(f"{name} must be a positive int, got {x!r}")
+    return block_q, block_k
 
 
 def _seed_tensor(dropout_seed, device) -> torch.Tensor:
@@ -346,18 +378,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fwd_route(q, k, v) -> str:
-    """The F1 kernel that operands of these dtypes and shapes take:
-    ``"tc"`` (the tensor-core kernel) for bf16 q, k and v with a head dim
+def _tc_route(q, k, *rest) -> str:
+    """``"tc"`` (the tensor-core kernels) for bf16 operands with a head dim
     that is a multiple of 8 up to 128, at least one key and 16-byte-aligned
     storage (TMA's rule for a tensor's base and row stride); ``"simt"``
     for anything else."""
+    ops = (q, k, *rest)
     d = q.shape[-1]
-    if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and d % 8 == 0
+    if (all(t.dtype == torch.bfloat16 for t in ops) and d % 8 == 0
             and 0 < d <= 128 and k.shape[2] > 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+            and all(t.data_ptr() % 16 == 0 for t in ops)):
         return "tc"
     return "simt"
+
+
+def fwd_route(q, k, v) -> str:
+    """The F1 kernel that operands of these dtypes and shapes take (see
+    :func:`_tc_route`)."""
+    return _tc_route(q, k, v)
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The F2 and F3 kernels that operands of these dtypes and shapes take,
+    by the same rule as :func:`fwd_route` over ``do`` too."""
+    return _tc_route(q, k, v, do)
 
 
 def _fwd(q, k, v, seg_q, seg_k, seed, *, causal, scale, q_offset,
@@ -422,15 +466,40 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv):
     return seg_q, seg_k
 
 
-def dq_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
-             q_offset=0, kv_offset=0,
-             segment_ids_q=None, segment_ids_kv=None, dropout_rate=0.0,
-             dropout_seed=None):
-    """dq of one K/V chunk given the *global* ``lse``/``delta`` (F2).
+def _bwd_launch(kernel, route, q, k, v, do, lse, delta, seg_q, seg_k,
+                dropout_seed, outs, *, causal, scale, q_offset, kv_offset,
+                dropout_rate):
+    """Launch F2 (``kernel="dq"``) or F3 (``"dkv"``) on ``route`` into
+    ``outs``; raise if the launch fails."""
+    b, h, sq, d = q.shape
+    seed_t, thresh, inv = _dropout_args(dropout_seed, dropout_rate, q.device)
+    lib = _build.library()
+    if route == "tc":
+        fn, lead = getattr(lib, f"apex_flash_{kernel}_tc"), ()
+    elif route == "simt":
+        fn, lead = getattr(lib, f"apex_flash_{kernel}"), (
+            _DTYPE_CODES[q.dtype],)
+    else:
+        raise ValueError(f"unknown flash backward route {route!r}")
+    with torch.cuda.device(q.device):
+        rc = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seg_q),
+                _ptr(seg_k), _ptr(seed_t), *(t.data_ptr() for t in outs),
+                b * h, h, sq, k.shape[2], d, int(causal), q_offset,
+                kv_offset, _resolve(scale, d), thresh, inv,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash {kernel} kernel ({route}) launch failed: "
+                           f"CUDA error {rc}")
 
-    Each (q-block, k-block) pair's gradient depends on the others only
-    through (lse, delta), so ring backward can re-drive this per chunk."""
-    global DQ_LAUNCHES
+
+def _dq(q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+        dropout_seed, *, causal, scale, q_offset, kv_offset, dropout_rate,
+        route=None):
+    """F2 on CUDA tensors, its plain version on CPU tensors.  ``route``
+    names the kernel (``"tc"`` or ``"simt"``); by default
+    :func:`bwd_route` chooses it."""
+    global DQ_LAUNCHES, DQ_TC_LAUNCHES, DQ_SIMT_LAUNCHES
     _check_bwd_shapes(q, k, v, do, lse, delta, segment_ids_q,
                       segment_ids_kv)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
@@ -442,30 +511,24 @@ def dq_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
         raise ValueError(f"no kernel for device {q.device}")
     seg_q, seg_k = _bwd_operands(q, k, v, do, lse, delta, segment_ids_q,
                                  segment_ids_kv)
-    b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    seed_t, thresh, inv = _dropout_args(dropout_seed, dropout_rate,
-                                          q.device)
-    with torch.cuda.device(q.device):
-        rc = _build.library().apex_flash_dq(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seg_q),
-            _ptr(seg_k), _ptr(seed_t), dq.data_ptr(), b * h, h, sq, k.shape[2],
-            d, int(causal), q_offset, kv_offset, _resolve(scale, d), thresh,
-            inv, torch.cuda.current_stream(q.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"flash dq kernel launch failed: CUDA error {rc}")
+    route = route or bwd_route(q, k, v, do)
+    _bwd_launch("dq", route, q, k, v, do, lse, delta, seg_q, seg_k,
+                dropout_seed, (dq,), **kw)
     DQ_LAUNCHES += 1
+    if route == "tc":
+        DQ_TC_LAUNCHES += 1
+    else:
+        DQ_SIMT_LAUNCHES += 1
     return dq
 
 
-def dkv_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
-              q_offset=0, kv_offset=0,
-              segment_ids_q=None, segment_ids_kv=None, dropout_rate=0.0,
-              dropout_seed=None):
-    """``(dk, dv)`` of one K/V chunk given the global ``lse``/``delta``
-    (F3)."""
-    global DKV_LAUNCHES
+def _dkv(q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+         dropout_seed, *, causal, scale, q_offset, kv_offset, dropout_rate,
+         route=None):
+    """F3 on CUDA tensors, its plain version on CPU tensors; ``route`` as
+    for :func:`_dq`."""
+    global DKV_LAUNCHES, DKV_TC_LAUNCHES, DKV_SIMT_LAUNCHES
     _check_bwd_shapes(q, k, v, do, lse, delta, segment_ids_q,
                       segment_ids_kv)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
@@ -477,23 +540,45 @@ def dkv_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
         raise ValueError(f"no kernel for device {q.device}")
     seg_q, seg_k = _bwd_operands(q, k, v, do, lse, delta, segment_ids_q,
                                  segment_ids_kv)
-    b, h, sq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    seed_t, thresh, inv = _dropout_args(dropout_seed, dropout_rate,
-                                          q.device)
-    with torch.cuda.device(q.device):
-        rc = _build.library().apex_flash_dkv(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(seg_q),
-            _ptr(seg_k), _ptr(seed_t), dk.data_ptr(), dv.data_ptr(), b * h, h,
-            sq, k.shape[2], d, int(causal), q_offset, kv_offset,
-            _resolve(scale, d), thresh, inv,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"flash dk/dv kernel launch failed: CUDA error {rc}")
+    route = route or bwd_route(q, k, v, do)
+    _bwd_launch("dkv", route, q, k, v, do, lse, delta, seg_q, seg_k,
+                dropout_seed, (dk, dv), **kw)
     DKV_LAUNCHES += 1
+    if route == "tc":
+        DKV_TC_LAUNCHES += 1
+    else:
+        DKV_SIMT_LAUNCHES += 1
     return dk, dv
+
+
+def dq_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
+             block_q=None, block_k=None, q_offset=0, kv_offset=0,
+             segment_ids_q=None, segment_ids_kv=None, dropout_rate=0.0,
+             dropout_seed=None):
+    """dq of one K/V chunk given the *global* ``lse``/``delta`` (F2).
+
+    Each (q-block, k-block) pair's gradient depends on the others only
+    through (lse, delta), so ring backward can re-drive this per chunk.
+    ``block_q``/``block_k`` are validated tiling hints
+    (:func:`resolve_default_blocks`)."""
+    resolve_default_blocks(block_q, block_k)
+    return _dq(q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+               dropout_seed, causal=causal, scale=scale, q_offset=q_offset,
+               kv_offset=kv_offset, dropout_rate=dropout_rate)
+
+
+def dkv_chunk(q, k, v, do, lse, delta, *, causal, scale=None,
+              block_q=None, block_k=None, q_offset=0, kv_offset=0,
+              segment_ids_q=None, segment_ids_kv=None, dropout_rate=0.0,
+              dropout_seed=None):
+    """``(dk, dv)`` of one K/V chunk given the global ``lse``/``delta``
+    (F3); ``block_q``/``block_k`` as for :func:`dq_chunk`."""
+    resolve_default_blocks(block_q, block_k)
+    return _dkv(q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+                dropout_seed, causal=causal, scale=scale, q_offset=q_offset,
+                kv_offset=kv_offset, dropout_rate=dropout_rate)
 
 
 # ------------------------------------------------- autograd + public API
@@ -505,14 +590,15 @@ class FlashAttentionFunction(torch.autograd.Function):
     by-product for sharded-softmax composition."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, seed, causal, scale, q_offset,
-                kv_offset, dropout_rate):
+    def forward(ctx, q, k, v, seg_q, seg_k, seed, causal, scale, block_q,
+                block_k, q_offset, kv_offset, dropout_rate):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = _fwd(q, k, v, seg_q, seg_k, seed, causal=causal,
                         scale=scale, q_offset=q_offset, kv_offset=kv_offset,
                         dropout_rate=dropout_rate)
         ctx.save_for_backward(q, k, v, seg_q, seg_k, seed, out, lse)
-        ctx.kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+        ctx.kw = dict(causal=causal, scale=scale, block_q=block_q,
+                      block_k=block_k, q_offset=q_offset,
                       kv_offset=kv_offset, dropout_rate=dropout_rate)
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -526,11 +612,13 @@ class FlashAttentionFunction(torch.autograd.Function):
                   dropout_seed=seed)
         dq = dq_chunk(q, k, v, do, lse, delta, **kw)
         dk, dv = dkv_chunk(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 10
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False,
                              scale: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None,
                              q_offset: int = 0, kv_offset: int = 0, *,
                              segment_ids_q=None, segment_ids_kv=None,
                              dropout_rate: float = 0.0, dropout_seed=None):
@@ -538,22 +626,27 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
 
     ``segment_ids_q/kv`` (int >= 0, ``[b, s]``) mask attention across
     segment boundaries.  ``dropout_rate``/``dropout_seed`` apply attention
-    dropout after the softmax (vary the seed per step)."""
+    dropout after the softmax (vary the seed per step).  ``block_q`` /
+    ``block_k`` are validated tiling hints (:func:`resolve_default_blocks`),
+    in the JAX package's positions."""
+    block_q, block_k = resolve_default_blocks(block_q, block_k)
     seed = (_seed_tensor(dropout_seed, q.device) if dropout_rate > 0.0
             else None)
     return FlashAttentionFunction.apply(
         q, k, v, segment_ids_q, segment_ids_kv, seed, causal, scale,
-        q_offset, kv_offset, float(dropout_rate))
+        block_q, block_k, q_offset, kv_offset, float(dropout_rate))
 
 
 def flash_attention(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None, *,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None, *,
                     segment_ids_q=None, segment_ids_kv=None,
                     dropout_rate: float = 0.0, dropout_seed=None):
     """``softmax(q k^T * scale [+ masks]) v`` without materialising the
     score matrix.  ``q, k, v: [batch, heads, seq, head_dim]``."""
     out, _ = flash_attention_with_lse(
-        q, k, v, causal, scale, 0, 0,
+        q, k, v, causal, scale, block_q, block_k, 0, 0,
         segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
         dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return out

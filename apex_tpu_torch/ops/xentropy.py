@@ -2,7 +2,11 @@
 :mod:`apex_tpu.ops.xentropy`).
 
 Per row: ``loss = (lse - sum(logits) / C) * smoothing - log_prob[label] *
-(1 - smoothing)``, zero where ``label == padding_idx``.  The autograd
+(1 - smoothing)``, zero where ``label == padding_idx``.  Labels outside
+``[0, C)`` follow the JAX package: a padding row gives loss and gradient 0
+whatever its label; otherwise a label in ``[-C, -1]`` counts from the end
+in the loss, one outside ``[-C, C)`` gives a NaN loss, and neither adds the
+one-hot term to the gradient.  The autograd
 Function saves only the logits, one lse per row and the labels, and
 recomputes ``exp(logit - lse)`` in the backward, so activation memory is
 O(rows) beyond the logits themselves.  All math is fp32 whatever the
@@ -18,11 +22,23 @@ import torch
 __all__ = ["softmax_cross_entropy_loss", "SoftmaxCrossEntropyLoss"]
 
 
+def _gather_labels(x32, labels):
+    """``x32[..., label]`` with the JAX package's ``take_along_axis``
+    rules: a label in ``[-C, -1]`` counts from the end, one outside
+    ``[-C, C)`` gives NaN (a padding row's NaN is zeroed afterwards)."""
+    C = x32.shape[-1]
+    idx = labels.long()
+    idx = torch.where(idx < 0, idx + C, idx)
+    inside = (idx >= 0) & (idx < C)
+    got = x32.gather(-1, idx.clamp(0, C - 1)[..., None])[..., 0]
+    return torch.where(inside, got, float("nan"))
+
+
 def _fwd_math(logits, labels, smoothing, padding_idx):
     x32 = logits.float()
     m = x32.amax(dim=-1)
     lse = m + torch.log(torch.exp(x32 - m[..., None]).sum(dim=-1))
-    label_logit = x32.gather(-1, labels.long()[..., None])[..., 0]
+    label_logit = _gather_labels(x32, labels)
     log_prob = label_logit - lse
     loss = -log_prob * (1.0 - smoothing)
     if smoothing:
@@ -50,8 +66,10 @@ class SoftmaxCrossEntropyLoss(torch.autograd.Function):
         smoothing = ctx.smoothing
         C = logits.shape[-1]
         g = torch.exp(logits.float() - lse[..., None])
-        g.scatter_add_(-1, labels.long()[..., None],
-                       torch.full_like(lse[..., None], -(1.0 - smoothing)))
+        # the one-hot term only for a label in [0, C), as jax.nn.one_hot
+        idx = labels.long()[..., None]
+        hot = torch.where((idx >= 0) & (idx < C), -(1.0 - smoothing), 0.0)
+        g.scatter_add_(-1, idx.clamp(0, C - 1), hot.to(g.dtype))
         if smoothing:
             g = g - smoothing / C
         d32 = torch.where(labels == ctx.padding_idx, 0.0, dloss.float())

@@ -22,14 +22,18 @@ Phases (any failure exits non-zero; none is caught):
      ragged shapes of ``FLASH_EDGES`` (lengths off the tile, sq != sk,
      offsets that leave rows no key, head dims 16 to 128, bf16 at 24, 64,
      80 and 128);
-   - F1 and K2 each have two routes: bf16 takes the tensor-core kernel
-     ("tc": wgmma, TMA, an mbarrier ring), fp32 the CUDA-core kernel
-     ("simt"); every check counts the launches per route, and each bf16
-     check also holds and times the simt route on the same operands, so
-     the kernels line carries both records; K2's tc route is also held at
-     the ragged ``PAGED_EDGES`` (T x heads per group over two 64-row
-     tiles, the last ragged); ``ptxas -v``'s registers, shared memory and
-     spills of both tc kernels are printed, and a spill byte fails;
+   - F1, F2, F3 and K2 each have two routes: bf16 takes the tensor-core
+     kernel ("tc": wgmma, TMA, an mbarrier ring), fp32 the CUDA-core
+     kernel ("simt"); every check counts the launches per route, and each
+     bf16 check also holds and times the simt route on the same operands,
+     so the kernels line carries both records; the tc route of F2/F3 is
+     held against an fp64 evaluation of the same gradient (no farther from
+     it than plain, see ``flash_close``), the simt route against plain as
+     before; the bf16 ``FLASH_EDGES`` run F2/F3 on both routes; K2's tc
+     route is also held at the ragged ``PAGED_EDGES`` (T x heads per group
+     over two 64-row tiles, the last ragged); ``ptxas -v``'s registers,
+     shared memory and spills of every tc kernel are printed, and a spill
+     byte fails;
    - the row norms N1 (LayerNorm) and N2 (RMSNorm) at GPT-124M's training
      activation (8192 rows of 768) with bf16 x over fp32 parameters, in
      fp32, and in bf16 throughout, beside ``F.layer_norm`` /
@@ -52,12 +56,13 @@ Phases (any failure exits non-zero; none is caught):
    batch 8, bf16 compute, fp32 parameters, flash attention, FusedAdam at
    lr 1e-4) on one fixed batch: 2 warm-up and 8 timed steps, the loss
    finite and falling, F1, F2 and F3 launched 12 times per step (from
-   their counters), F1 always on the tc route; then one more step under
-   ``torch.profiler``;
+   their counters), F1, F2 and F3 always on the tc route; then one more
+   step under ``torch.profiler``;
 6. three training steps in fp32 (TF32 off) on the card and on the CPU
    from the same weights, for GPT-124M at batch 1 x 128 tokens and for
    the small rope + grouped-query + SwiGLU model: each step's loss within
-   1e-4 and gradient norm within 1e-3 (relative); F1 on the simt route;
+   1e-4 and gradient norm within 1e-3 (relative); F1, F2 and F3 on the
+   simt route;
 7. speculative decoding and multi-LoRA serving at GPT-124M width (bf16
    compute and cache, fp32 parameters and adapter arena, as in the
    serving phases): in phase 2 beside the other kernels,
@@ -137,11 +142,12 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-TC_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel")
+TC_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel",
+              "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
 
 
 def check_tc_ptxas(build_log, lib):
-    """Print what ``ptxas -v`` reported for each instance of the two
+    """Print what ``ptxas -v`` reported for each instance of the
     tensor-core kernels (registers, spills) with its dynamic shared memory,
     and fail on a spill byte."""
     entries, name = {}, None
@@ -152,22 +158,43 @@ def check_tc_ptxas(build_log, lib):
             if kernel is not None:
                 args = line.split(kernel)[1].split("EE")[0]
                 d = int(args.split("Li")[-1])
-                if kernel == TC_KERNELS[0]:
-                    name, smem = f"{kernel}<D={d}>", lib.apex_flash_fwd_tc_smem(d)
-                else:
+                if kernel == "paged_prefill_tc_kernel":
                     int8 = "Lb1" in args
                     smem = lib.apex_paged_prefill_tc_smem(2 if int8 else 1, d)
                     name = f"{kernel}<{'int8' if int8 else 'bf16'} cache, D={d}>"
+                else:                # apex_flash_{fwd,dq,dkv}_tc_smem
+                    smem = getattr(lib, "apex_" + kernel.replace("_kernel", "_smem"))(d)
+                    name = f"{kernel}<D={d}>"
                 entries[name] = [f"{smem} bytes dynamic shared memory"]
         elif name is not None and ("Used" in line or "spill" in line):
             entries[name].append(line.split(":", 1)[-1].strip())
     check(all(any(k in n for n in entries) for k in TC_KERNELS),
-          f"ptxas reported both tensor-core kernels: {sorted(entries)}")
+          f"ptxas reported every tensor-core kernel: {sorted(entries)}")
     for n, lines in sorted(entries.items()):
         log(f"ptxas {n}: {'; '.join(lines)}")
         spills = [ln for ln in lines if "spill" in ln]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
                              for ln in spills), f"{n}: no spill bytes")
+
+
+def device_rows(torch, prof):
+    """``(rows, busy_us)`` of a profile: ``(device us, count, name)`` of
+    each kernel (and copy, memset) on the card, and their sum.  A user
+    annotation (``Optimizer.step#...``) also carries device time, the span
+    of the work launched inside it, idle gaps included; it is logged and
+    left out of the rows and the sum, which it would count twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        row = (getattr(e, "self_device_time_total", 0), e.count, e.key)
+        if getattr(e, "is_user_annotation", False):
+            log(f"  annotation {e.key[:60]}: spans {row[0] / 1e3:.3f} ms of "
+                f"device time")
+        else:
+            rows.append(row)
+    return rows, sum(r[0] for r in rows)
 
 
 # ------------------------------------------------------------ timing
@@ -847,7 +874,40 @@ FLASH_NAMES = ("out", "lse", "dq", "dk", "dv")
 BF16_RMS_LIMIT = {"out": 0.08, "dq": 0.02}
 
 
-def flash_close(torch, what, got, want, dkv_exact=True):
+def exact_bwd(torch, fa, q, k, v, do, lse, delta, seg_q, seg_k, seed, *,
+              causal, q_offset=0, kv_offset=0, dropout_rate=0.0):
+    """``{"dq", "dk", "dv"}`` of F2/F3 summed in fp64, with the kernels'
+    bf16 rounding points (dS before dS K and dS^T Q, the dropped P before
+    P^T dO) taken on the fp64 values: the gradient the fp32 sums of every
+    route approximate."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5
+    row_g = q_offset + torch.arange(sq, device="cuda")
+    col_g = kv_offset + torch.arange(sk, device="cuda")
+    mask = torch.ones((1, 1, sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask = mask & (row_g[:, None] >= col_g[None, :])
+    if seg_q is not None:
+        mask = mask & (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    lse_safe = torch.where(lse <= fa.NEG_INF * 0.5, 0.0, lse).double()
+    p = torch.where(mask, torch.exp(q64 @ k64.transpose(-1, -2) * scale
+                                    - lse_safe[..., None]), 0.0)
+    dp = do64 @ v64.transpose(-1, -2)
+    p_drop = p
+    if dropout_rate:
+        keep = fa._block_keep(seed, b, h, row_g, col_g, dropout_rate)
+        p_drop = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
+    ds = (p * (dp - delta.double()[..., None]) * scale).to(
+        torch.bfloat16).double()
+    p_drop = p_drop.to(torch.bfloat16).double()
+    return {"dq": ds @ k64, "dk": ds.transpose(-1, -2) @ q64,
+            "dv": p_drop.transpose(-1, -2) @ do64}
+
+
+def flash_close(torch, what, got, want, dkv_exact=True, exact=None):
     """Kernel ``(out, lse, dq, dk, dv)`` against plain; logs and returns
     each one's largest difference.
 
@@ -870,7 +930,19 @@ def flash_close(torch, what, got, want, dkv_exact=True):
       Bit-identity needs plain's fp32 GEMM to sum the query rows in F3's
       order; at sq 200 and head dim 80 cuBLAS sums them in another, and
       one element of dv landed one step (9.5e-7 at magnitude 2e-4) from
-      plain (card reading; F3 is the same code as at the other shapes)."""
+      plain (card reading; F3 is the same code as at the other shapes).
+    - ``exact`` (the tensor-core route of F2/F3, given :func:`exact_bwd`'s
+      fp64 gradient): bf16 dq, dk and dv no farther from the fp64 gradient
+      than plain is, plus one bf16 step at the gradient's largest element
+      (2**-7 of it).  The tc route's fp32 sums (the tensor cores' order, and
+      __expf) differ from plain's by about 1e-6 relative, and a P or dS
+      term that lands beside a bf16 rounding boundary then rounds one step
+      the other way: a term of order 1 times a dO or Q of order 3 moves an
+      output by up to 0.016.  So neither bit-identity nor a bound against
+      plain's RMS holds (card readings at the bench shapes: up to 0.106 of
+      the RMS for dv, 0.073 for dk, 0.035 for dq), while plain itself lies
+      up to 0.118, 0.073 and 0.110 of the RMS from the fp64 gradient, and
+      the tc route exactly as far."""
     err, rms = [], []
     for g, w in zip(got, want):
         err.append((g.float() - w.float()).abs().max().item())
@@ -881,6 +953,15 @@ def flash_close(torch, what, got, want, dkv_exact=True):
     for name, g, w, e, r in zip(FLASH_NAMES, got, want, err, rms):
         if g.dtype == torch.float32:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        elif exact is not None and name in exact:
+            x = exact[name]
+            e_k = (g.double() - x).abs().max().item()
+            e_p = (w.double() - x).abs().max().item()
+            slack = 2.0 ** -7 * x.abs().max().item()
+            log(f"  {what} {name}: max |kernel - fp64| {e_k:.4g}, max |plain - "
+                f"fp64| {e_p:.4g}, one step at the largest {slack:.3g}")
+            check(e_k <= e_p + slack, f"{what}: bf16 {name} as close to the "
+                  f"fp64 gradient as plain ({e_k:.4g} > {e_p:.4g} + {slack:.3g})")
         elif name in ("dk", "dv") and dkv_exact:
             check(torch.equal(g, w), f"{what}: bf16 {name} bit-identical "
                   f"to plain (max |diff| {e:.3g})")
@@ -915,7 +996,8 @@ FLASH_EDGES = (
 
 def check_flash_edges(torch, fa):
     """F1, F2 and F3 against their plain versions at the shapes of
-    ``FLASH_EDGES`` (correctness only, no timing)."""
+    ``FLASH_EDGES`` (correctness only, no timing); a bf16 case runs F2/F3
+    on both routes."""
     for i, (b, h, sq, sk, d, kind, case) in enumerate(FLASH_EDGES):
         kw = dict(case)
         dkv_exact = kw.pop("dkv_exact", True)
@@ -934,7 +1016,8 @@ def check_flash_edges(torch, fa):
         skw = dict(kw, segment_ids_q=seg_q, segment_ids_kv=seg_k,
                    dropout_seed=seed)
         route = fa.fwd_route(q, k, v)
-        check(route == ("tc" if kind == "bf16" else "simt"),
+        check(route == ("tc" if kind == "bf16" else "simt")
+              and fa.bwd_route(q, k, v, do) == route,
               f"flash edge {i}: {kind} takes the {route} route")
         before = fwd_route_counts(fa)
         with torch.no_grad():
@@ -945,18 +1028,35 @@ def check_flash_edges(torch, fa):
                                                   seed, **kw)
             delta = (do.float() * ref_out.float()).sum(-1)
             args = (q, k, v, do, ref_lse, delta)
+            before = bwd_route_counts(fa)
             dq = fa.dq_chunk(*args, **skw)
             dk, dv = fa.dkv_chunk(*args, **skw)
+            check_bwd_launches(bwd_route_counts(fa), before, route,
+                               f"flash edge {i}")
             ref_dq = fa.flash_dq_plain(*args, seg_q, seg_k, seed, **kw)
             ref_dk, ref_dv = fa.flash_dkv_plain(*args, seg_q, seg_k, seed,
                                                 **kw)
+            grads = {"kernel": (dq, dk, dv)}
+            exact = None
+            if route == "tc":
+                exact = exact_bwd(torch, fa, *args, seg_q, seg_k, seed, **kw)
+                bkw = dict(dict(scale=None, q_offset=0, kv_offset=0,
+                                dropout_rate=0.0), **kw)
+                bargs = (*args, seg_q, seg_k, seed)
+                grads["simt route"] = (fa._dq(*bargs, route="simt", **bkw),
+                                       *fa._dkv(*bargs, route="simt", **bkw))
         torch.cuda.synchronize()
-        flash_close(torch, f"edge [b{b} h{h} sq{sq} sk{sk} d{d} {kind} "
-                    f"{case}]", (out, lse, dq, dk, dv),
-                    (ref_out, ref_lse, ref_dq, ref_dk, ref_dv), dkv_exact)
+        label = f"edge [b{b} h{h} sq{sq} sk{sk} d{d} {kind} {case}]"
+        refs = (ref_out, ref_lse, ref_dq, ref_dk, ref_dv)
+        flash_close(torch, f"{label} ({route} route)", (out, lse, dq, dk, dv),
+                    refs, dkv_exact, exact)
+        if "simt route" in grads:
+            flash_close(torch, f"{label} (F2/F3 simt route)",
+                        (out, lse, *grads["simt route"]), refs, dkv_exact)
         blind = kw.get("kv_offset", 0) - kw.get("q_offset", 0)
         if kw.get("causal") and blind > 0:
-            check(not out[:, :, :blind].any() and not dq[:, :, :blind].any()
+            check(not out[:, :, :blind].any()
+                  and all(not g[0][:, :, :blind].any() for g in grads.values())
                   and bool((lse[:, :, :blind] == fa.NEG_INF).all()),
                   "rows that see no key give output 0, lse -1e30, dq 0")
 
@@ -965,22 +1065,37 @@ def fwd_route_counts(fa):
     return fa.FWD_TC_LAUNCHES, fa.FWD_SIMT_LAUNCHES
 
 
+def bwd_route_counts(fa):
+    return (fa.DQ_TC_LAUNCHES, fa.DQ_SIMT_LAUNCHES, fa.DKV_TC_LAUNCHES,
+            fa.DKV_SIMT_LAUNCHES)
+
+
+def check_bwd_launches(now, before, route, what):
+    """One F2 and one F3 launch between the per-route counts ``before``
+    and ``now``, both on ``route``."""
+    check_one_launch(now[:2], before[:2], route, f"{what} F2")
+    check_one_launch(now[2:], before[2:], route, f"{what} F3")
+
+
 def check_flash(torch, F, fa, timer, label, dtype, segments=False,
                 dropout=0.0):
     """F1, F2 and F3 against their plain versions on the card; returns
     each kernel's record.  F2/F3 take the plain forward's lse and delta,
-    so each kernel is held alone."""
+    so each kernel is held alone.  A bf16 case also holds and times the
+    simt route of each on the same operands."""
     q, k, v, do, seg = flash_inputs(torch, dtype, 11, segments)
     seed = (torch.tensor([1234], dtype=torch.int32, device="cuda")
             if dropout else None)
     kw = dict(causal=True, dropout_rate=dropout)
     skw = dict(kw, segment_ids_q=seg, segment_ids_kv=seg, dropout_seed=seed)
+    bkw = dict(kw, scale=None, q_offset=0, kv_offset=0)
     with torch.no_grad():
         fwd = lambda: fa.flash_attention_with_lse(q, k, v, **skw)  # noqa: E731
         fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, seg, seg, seed, **kw)  # noqa: E731
         route = fa.fwd_route(q, k, v)
-        check(route == ("simt" if dtype == torch.float32 else "tc"),
-              f"{label}: F1 takes the {route} route")
+        check(route == ("simt" if dtype == torch.float32 else "tc")
+              and fa.bwd_route(q, k, v, do) == route,
+              f"{label}: F1-F3 take the {route} route")
         before = fwd_route_counts(fa)
         out, lse = fwd()
         torch.cuda.synchronize()
@@ -992,23 +1107,35 @@ def check_flash(torch, F, fa, timer, label, dtype, segments=False,
         dkv_k = lambda: fa.dkv_chunk(*args, **skw)  # noqa: E731
         dq_p = lambda: fa.flash_dq_plain(*args, seg, seg, seed, **kw)  # noqa: E731
         dkv_p = lambda: fa.flash_dkv_plain(*args, seg, seg, seed, **kw)  # noqa: E731
+        before = bwd_route_counts(fa)
         dq, (dk, dv) = dq_k(), dkv_k()
         torch.cuda.synchronize()
+        check_bwd_launches(bwd_route_counts(fa), before, route, label)
         ref_dq, (ref_dk, ref_dv) = dq_p(), dkv_p()
-    err = flash_close(torch, label, (out, lse, dq, dk, dv),
-                      (ref_out, ref_lse, ref_dq, ref_dk, ref_dv))
-    simt = None
-    if route == "tc":                  # the simt route on the same operands
-        simt_fwd = lambda: fa._fwd(  # noqa: E731
-            q, k, v, seg, seg, seed, scale=None, q_offset=0, kv_offset=0,
-            route="simt", **kw)
+        exact = (exact_bwd(torch, fa, *args, seg, seg, seed, **kw)
+                 if route == "tc" else None)
+    refs = (ref_out, ref_lse, ref_dq, ref_dk, ref_dv)
+    err = flash_close(torch, label, (out, lse, dq, dk, dv), refs,
+                      exact=exact)
+    del exact
+    simt = {}
+    if route == "tc":                  # the simt routes on the same operands
+        sargs = (q, k, v, seg, seg, seed)
+        simt_fwd = lambda: fa._fwd(*sargs, route="simt", **bkw)  # noqa: E731
+        bargs = (*args, seg, seg, seed)
+        simt_dq = lambda: fa._dq(*bargs, route="simt", **bkw)  # noqa: E731
+        simt_dkv = lambda: fa._dkv(*bargs, route="simt", **bkw)  # noqa: E731
         with torch.no_grad():
             s_out, s_lse = simt_fwd()
+            s_dq, (s_dk, s_dv) = simt_dq(), simt_dkv()
             torch.cuda.synchronize()
             s_err = flash_close(torch, f"{label} (simt route)",
-                                (s_out, s_lse, dq, dk, dv),
-                                (ref_out, ref_lse, ref_dq, ref_dk, ref_dv))
-            simt = dict(max_abs_err=max(s_err[:2]), ms=timer(simt_fwd))
+                                (s_out, s_lse, s_dq, s_dk, s_dv), refs)
+            simt = {"flash_fwd": dict(max_abs_err=max(s_err[:2]),
+                                      ms=timer(simt_fwd)),
+                    "flash_dq": dict(max_abs_err=s_err[2], ms=timer(simt_dq)),
+                    "flash_dkv": dict(max_abs_err=max(s_err[3:]),
+                                      ms=timer(simt_dkv))}
 
     # yardstick: SDPA with the same mask (not with dropout: its mask is
     # another function), forward and backward (dq, dk, dv together)
@@ -1038,9 +1165,10 @@ def check_flash(torch, F, fa, timer, label, dtype, segments=False,
             recs[name] = dict(max_abs_err=e, ms=timer(kernel),
                               plain_ms=timer(plain), library_ms=lib,
                               bound_ms=b_ms, bound_by=b_by)
-    recs["flash_fwd"]["kernel_route"] = route
-    if simt is not None:
-        recs["flash_fwd"]["simt"] = simt
+    for name, rec in recs.items():
+        rec["kernel_route"] = route
+        if name in simt:
+            rec["simt"] = simt[name]
     return recs
 
 
@@ -1189,10 +1317,7 @@ def profile_engine(torch, np, params, prompts):
     serve(eng, [prompts[1][:64]], 4, stagger=False)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = serve(eng, prompts, 32)
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
-    busy_us = sum(r[0] for r in rows)
+    rows, busy_us = device_rows(torch, prof)
     log(f"profile[bf16 cache wave]: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the wall "
         f"(the profiler's own cost included)")
@@ -1522,10 +1647,7 @@ def profile_spec_lora(torch, params, prompts):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = serve(eng, eight, 32, samplings=samplings)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
-    busy_us = sum(r[0] for r in rows)
+    rows, busy_us = device_rows(torch, prof)
     check(busy_us > 0, "the profiler saw device time")
     log(f"profile[spec k=4 + LoRA wave, 8 x 32 tokens, bf16]: wall "
         f"{wall * 1e3:.1f} ms, device "
@@ -1558,6 +1680,15 @@ def flash_counts(fa):
 def zero_flash_counts(fa):
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
     fa.FWD_TC_LAUNCHES = fa.FWD_SIMT_LAUNCHES = 0
+    fa.DQ_TC_LAUNCHES = fa.DQ_SIMT_LAUNCHES = 0
+    fa.DKV_TC_LAUNCHES = fa.DKV_SIMT_LAUNCHES = 0
+
+
+def flash_route_counts(fa):
+    """Launches per route of F1, F2 and F3: ``{route: (F1, F2, F3)}``."""
+    return {"tc": (fa.FWD_TC_LAUNCHES, fa.DQ_TC_LAUNCHES, fa.DKV_TC_LAUNCHES),
+            "simt": (fa.FWD_SIMT_LAUNCHES, fa.DQ_SIMT_LAUNCHES,
+                     fa.DKV_SIMT_LAUNCHES)}
 
 
 def trainer(torch, cfg, seed, device="cuda", params=None):
@@ -1599,10 +1730,11 @@ def train_phase(torch, fa):
     losses = [float(x) for x in losses]
     check(all(c == cfg.num_layers * steps for c in counts.values()),
           f"F1/F2/F3 launched {cfg.num_layers} times per step: {counts}")
-    check((fa.FWD_TC_LAUNCHES, fa.FWD_SIMT_LAUNCHES)
-          == (cfg.num_layers * steps, 0),
-          f"every F1 launch of the bf16 step on the tc route (tc "
-          f"{fa.FWD_TC_LAUNCHES}, simt {fa.FWD_SIMT_LAUNCHES})")
+    routes = flash_route_counts(fa)
+    check(routes == {"tc": (cfg.num_layers * steps,) * 3,
+                     "simt": (0, 0, 0)},
+          f"every F1, F2 and F3 launch of the bf16 step on the tc route "
+          f"(launches per route, F1/F2/F3: {routes})")
     check(all(x == x and abs(x) < 1e4 for x in losses),
           f"the losses are finite: {losses}")
     check(losses[-1] < losses[0], f"the loss falls: {losses}")
@@ -1628,10 +1760,7 @@ def profile_train(torch, model, opt, tokens):
         train_step(model, opt, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
-    busy_us = sum(r[0] for r in rows)
+    rows, busy_us = device_rows(torch, prof)
     check(busy_us > 0, "the profiler saw device time")
     log(f"profile[GPT-124M train step]: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the "
@@ -1666,11 +1795,11 @@ def train_card_vs_cpu(torch, cfg, label, batch, seq):
             trace["grad_norm"].append(
                 float(global_grad_norm(model.parameters())))
         if device == "cuda":
-            check(fa.FWD_SIMT_LAUNCHES == 3 * cfg.num_layers
-                  and fa.FWD_TC_LAUNCHES == 0,
-                  f"train card vs CPU [{label}]: every F1 launch on the simt "
-                  f"route (tc {fa.FWD_TC_LAUNCHES}, simt "
-                  f"{fa.FWD_SIMT_LAUNCHES})")
+            routes = flash_route_counts(fa)
+            check(routes == {"tc": (0, 0, 0),
+                             "simt": (3 * cfg.num_layers,) * 3},
+                  f"train card vs CPU [{label}]: every F1, F2 and F3 launch "
+                  f"on the simt route (F1/F2/F3: {routes})")
         traces[device] = trace
     problems = compare_traces(traces["cuda"], traces["cpu"])
     log(f"train card vs CPU [{label}] (fp32, TF32 off, batch {batch} x "

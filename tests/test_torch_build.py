@@ -2,6 +2,7 @@
 checked without ``nvcc``: what its digest covers, and what it compiles
 with which flags."""
 
+import ctypes
 import shutil
 import subprocess
 
@@ -66,14 +67,18 @@ def test_every_source_compiles_with_the_header_directory(csrc_copy,
 
 
 def test_the_tensor_core_entry_points_are_bound():
-    """Both tensor-core launchers and their shared-memory queries have
-    ctypes signatures, beside the kernels they sit next to."""
+    """Every tensor-core launcher and its shared-memory query have ctypes
+    signatures, beside the kernels they sit next to."""
     sig = _build._SIGNATURES
     for name in ("apex_flash_fwd_tc", "apex_paged_prefill_tc",
-                 "apex_flash_fwd_tc_smem", "apex_paged_prefill_tc_smem"):
+                 "apex_flash_dq_tc", "apex_flash_dkv_tc",
+                 "apex_flash_fwd_tc_smem", "apex_paged_prefill_tc_smem",
+                 "apex_flash_dq_tc_smem", "apex_flash_dkv_tc_smem"):
         assert name in sig
     # the tc launchers take the simt ones' operands less q's dtype (K2's
     # trades the simt query tile for the arena's block count)
-    assert sig["apex_flash_fwd_tc"] == sig["apex_flash_fwd"][1:]
+    for kernel in ("fwd", "dq", "dkv"):
+        assert sig[f"apex_flash_{kernel}_tc"] == sig[f"apex_flash_{kernel}"][1:]
+        assert sig[f"apex_flash_{kernel}_tc_smem"] == [ctypes.c_int]
     assert sig["apex_paged_prefill_tc"] == sig[
         "apex_paged_attention_prefill"][1:]

@@ -238,3 +238,84 @@ def test_fwd_route(dtype, d, sk, layout, route):
         assert out.shape == q.shape
     assert (fa.FWD_LAUNCHES, fa.FWD_TC_LAUNCHES, fa.FWD_SIMT_LAUNCHES) == (
         0, 0, 0)
+
+
+# (operands' dtype, head dim, keys, layout) -> the F2/F3 route a CUDA call
+# takes
+BWD_ROUTES = [
+    ("bf16", 24, 70, "aligned", "tc"),
+    ("bf16", 64, 1024, "aligned", "tc"),
+    ("bf16", 80, 130, "aligned", "tc"),
+    ("bf16", 128, 200, "aligned", "tc"),
+    ("fp32", 64, 1024, "aligned", "simt"),
+    ("bf16", 20, 70, "aligned", "simt"),
+    ("bf16", 136, 70, "aligned", "simt"),
+    ("bf16", 64, 0, "aligned", "simt"),
+    ("bf16", 64, 70, "offset", "simt"),
+    ("bf16", 64, 70, "offset do", "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype, d, sk, layout, route", BWD_ROUTES)
+def test_bwd_route(dtype, d, sk, layout, route):
+    """F2 and F3 take the tensor-core kernels by F1's rule over q, k, v
+    and do: bf16, a head dim that is a multiple of 8 up to 128, at least
+    one key, 16-byte-aligned storage; anything else the CUDA-core ones.
+    On the CPU the route is ignored and no launch is counted."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def make(shape, offset):
+        if not offset:
+            return torch.zeros(shape, dtype=dt)
+        return _unaligned(shape, dt)
+
+    q = make((1, 2, 37, d), layout == "offset")
+    k, v = (make((1, 2, sk, d), layout == "offset") for _ in range(2))
+    do = make((1, 2, 37, d), layout.startswith("offset"))
+    assert fa.bwd_route(q, k, v, do) == route
+    if sk:
+        args = [t.float() for t in (q, k, v, do)]
+        lse = torch.zeros(1, 2, 37)
+        kw = dict(causal=True, scale=None, q_offset=0, kv_offset=0,
+                  dropout_rate=0.0)
+        for r in ("tc", "simt"):
+            dq = fa._dq(*args, lse, lse, None, None, None, route=r, **kw)
+            dk, dv = fa._dkv(*args, lse, lse, None, None, None, route=r,
+                             **kw)
+            assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert (fa.DQ_LAUNCHES, fa.DQ_TC_LAUNCHES, fa.DQ_SIMT_LAUNCHES,
+            fa.DKV_LAUNCHES, fa.DKV_TC_LAUNCHES,
+            fa.DKV_SIMT_LAUNCHES) == (0,) * 6
+
+
+@pytest.mark.parametrize("entry, blocks", [
+    ("flash_attention_with_lse", (128, 256)),
+    ("flash_attention", (128, 128)),
+])
+def test_positional_block_sizes_match_jax(entry, blocks):
+    """``block_q`` and ``block_k`` sit where the JAX package puts them, so
+    a JAX-style positional call binds them as block sizes, not as the
+    causal offsets; the port validates them and tiles its own way."""
+    q, k, v, w = _inputs(8, 1, 1, 256, 256, 64)
+
+    def jfn(q, k, v):
+        out = getattr(jax_fa, entry)(q, k, v, True, None, *blocks)
+        return out[0] if isinstance(out, tuple) else out
+
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(w))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = getattr(fa, entry)(tq, tk, tv, True, None, *blocks)
+    out = out[0] if isinstance(out, tuple) else out
+    out.backward(torch.from_numpy(w))
+    tol = dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out.detach().numpy(), _np(jout), **tol)
+    for name, g, jg in zip("qkv", (tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(g.numpy(), _np(jg), err_msg=f"d{name}",
+                                   **tol)
+    for bad in (0, -64, 2.5, True):
+        with pytest.raises(ValueError, match="block_"):
+            getattr(fa, entry)(tq, tk, tv, True, None, blocks[0], bad)
+    with pytest.raises(ValueError, match="block_q"):
+        fa.dq_chunk(tq, tk, tv, tq, tq[..., 0], tq[..., 0], causal=True,
+                    block_q=0)

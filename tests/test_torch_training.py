@@ -151,6 +151,37 @@ def test_xentropy_matches_jax(dtype, smoothing):
     assert half.dtype == tdt
 
 
+@pytest.mark.parametrize("labels, padding_idx", [
+    ([3, -100, 5, -100], -100),     # PyTorch's ignore index as padding
+    ([-16, -17, -100, 15], 0),      # wrapped, beyond -C, far out, C - 1
+])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xentropy_labels_outside_the_classes_match_jax(labels, padding_idx,
+                                                       smoothing):
+    """Labels outside ``[0, C)`` as in the JAX package: padding rows give
+    loss and gradient 0, a label in ``[-C, -1]`` counts from the end, one
+    beyond ``[-C, C)`` gives a NaN loss; no one-hot term for either."""
+    logits = np.random.RandomState(0).randn(4, 16).astype(np.float32)
+    lab = np.asarray(labels, np.int32)
+    dloss = np.random.RandomState(1).randn(4).astype(np.float32)
+
+    def jfn(x):
+        return jax_xentropy(x, jnp.asarray(lab), smoothing, padding_idx, True)
+
+    jloss, vjp = jax.vjp(jfn, jnp.asarray(logits))
+    (jgrad,) = vjp(jnp.asarray(dloss))
+    x = torch.from_numpy(logits).requires_grad_()
+    loss = softmax_cross_entropy_loss(x, torch.from_numpy(lab), smoothing,
+                                      padding_idx, True)
+    loss.backward(torch.from_numpy(dloss))
+    np.testing.assert_allclose(loss.detach().numpy(), _np(jloss), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), _np(jgrad), rtol=1e-6,
+                               atol=1e-6)
+    pad = lab == padding_idx
+    assert not loss[pad].any() and not x.grad[pad].any()
+
+
 @pytest.mark.parametrize("memory_efficient", [False, True])
 def test_layer_norm_backward_matches_jax(memory_efficient):
     rng = np.random.default_rng(2)
