@@ -43,6 +43,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "apex_paged_attention_decode":
         [_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "apex_paged_decode_split": [_I] + [_P] * 10 + [_I] * 7 + [_F, _P],
+    "apex_paged_decode_splits": [_I],
     "apex_paged_attention_prefill":
         [_I, _I] + [_P] * 9 + [_I] * 8 + [_F, _P],
     "apex_paged_prefill_tc": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],

@@ -4,36 +4,72 @@
 //   K1  _decode_kernel   (paged_attention_decode)  one query token per slot
 //   K2  _prefill_kernel  (_multi_query_attention)  T query tokens per slot,
 //                                                  each with its own causal limit
-// Both are one templated kernel here; the decode launcher instantiates it
-// with MULTI = false (every row's limit is the slot's length), the prefill
-// launcher with MULTI = true (per-token limits).
+// Each has two routes, which the Python wrapper chooses from the operands
+// (decode_route(), prefill_route()); neither falls back to the other.
 //
-// What bounds it on the H100: bytes.  At serving shapes (head_dim 64, one
+// What bounds both on the H100: bytes.  At serving shapes (head_dim 64, one
 // query token per head, or a 128-token chunk) each K/V element read from
 // device memory feeds 2 multiply-adds per query row sharing its KV group,
 // far below the ~295 operations per byte where the tensor cores would be
-// the limit.  So the design reads every live K/V row once per CTA, in its
+// the limit.  So every route reads each live K/V row once per CTA, in its
 // storage dtype (bf16 and int8 caches move half and a quarter of the fp32
-// bytes), and never materialises a gathered copy of the cache:
+// bytes), never materialises a gathered copy of the cache, and never reads
+// a table entry past the slot's live blocks.
+// Semantics kept from the TPU kernel on every route: scale 1/sqrt(d) by
+// default, mask value -1e30 with the all-masked guard (m_safe) and l == 0
+// -> 1 at the end, so a length or limit of 0 gives exact zeros.
+//
+// The "simt" route of both, paged_attention_kernel<TQ, TKV, MULTI>, is the
+// first kernel: K1 is its MULTI = false instance (every row's limit is the
+// slot's length), K2's simt route its MULTI = true instance (per-token
+// limits).  It takes fp32 and every shape the other routes refuse:
 //   - one CTA per (slot, kv group[, tile of query tokens]); the CTA reads its
 //     own block-table row and loops over the live blocks only
-//     (j < ceil(min(length, largest limit of the tile) / block_size)), so
-//     table entries past the live range are never read;
+//     (j < ceil(min(length, largest limit of the tile) / block_size));
 //   - each step stages TILE cache rows of K and V in shared memory as fp32
 //     with 16-byte loads (the int8 dequant, value * row scale, happens on
 //     the way in), and all hpg query heads of the group (times the query
 //     tile for K2) use them: the GQA saving of the TPU kernel;
 //   - the online-softmax state (m, l, acc) stays on chip in fp32 for the
 //     whole sweep; the output is written once, in q's dtype.
-// Semantics kept from the TPU kernel: scale 1/sqrt(d) by default, mask value
-// -1e30 with the all-masked guard (m_safe) and l == 0 -> 1 at the end, so a
-// length or limit of 0 gives exact zeros.
+// At decode it holds one CTA to its slot's whole context, 64 keys and four
+// barriers a step: a 1024-token slot is 16 steps in a row while short
+// slots leave their SMs idle, so it is bound by latency and imbalance, not
+// by bytes.
 //
-// K2 has a second route, paged_prefill_tc_kernel, for bf16 q over a bf16
-// or int8 cache with a head dim that is a multiple of 8 (bf16) or 16
-// (int8) up to 128 and a block size that divides 64 in multiples of 8 (the
-// Python wrapper's prefill_route() chooses it; fp32 and other shapes stay
-// on the kernel above, as does K1, bit for bit).  It is built on the shared
+// K1's "split" route, paged_decode_split_kernel, for bf16 q over a bf16 or
+// int8 cache (head dim a multiple of 8 up to 128, up to 8 query heads per
+// kv head), is flash-decoding:
+//   - the grid is (slot, kv group, span of kSpan = 128 cache positions);
+//     the number of spans comes from the table's width (max_blocks * bs),
+//     never from the lengths, so the host reads nothing of the device; a
+//     span that starts at or past the slot's length exits at once;
+//   - inside a CTA the K/V rows go straight to registers: a group of KL
+//     lanes reads one cache row (8 columns a lane: 16-byte bf16 or 8-byte
+//     int8 loads; a 64-wide bf16 row is 8 lanes, so a warp reads 4 keys an
+//     instruction), each lane loads U keys (8 for up to 2 query heads per
+//     kv head) before using any, the dot products reduce with shuffles
+//     inside the group, and all hpg query rows of the group, kept in
+//     registers, use each K/V row;
+//   - each group keeps its own online softmax in fp32 (P stays fp32, as in
+//     the TPU kernel: one query row per head would waste 63 of wgmma's 64
+//     rows); int8 rows are dequantised by folding the row scale into the
+//     score and into P; the groups merge with shuffles and the four warps
+//     once, through shared memory, at the end of the span;
+//   - a slot whose live context is one span writes its output directly;
+//     otherwise each span writes (m, l, acc[d]) in fp32 to a partials
+//     buffer and takes a ticket (an atomic add after __threadfence) for its
+//     (slot, kv group): the last one combines the spans under the same
+//     m_safe guard, writes the output in bf16 and resets the ticket, so K1
+//     stays one launch per call and the tickets stay zeroed between
+//     launches.
+// It differs from the simt route and the plain version only in the order
+// of its fp32 sums.
+//
+// K2's "tc" route, paged_prefill_tc_kernel, for bf16 q over a bf16 or int8
+// cache with a head dim that is a multiple of 8 (bf16) or 16 (int8) up to
+// 128 and a block size that divides 64 in multiples of 8 (fp32 and other
+// shapes stay on the simt route, bit for bit).  It is built on the shared
 // Hopper core (attention_core.cuh):
 //   - one CTA per (slot, kv group, 64 query rows), rows being (token, head
 //     of the group) pairs as above: one consumer warpgroup and one
@@ -54,9 +90,9 @@
 //     and the V row scale into P before its rounding, P'[r, c] =
 //     P[r, c] * v_scale[c];
 //   - rounding point: P (P' for int8) is rounded to bf16 before P V.  The
-//     kernel above and the TPU kernel's einsum("tns,snd->tnd", p, v) take
-//     P in fp32; bf16 P is the rounding F1 and SDPA make, and the one the
-//     TPU's MXU makes for an fp32 einsum at default precision.
+//     simt and split routes and the TPU kernel's einsum("tns,snd->tnd",
+//     p, v) take P in fp32; bf16 P is the rounding F1 and SDPA make, and
+//     the one the TPU's MXU makes for an fp32 einsum at default precision.
 // What bounds it: bytes, as above; each CTA reads its slot's live pages
 // once per 64 query rows.
 //
@@ -65,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_core.cuh"
 
@@ -543,6 +581,310 @@ cudaError_t launch_prefill_tc(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------ K1's split-context route
+
+constexpr int kSplitThreads = 128;                 // four warps
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSpan = 128;                         // cache positions per CTA
+constexpr unsigned kFull = 0xffffffffu;
+
+// 8 storage values -> fp32: bf16 from 16 bytes (uint4), int8 from 8 (uint2).
+template <typename TKV>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { raw = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void to_float(float (&f)[8]) const {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <>
+struct Row8<int8_t> {
+  uint2 raw;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    raw = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void zero() { raw = make_uint2(0, 0); }
+  __device__ __forceinline__ void to_float(float (&f)[8]) const {
+    const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      f[i] = static_cast<float>(static_cast<int>(w[i / 4] << (24 - 8 * (i % 4))) >> 24);
+  }
+};
+
+struct DecodeSplitArgs {
+  const __nv_bfloat16* q;   // [B, n, d]
+  const void* k;            // [n_blocks, bs, g, d] bf16 or int8
+  const void* v;
+  const float* k_scales;    // [n_blocks, bs, g] (int8 only)
+  const float* v_scales;
+  const int* tables;        // [B, max_blocks]
+  const int* lengths;       // [B]
+  float* part;              // [B, g, splits, hpg, d + 2]: acc[d], m, l
+  int* tickets;             // [B * g], 0 between launches
+  __nv_bfloat16* out;       // [B, n, d]
+  int n, g, d, bs, max_blocks;
+  float scale;
+};
+
+// One CTA per (slot, kv group, span of kSpan cache positions).  A group of
+// KL lanes reads one cache row, 8 columns a lane (16-byte bf16 or 8-byte
+// int8 loads), and keeps its own online softmax over the keys it reads for
+// the ROWS (>= hpg) query heads of the kv group; U keys are loaded before
+// any is used.  The groups merge with shuffles, the warps through shared
+// memory, and the span's (m, l, acc) goes to `part`; the last CTA of the
+// (slot, group) to take a ticket combines the spans.  A slot whose live
+// context fits one span writes its output directly.
+template <typename TKV, int KL, int ROWS>
+__global__ void __launch_bounds__(kSplitThreads) paged_decode_split_kernel(
+    const DecodeSplitArgs a) {
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  constexpr int kGroups = 32 / KL;                    // keys a warp reads at once
+  constexpr int kAllGroups = kGroups * kSplitWarps;
+  constexpr int U = ROWS <= 2 ? 8 : (ROWS <= 4 ? 4 : 2);
+  constexpr int kPadD = KL * 8;
+  __shared__ int blk[kSpan + 1];
+  __shared__ float red_ml[kSplitWarps][ROWS][2];
+  __shared__ float red_acc[kSplitWarps][ROWS][kPadD];
+  __shared__ int last;
+
+  const int b = blockIdx.x, grp = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int g = a.g, d = a.d, bs = a.bs;
+  const int hpg = a.n / g;
+  const int length = min(max(a.lengths[b], 0), a.max_blocks * bs);
+  const int n_live = max(1, (length + kSpan - 1) / kSpan);
+  if (split >= n_live) return;                        // past the live context
+  const int s0 = split * kSpan;
+  const int count = min(kSpan, length - s0);          // <= 0 only for length 0
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp_lane = lane % KL;
+  const int c0 = grp_lane * 8;                        // this lane's 8 columns
+  const bool cols_live = c0 < d;
+  const int key0 = warp * kGroups + lane / KL;        // this group's first key
+
+  // the span's live block ids (only entries below the live range are read)
+  const int j0 = s0 / bs;
+  const int nblk = count > 0 ? (s0 + count - 1) / bs - j0 + 1 : 0;
+  for (int i = tid; i < nblk; i += kSplitThreads)
+    blk[i] = a.tables[(size_t)b * a.max_blocks + j0 + i];
+
+  float qr[ROWS][8], acc[ROWS][8], m[ROWS], l[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+    Row8<__nv_bfloat16> qv;
+    qv.zero();
+    if (r < hpg && cols_live) qv.load(a.q + ((size_t)b * a.n + grp * hpg + r) * d + c0);
+    qv.to_float(qr[r]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      qr[r][i] *= a.scale;
+      acc[r][i] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  const TKV* k_arena = static_cast<const TKV*>(a.k);
+  const TKV* v_arena = static_cast<const TKV*>(a.v);
+  for (int base = 0; base < count; base += U * kAllGroups) {
+    Row8<TKV> kr[U], vr[U];
+    float ks[U], vs[U];
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int key = base + u * kAllGroups + key0;
+      live[u] = key < count;
+      kr[u].zero();
+      vr[u].zero();
+      ks[u] = vs[u] = 1.f;
+      if (live[u]) {
+        const int pos = s0 + key;
+        const size_t row = ((size_t)blk[pos / bs - j0] * bs + pos % bs) * g + grp;
+        if (cols_live) {
+          kr[u].load(k_arena + row * d + c0);
+          vr[u].load(v_arena + row * d + c0);
+        }
+        if (kInt8) {
+          ks[u] = __ldg(a.k_scales + row);
+          vs[u] = __ldg(a.v_scales + row);
+        }
+      }
+    }
+    float s[U][ROWS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      kr[u].to_float(kf);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot += qr[r][i] * kf[i];
+        s[u][r] = dot;
+      }
+    }
+#pragma unroll
+    for (int o = KL / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) s[u][r] += __shfl_xor_sync(kFull, s[u][r], o);
+    // online softmax over the U keys, per query row (TPU kernel's guards)
+    float m_safe[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][r] = live[u] ? s[u][r] * ks[u] : kNegInf;
+        mx = fmaxf(mx, s[u][r]);
+      }
+      const float alpha = __expf(fminf(m[r] - mx, 0.f));
+      m_safe[r] = mx <= kNegInf * 0.5f ? 0.f : mx;
+      m[r] = mx;
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[r][i] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[8];
+      vr[u].to_float(vf);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float p = __expf(s[u][r] - m_safe[r]);
+        l[r] += p;
+        const float pv = p * vs[u];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[r][i] += pv * vf[i];
+      }
+    }
+  }
+
+  // merge the groups of a warp (lane i of every group holds the same columns)
+#pragma unroll
+  for (int o = KL; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float mo = __shfl_xor_sync(kFull, m[r], o);
+      const float lo = __shfl_xor_sync(kFull, l[r], o);
+      const float mn = fmaxf(m[r], mo);
+      const float sa = __expf(m[r] - mn), sb = __expf(mo - mn);
+      l[r] = l[r] * sa + lo * sb;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[r][i] = acc[r][i] * sa + __shfl_xor_sync(kFull, acc[r][i], o) * sb;
+      m[r] = mn;
+    }
+  if (lane < KL) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (lane == 0) {
+        red_ml[warp][r][0] = m[r];
+        red_ml[warp][r][1] = l[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red_acc[warp][r][c0 + i] = acc[r][i];
+    }
+  }
+  __syncthreads();
+
+  // merge the warps: this span's (m, l, acc), or the output if it is the only one
+  const size_t slot_group = (size_t)b * g + grp;
+  for (int e = tid; e < hpg * d; e += kSplitThreads) {
+    const int r = e / d, c = e % d;
+    float mx = red_ml[0][r][0];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w) mx = fmaxf(mx, red_ml[w][r][0]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float sc = __expf(red_ml[w][r][0] - mx);
+      L += red_ml[w][r][1] * sc;
+      A += red_acc[w][r][c] * sc;
+    }
+    if (n_live == 1) {
+      a.out[((size_t)b * a.n + grp * hpg + r) * d + c] = __float2bfloat16(A / (L == 0.f ? 1.f : L));
+    } else {
+      float* p = a.part + ((slot_group * splits + split) * hpg + r) * (d + 2);
+      p[c] = A;
+      if (c == 0) {
+        p[d] = mx;
+        p[d + 1] = L;
+      }
+    }
+  }
+  if (n_live == 1) return;
+
+  // the last span of the (slot, group) to finish combines all of them
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(a.tickets + slot_group, 1) == n_live - 1;
+    if (last) a.tickets[slot_group] = 0;               // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* parts = a.part + slot_group * splits * hpg * (d + 2);
+  for (int e = tid; e < hpg * d; e += kSplitThreads) {
+    const int r = e / d, c = e % d;
+    float M = kNegInf, L = 0.f, A = 0.f;
+    for (int j = 0; j < n_live; ++j) {
+      const float* p = parts + ((size_t)j * hpg + r) * (d + 2);
+      const float mj = __ldcg(p + d), lj = __ldcg(p + d + 1), aj = __ldcg(p + c);
+      const float mn = fmaxf(M, mj);
+      const float sa = __expf(M - mn), sb = __expf(mj - mn);
+      L = L * sa + lj * sb;
+      A = A * sa + aj * sb;
+      M = mn;
+    }
+    a.out[((size_t)b * a.n + grp * hpg + r) * d + c] = __float2bfloat16(A / (L == 0.f ? 1.f : L));
+  }
+}
+
+template <typename TKV, int KL, int ROWS>
+cudaError_t launch_decode_split(const DecodeSplitArgs& a, int B, int splits, cudaStream_t stream) {
+  paged_decode_split_kernel<TKV, KL, ROWS><<<dim3(B, a.g, splits), kSplitThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TKV, int KL>
+cudaError_t decode_split_rows(const DecodeSplitArgs& a, int B, int splits, cudaStream_t s) {
+  const int hpg = a.n / a.g;
+  if (hpg == 1) return launch_decode_split<TKV, KL, 1>(a, B, splits, s);
+  if (hpg == 2) return launch_decode_split<TKV, KL, 2>(a, B, splits, s);
+  if (hpg <= 4) return launch_decode_split<TKV, KL, 4>(a, B, splits, s);
+  return launch_decode_split<TKV, KL, 8>(a, B, splits, s);
+}
+
+template <typename TKV>
+cudaError_t decode_split_cols(const DecodeSplitArgs& a, int B, int splits, cudaStream_t s) {
+  if (a.d <= 32) return decode_split_rows<TKV, 4>(a, B, splits, s);
+  if (a.d <= 64) return decode_split_rows<TKV, 8>(a, B, splits, s);
+  return decode_split_rows<TKV, 16>(a, B, splits, s);
+}
+
+int decode_splits(int context) {
+  const int spans = (context + kSpan - 1) / kSpan;
+  return spans > 1 ? spans : 1;
+}
+
 }  // namespace
 
 extern "C" int apex_paged_attention_decode(
@@ -591,6 +933,40 @@ extern "C" int apex_paged_prefill_tc(int kv_dtype, const void* q, const void* k,
   return (int)(d <= 64 ? APEX_PF_TC(false, 64) : APEX_PF_TC(false, 128));
 #undef APEX_PF_TC
 }
+
+// K1's split route: bf16 q over a bf16 (kv_dtype 1) or int8 (2, with its
+// fp32 row scales) cache; d a multiple of 8 up to 128, hpg = n / g up to 8,
+// 16-byte-aligned q and arenas; `splits` from apex_paged_decode_splits of
+// the table's positions (max_blocks * bs), `part` of B * n * splits *
+// (d + 2) fp32 when splits > 1, `tickets` B * g zeroed ints (left zeroed);
+// anything else is refused.
+extern "C" int apex_paged_decode_split(int kv_dtype, const void* q, const void* k, const void* v,
+                                       const void* ks, const void* vs, const void* tables,
+                                       const void* lengths, void* part, void* tickets, void* out,
+                                       int B, int n, int g, int d, int bs, int max_blocks,
+                                       int splits, float scale, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const bool int8 = kv_dtype == kI8;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) %
+                        16) == 0;
+  if ((kv_dtype != kBF16 && !int8) || (int8 && (!ks || !vs)) || d < 8 || d > 128 || d % 8 ||
+      g < 1 || n % g || n / g > 8 || bs < 1 || max_blocks < 0 || !tickets || !aligned ||
+      splits != decode_splits(max_blocks * bs) || (splits > 1 && !part))
+    return (int)cudaErrorInvalidValue;
+  const DecodeSplitArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                          static_cast<const float*>(ks), static_cast<const float*>(vs),
+                          static_cast<const int*>(tables), static_cast<const int*>(lengths),
+                          static_cast<float*>(part), static_cast<int*>(tickets),
+                          static_cast<__nv_bfloat16*>(out), n, g, d, bs, max_blocks, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(int8 ? decode_split_cols<int8_t>(a, B, splits, s)
+                    : decode_split_cols<__nv_bfloat16>(a, B, splits, s));
+}
+
+// CTAs along the context of K1's split route for a table of `context`
+// cache positions: one per kSpan positions, at least one.
+extern "C" int apex_paged_decode_splits(int context) { return decode_splits(context); }
 
 // Dynamic shared memory of paged_prefill_tc_kernel for a cache dtype and
 // head dim d (bytes).

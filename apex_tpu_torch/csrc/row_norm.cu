@@ -7,28 +7,52 @@
 //   N2 _rms_kernel (pallas_rms_norm): per row, fp32 mean(x^2),
 //      x * rsqrt(ms + eps) * w in fp32, one cast to x's dtype.
 //
-// What bounds it on the H100: bytes.  Per element it reads x once and
-// writes y once, for about eight fp32 operations: far below the card's
-// operations-per-byte balance point.  The design touches device memory
-// once per element each way: one CTA per row upcasts the row into
-// dynamic shared memory in fp32, takes the statistics from there with
-// block reductions (the two passes of the TPU kernel for LayerNorm, not
-// Welford and not E[x^2] - E[x]^2, so fp32 results stay with the
-// reference), and writes the normalised row in the same pass that
-// applies the affine.  The row lives in shared memory rather than being
-// reread from L2: from 48 KB on (hidden 12288 and up, with the block's
-// static reduction scratch) the launcher raises the kernel's dynamic
-// shared-memory limit with cudaFuncSetAttribute, up to kMaxHidden fp32
-// values (128 KB).
+// What bounds both on the H100: bytes.  Per element each reads x once and
+// writes y once, for about eight fp32 operations (N1) or four (N2): far
+// below the card's operations-per-byte balance point.  So the gain is in
+// keeping loads in flight, not in arithmetic.
 //
-// The block has about four elements per thread (32 to 1024 threads), so
-// narrow rows do not idle a 256-thread block and wide rows do not loop
-// long.  Any hidden from 1 to kMaxHidden is taken; no vector loads, so
-// widths off the vector width (96, 100) need no tail code.
+// N1, row_norm_kernel: one CTA per row upcasts the row into dynamic shared
+// memory in fp32, takes the statistics from there with block reductions
+// (the two passes of the TPU kernel, not Welford and not E[x^2] - E[x]^2,
+// so fp32 results stay with the reference), and writes the normalised row
+// in the same pass that applies the affine.  From 48 KB on (hidden 12288
+// and up, with the block's static reduction scratch) the launcher raises
+// the kernel's dynamic shared-memory limit, up to kMaxHidden fp32 values
+// (128 KB).  About four elements per thread (32 to 1024 threads), 2- or
+// 4-byte scalar loads, two barriers per reduction.
+//
+// N2, rms_rows_kernel: the row stays in registers, in its storage type,
+// between the sum of squares and the write; nothing goes through shared
+// memory on the narrow path.
+//   - A row whose 16-byte chunks number at most 32 * 16 (bf16 and fp16 up
+//     to 4096, fp32 up to 2048) is one warp's: lane t holds chunks t,
+//     t + 32, ..., all loaded before the first is used, and the sum of
+//     squares is reduced with shuffles only.  A CTA of eight warps walks
+//     the rows grid-stride, with a grid of at most eight CTAs an SM, so
+//     the launch is about a thousand CTAs, not one per row.  Up to 96
+//     chunks a row (768 bf16: three 16-byte loads a lane) the kernel is
+//     held to 32 registers so that eight CTAs, the SM's 64 warps, are
+//     resident and 8192 rows of 768 go in one wave; a fourth chunk a
+//     lane spilled under that cap.  w is read for each row from L1
+//     (every warp of the SM reads the same few KB): kept in registers
+//     instead, as fp32, it took 24 more registers a lane and halved the
+//     resident warps, which was slower on the card.
+//   - A wider row is one CTA's (up to 1024 threads, eight chunks a thread,
+//     one block reduction), up to kMaxHidden.
+//   - 16-byte vector loads and stores only where every row start is
+//     16-byte aligned (aligned x, y and w, and hidden * sizeof(x) a
+//     multiple of 16); otherwise the same two shapes run on single
+//     elements (a warp up to 1024 of them, a CTA up to kMaxHidden, which
+//     reads x a second time for the write instead of holding 32 values a
+//     thread under the 64-register cap of 1024 threads).
+// The sum of squares runs in another order than the plain version (each
+// lane's chunks in turn, then the shuffle tree), which stays within the
+// fp32 rounding of the plain output.
 //
 // Template parameters: TX the type of x and y (fp32, bf16, fp16), TW the
-// type of the parameters (fp32 or TX), RMS the kernel (N2, no bias).
-// The launcher is a plain C function that returns cudaGetLastError().
+// type of the parameters (fp32 or TX).  The launcher is a plain C function
+// that returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,11 +75,16 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
 
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 // Sum over the CTA in a fixed order; every thread gets the total.
 __device__ __forceinline__ float block_sum(float x, float* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  x = warp_sum(x);
   if (lane == 0) red[warp] = x;
   __syncthreads();
   float total = 0.f;
@@ -65,11 +94,13 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return total;
 }
 
-template <typename TX, typename TW, bool RMS>
+// ------------------------------------------------------------------ N1
+
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kMaxThreads) row_norm_kernel(
     const TX* __restrict__ x,     // [rows, hidden]
     const TW* __restrict__ w,     // [hidden]
-    const TW* __restrict__ b,     // [hidden], unread when RMS
+    const TW* __restrict__ b,     // [hidden]
     TX* __restrict__ y,           // [rows, hidden]
     int hidden, float eps) {
   extern __shared__ float row[];  // the row, fp32
@@ -80,13 +111,7 @@ __global__ void __launch_bounds__(kMaxThreads) row_norm_kernel(
   for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
     const float v = to_float(x[off + c]);
     row[c] = v;
-    acc += RMS ? v * v : v;
-  }
-  if constexpr (RMS) {
-    const float inv = rsqrtf(block_sum(acc, red) / (float)hidden + eps);
-    for (int c = threadIdx.x; c < hidden; c += blockDim.x)
-      store(y + off + c, row[c] * inv * to_float(w[c]));
-    return;
+    acc += v;
   }
   const float mean = block_sum(acc, red) / (float)hidden;
   float sq = 0.f;
@@ -99,11 +124,11 @@ __global__ void __launch_bounds__(kMaxThreads) row_norm_kernel(
     store(y + off + c, (row[c] - mean) * inv * to_float(w[c]) + to_float(b[c]));
 }
 
-template <typename TX, typename TW, bool RMS>
-cudaError_t launch(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
-                   float eps, cudaStream_t stream) {
+template <typename TX, typename TW>
+cudaError_t launch_ln(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
+                      float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)hidden;
-  auto kernel = row_norm_kernel<TX, TW, RMS>;
+  auto kernel = row_norm_kernel<TX, TW>;
   // the 48 KB default covers dynamic and static shared memory together
   if (smem + sizeof(float) * (kMaxThreads / 32) > (size_t)kDefaultSmem) {
     const cudaError_t err =
@@ -119,18 +144,218 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y, int row
   return cudaGetLastError();
 }
 
-template <bool RMS>
-cudaError_t dispatch(int x_dtype, int w_dtype, const void* x, const void* w, const void* b,
-                     void* y, int rows, int hidden, float eps, cudaStream_t s) {
-#define APEX_ROW_NORM_CASE(XT, WT, TX_, TW_) \
-  if (x_dtype == XT && w_dtype == WT) return launch<TX_, TW_, RMS>(x, w, b, y, rows, hidden, eps, s);
-  APEX_ROW_NORM_CASE(kF32, kF32, float, float)
-  APEX_ROW_NORM_CASE(kBF16, kF32, __nv_bfloat16, float)
-  APEX_ROW_NORM_CASE(kBF16, kBF16, __nv_bfloat16, __nv_bfloat16)
-  APEX_ROW_NORM_CASE(kF16, kF32, __half, float)
-  APEX_ROW_NORM_CASE(kF16, kF16, __half, __half)
-#undef APEX_ROW_NORM_CASE
-  return cudaErrorInvalidValue;
+// ------------------------------------------------------------------ N2
+
+constexpr int kRowsThreads = 256;     // eight warps, a row each at a time
+constexpr int kWarpChunks = 16;       // chunks a lane holds on the warp path
+constexpr int kNarrowChunks = 3;      // ... on its narrow-row instance,
+constexpr int kNarrowMinBlocks = 8;   // which fills the SM: 64 warps, 32 registers
+constexpr int kBlockChunks = 8;       // chunks a thread holds on the CTA path
+constexpr int kScalarChunks = 32;     // elements a lane / thread holds unaligned
+
+// A chunk: 16 bytes of T (VEC = 16 / sizeof(T) values) or one value.
+template <typename T, int VEC>
+struct Chunk {
+  uint4 raw;
+  __device__ __forceinline__ void load(const T* p) { raw = __ldg(reinterpret_cast<const uint4*>(p)); }
+  __device__ __forceinline__ void to_float(float (&f)[VEC]) const;
+  __device__ __forceinline__ static void store(T* p, const float (&f)[VEC]);
+};
+
+template <typename T>
+struct Chunk<T, 1> {
+  T raw;
+  __device__ __forceinline__ void load(const T* p) { raw = p[0]; }
+  __device__ __forceinline__ void to_float(float (&f)[1]) const { f[0] = ::to_float(raw); }
+  __device__ __forceinline__ static void store(T* p, const float (&f)[1]) { ::store(p, f[0]); }
+};
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : (i == 1 ? r.y : (i == 2 ? r.z : r.w));
+}
+
+template <>
+__device__ __forceinline__ void Chunk<float, 4>::to_float(float (&f)[4]) const {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(word(raw, i));
+}
+template <>
+__device__ __forceinline__ void Chunk<float, 4>::store(float* p, const float (&f)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                                            __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
+template <>
+__device__ __forceinline__ void Chunk<__nv_bfloat16, 8>::to_float(float (&f)[8]) const {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(word(raw, i) << 16);
+    f[2 * i + 1] = __uint_as_float(word(raw, i) & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void Chunk<__nv_bfloat16, 8>::store(__nv_bfloat16* p,
+                                                               const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(f[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <>
+__device__ __forceinline__ void Chunk<__half, 8>::to_float(float (&f)[8]) const {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __half2float(__ushort_as_half((unsigned short)(word(raw, i) & 0xffffu)));
+    f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(word(raw, i) >> 16)));
+  }
+}
+template <>
+__device__ __forceinline__ void Chunk<__half, 8>::store(__half* p, const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__half_as_ushort(__float2half(f[2 * i])) |
+           ((uint32_t)__half_as_ushort(__float2half(f[2 * i + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// VEC parameters as fp32, from 16-byte loads where VEC > 1 (an fp32 w
+// under bf16 or fp16 x is two of them).
+template <typename TW, int VEC>
+__device__ __forceinline__ void load_w(const TW* p, float (&f)[VEC]) {
+  if constexpr (VEC == 1 || sizeof(TW) * VEC == 16) {
+    Chunk<TW, VEC> c;
+    c.load(p);
+    c.to_float(f);
+  } else {
+    static_assert(sizeof(TW) == 4 && VEC == 8, "fp32 w under a 2-byte x");
+    float lo[4], hi[4];
+    Chunk<float, 4> c;
+    c.load(p);
+    c.to_float(lo);
+    c.load(p + 4);
+    c.to_float(hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = lo[i];
+      f[4 + i] = hi[i];
+    }
+  }
+}
+
+// One row per warp (WARP) or per CTA; each thread of the row's unit holds
+// up to MAXV chunks of VEC values, all loaded before the first is used.
+// MINB: CTAs an SM must hold at once (ptxas then caps the registers at
+// 65536 / (threads * MINB)).
+template <typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB>
+__global__ void __launch_bounds__(WARP ? kRowsThreads : kMaxThreads, MINB) rms_rows_kernel(
+    const TX* __restrict__ x,     // [rows, hidden]
+    const TW* __restrict__ w,     // [hidden]
+    TX* __restrict__ y,           // [rows, hidden]
+    int rows, int hidden, float eps) {
+  __shared__ float red[WARP ? 1 : kMaxThreads / 32];
+  const int chunks = hidden / VEC;
+  const int unit = WARP ? 32 : blockDim.x;
+  const int t = WARP ? threadIdx.x % 32 : threadIdx.x;
+  const int per_cta = WARP ? blockDim.x / 32 : 1;
+  const int stride = gridDim.x * per_cta;
+
+  // the unaligned CTA path (up to 32 values a thread under the 64-register
+  // cap of 1024 threads) reads x again for the write instead of holding it
+  constexpr bool kHold = WARP || VEC > 1;
+  for (int row = blockIdx.x * per_cta + (WARP ? threadIdx.x / 32 : 0); row < rows;
+       row += stride) {
+    const TX* xr = x + (size_t)row * hidden;
+    TX* yr = y + (size_t)row * hidden;
+    Chunk<TX, VEC> xc[kHold ? MAXV : 1];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int i = 0; i < MAXV; ++i)
+        if (i * unit + t < chunks) xc[i].load(xr + (size_t)(i * unit + t) * VEC);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i)
+      if (i * unit + t < chunks) {
+        float f[VEC];
+        if constexpr (!kHold) xc[0].load(xr + (size_t)(i * unit + t) * VEC);
+        xc[kHold ? i : 0].to_float(f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) ss += f[j] * f[j];
+      }
+    if constexpr (WARP)
+      ss = warp_sum(ss);
+    else
+      ss = block_sum(ss, red);
+    const float inv = rsqrtf(ss / (float)hidden + eps);
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int c = i * unit + t;
+      if (c < chunks) {
+        float f[VEC], wv[VEC];
+        if constexpr (!kHold) xc[0].load(xr + (size_t)c * VEC);
+        xc[kHold ? i : 0].to_float(f);
+        load_w<TW, VEC>(w + (size_t)c * VEC, wv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) f[j] = f[j] * inv * wv[j];
+        Chunk<TX, VEC>::store(yr + (size_t)c * VEC, f);
+      }
+    }
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms;
+}
+
+template <typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB = 1>
+cudaError_t launch_rms_shape(const void* x, const void* w, void* y, int rows, int hidden,
+                             float eps, cudaStream_t stream) {
+  auto kernel = rms_rows_kernel<TX, TW, VEC, MAXV, WARP, MINB>;
+  int blocks, threads;
+  if (WARP) {
+    constexpr int per_cta = kRowsThreads / 32;
+    threads = kRowsThreads;
+    blocks = (rows + per_cta - 1) / per_cta;
+    const int most = sm_count() * (2048 / kRowsThreads);   // a full SM's worth each
+    blocks = blocks < most ? blocks : most;
+  } else {
+    const int chunks = hidden / VEC;
+    threads = ((chunks + MAXV - 1) / MAXV + 31) / 32 * 32;
+    threads = threads < 32 ? 32 : threads;
+    blocks = rows;
+  }
+  kernel<<<blocks, threads, 0, stream>>>(static_cast<const TX*>(x), static_cast<const TW*>(w),
+                                         static_cast<TX*>(y), rows, hidden, eps);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TW>
+cudaError_t launch_rms(const void* x, const void* w, void* y, int rows, int hidden, float eps,
+                       cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(TX);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(w)) % 16) == 0 &&
+                       hidden % kVec == 0;
+  if (aligned) {
+    const int chunks = hidden / kVec;
+    if (chunks <= 32 * kNarrowChunks)
+      return launch_rms_shape<TX, TW, kVec, kNarrowChunks, true, kNarrowMinBlocks>(x, w, y, rows,
+                                                                                 hidden, eps, s);
+    if (chunks <= 32 * kWarpChunks)
+      return launch_rms_shape<TX, TW, kVec, kWarpChunks, true>(x, w, y, rows, hidden, eps, s);
+    return launch_rms_shape<TX, TW, kVec, kBlockChunks, false>(x, w, y, rows, hidden, eps, s);
+  }
+  if (hidden <= 32 * kScalarChunks)
+    return launch_rms_shape<TX, TW, 1, kScalarChunks, true>(x, w, y, rows, hidden, eps, s);
+  return launch_rms_shape<TX, TW, 1, kScalarChunks, false>(x, w, y, rows, hidden, eps, s);
 }
 
 }  // namespace
@@ -142,6 +367,15 @@ extern "C" int apex_row_norm(int rms, int x_dtype, int w_dtype, const void* x, c
   if (hidden < 1 || hidden > kMaxHidden || rows < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(rms ? dispatch<true>(x_dtype, w_dtype, x, w, b, y, rows, hidden, eps, s)
-                   : dispatch<false>(x_dtype, w_dtype, x, w, b, y, rows, hidden, eps, s));
+#define APEX_ROW_NORM_CASE(XT, WT, TX_, TW_)                                   \
+  if (x_dtype == XT && w_dtype == WT)                                          \
+    return (int)(rms ? launch_rms<TX_, TW_>(x, w, y, rows, hidden, eps, s)     \
+                     : launch_ln<TX_, TW_>(x, w, b, y, rows, hidden, eps, s));
+  APEX_ROW_NORM_CASE(kF32, kF32, float, float)
+  APEX_ROW_NORM_CASE(kBF16, kF32, __nv_bfloat16, float)
+  APEX_ROW_NORM_CASE(kBF16, kBF16, __nv_bfloat16, __nv_bfloat16)
+  APEX_ROW_NORM_CASE(kF16, kF32, __half, float)
+  APEX_ROW_NORM_CASE(kF16, kF16, __half, __half)
+#undef APEX_ROW_NORM_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -18,15 +18,21 @@ Port of :mod:`apex_tpu.serving.paged_attention`, with the same layouts::
 the hand-written kernels of ``csrc/paged_attention.cu`` on CUDA tensors
 (K1 and K2 of the port; the source's note says how they are built) and
 run :func:`paged_attention_decode_plain` / :func:`paged_prefill_attention_plain`
-on CPU tensors.  K2 has two routes, chosen by :func:`prefill_route` from
-the operands' dtypes and shapes: ``"tc"``, the Hopper tensor-core kernel
-(wgmma, TMA page loads, an mbarrier ring; bf16 q over a bf16 or int8
-cache), which rounds P to bf16 before P.V as F1 and SDPA do, and
-``"simt"``, the CUDA-core kernel with fp32 P, for fp32 (exact fp32) and
-the shapes the first does not take.  A failed build or launch on either
-raises.  The plain versions gather each slot's whole table and
-lower the masked softmax as separate ops, like the JAX package's
-``*_unfused`` twins; they are the CPU path and the kernels' reference.
+on CPU tensors.  K1 has two routes, chosen by :func:`decode_route` from
+the operands' dtypes and shapes: ``"split"``, the split-context kernel
+(bf16 q over a bf16 or int8 cache: 128 cache positions per CTA, K/V read
+straight into registers, the spans combined in the same launch by the
+last CTA of each (slot, kv group)), and ``"simt"``, the first kernel,
+for fp32 and the shapes the first does not take; both keep P in fp32.
+K2 has two routes, chosen by :func:`prefill_route`: ``"tc"``, the Hopper
+tensor-core kernel (wgmma, TMA page loads, an mbarrier ring; bf16 q over
+a bf16 or int8 cache), which rounds P to bf16 before P.V as F1 and SDPA
+do, and ``"simt"``, the CUDA-core kernel with fp32 P, for fp32 (exact
+fp32) and the shapes the first does not take.  A failed build or launch
+on any route raises; no route falls back to another.  The plain versions
+gather each slot's whole table and lower the masked softmax as separate
+ops, like the JAX package's ``*_unfused`` twins; they are the CPU path
+and the kernels' reference.
 
 The speculative k+1 verify is a 4-D ``q [batch, k+1, n_heads, head_dim]``
 with per-position ``limits [batch, k+1]`` through
@@ -45,6 +51,7 @@ import torch
 from apex_tpu_torch import _build
 
 __all__ = [
+    "decode_route",
     "paged_attention_decode",
     "paged_attention_decode_plain",
     "paged_prefill_attention",
@@ -54,9 +61,11 @@ __all__ = [
 
 NEG_INF = -1e30
 
-# launches of each kernel since the count was last set to 0; K2's total
+# launches of each kernel since the count was last set to 0; each total
 # is also counted per route
 DECODE_LAUNCHES = 0
+DECODE_SPLIT_LAUNCHES = 0
+DECODE_SIMT_LAUNCHES = 0
 PREFILL_LAUNCHES = 0
 PREFILL_TC_LAUNCHES = 0
 PREFILL_SIMT_LAUNCHES = 0
@@ -66,6 +75,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # route's tile (one wgmma warpgroup, compiled), and the simt route's
 _PREFILL_ROWS = 64
 _SIMT_PREFILL_ROWS = 16
+# the largest heads per KV group and head dim of K1's split route (compiled)
+_SPLIT_MAX_HPG = 8
+_SPLIT_MAX_D = 128
+# K1's split route: per device, the (slot, kv group) tickets its CTAs take
+# (zeroed once; each launch leaves them zeroed)
+_TICKETS = {}
 
 
 def _resolve(scale: Optional[float], d: int) -> float:
@@ -175,18 +190,74 @@ def paged_attention_decode(q, k_arena, v_arena, block_tables, lengths, *,
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_operands(q, k_arena, v_arena, block_tables, lengths, None,
                          k_scales, v_scales)
+    return _launch_decode(decode_route(q, k_arena, v_arena), q, k_arena,
+                          v_arena, block_tables, lengths, k_scales, v_scales,
+                          scale)
+
+
+def decode_route(q, k_arena, v_arena) -> str:
+    """The K1 kernel that operands of these dtypes and shapes take:
+    ``"split"`` (the split-context kernel) for bf16 q ``[batch, n_heads,
+    head_dim]`` over a bf16 or int8 cache, a head dim that is a multiple
+    of 8 up to 128, at most 8 query heads per KV head, and 16-byte-aligned
+    q and arenas; ``"simt"`` for anything else."""
+    d = q.shape[-1]
+    n, g = q.shape[-2], k_arena.shape[2]
+    if (q.dtype == torch.bfloat16
+            and k_arena.dtype in (torch.bfloat16, torch.int8)
+            and v_arena.dtype == k_arena.dtype
+            and d % 8 == 0 and 0 < d <= _SPLIT_MAX_D
+            and g > 0 and n % g == 0 and 0 < n // g <= _SPLIT_MAX_HPG
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_arena, v_arena))):
+        return "split"
+    return "simt"
+
+
+def _tickets(device, count):
+    """At least ``count`` zeroed int32 tickets on ``device`` (cached)."""
+    tickets = _TICKETS.get(device)
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(count, dtype=torch.int32, device=device)
+        _TICKETS[device] = tickets
+    return tickets
+
+
+def _launch_decode(route, q, k_arena, v_arena, block_tables, lengths,
+                   k_scales, v_scales, scale):
+    """K1 on checked CUDA operands through the kernel ``route`` names."""
+    global DECODE_LAUNCHES, DECODE_SPLIT_LAUNCHES, DECODE_SIMT_LAUNCHES
+    b, n, d = q.shape
+    _, bs, g, _ = k_arena.shape
+    max_blocks = block_tables.shape[1]
     out = torch.empty_like(q)
-    fn = _build.library().apex_paged_attention_decode
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype],
-                q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+    lib = _build.library()
+    operands = (q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
                 _ptr(k_scales), _ptr(v_scales), block_tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), b, n, g, d, bs,
-                block_tables.shape[1], _resolve(scale, d),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                lengths.data_ptr())
+    tail = (_resolve(scale, d), torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        if route == "split":
+            splits = lib.apex_paged_decode_splits(max_blocks * bs)
+            part = (torch.empty(b * n * splits * (d + 2), dtype=torch.float32,
+                                device=q.device) if splits > 1 else None)
+            rc = lib.apex_paged_decode_split(
+                _DTYPE_CODES[k_arena.dtype], *operands, _ptr(part),
+                _tickets(q.device, b * g).data_ptr(), out.data_ptr(), b, n, g,
+                d, bs, max_blocks, splits, *tail)
+        elif route == "simt":
+            rc = lib.apex_paged_attention_decode(
+                _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_arena.dtype], *operands,
+                out.data_ptr(), b, n, g, d, bs, max_blocks, *tail)
+        else:
+            raise ValueError(f"unknown paged decode route {route!r}")
     if rc:
-        raise RuntimeError(f"paged decode kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"paged decode kernel ({route}) launch failed: CUDA error {rc}")
     DECODE_LAUNCHES += 1
+    if route == "split":
+        DECODE_SPLIT_LAUNCHES += 1
+    else:
+        DECODE_SIMT_LAUNCHES += 1
     return out
 
 

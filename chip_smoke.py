@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; none is caught):
 2. each kernel against its plain PyTorch version, with its device time
    (CUDA events, median of 30 launches, L2 flushed before each), the
    plain version's, one PyTorch library call's as a yardstick, and the
-   least time the card could take (``bound_ms``):
+   least time the card could take (``bound_ms``); K1, N1 and N2 also
+   with ``floor_ms``, the same launch with nothing to do (every length 0;
+   8 rows), the fixed cost of a launch in this harness:
    - the serving kernels K1-K3 at GPT-124M serving shapes (8 slots, 12
      heads of 64, 16-token blocks, 1024-token context, a 128-token
      prefill chunk, hidden 768; plus a grouped-query case);
@@ -24,33 +26,40 @@ Phases (any failure exits non-zero; none is caught):
      80 and 128);
    - F1, F2, F3 and K2 each have two routes: bf16 takes the tensor-core
      kernel ("tc": wgmma, TMA, an mbarrier ring), fp32 the CUDA-core
-     kernel ("simt"); every check counts the launches per route, and each
-     bf16 check also holds and times the simt route on the same operands,
-     so the kernels line carries both records; the tc route of F2/F3 is
+     kernel ("simt"); K1 too: bf16 q over a bf16 or int8 cache takes the
+     split-context kernel ("split"), fp32 the first one ("simt"); every
+     check counts the launches per route, and each bf16 check also holds
+     and times the simt route on the same operands, so the kernels line
+     carries both records; K1's split route is also held, twice in a row,
+     at the edges of ``DECODE_EDGES`` (a length mid-page, at a span
+     boundary, the whole table, all 0, one slot of 1, 3 query heads per
+     KV head over int8, head dim 128); the tc route of F2/F3 is
      held against an fp64 evaluation of the same gradient (no farther from
      it than plain, see ``flash_close``), the simt route against plain as
      before; the bf16 ``FLASH_EDGES`` run F2/F3 on both routes; K2's tc
      route is also held at the ragged ``PAGED_EDGES`` (T x heads per group
      over two 64-row tiles, the last ragged); ``ptxas -v``'s registers,
-     shared memory and spills of every tc kernel are printed, and a spill
-     byte fails;
+     shared memory and spills of every tc kernel, of K1's split kernel and
+     of N2's row kernel are printed, and a spill byte fails;
    - the row norms N1 (LayerNorm) and N2 (RMSNorm) at GPT-124M's training
      activation (8192 rows of 768) with bf16 x over fp32 parameters, in
      fp32, and in bf16 throughout, beside ``F.layer_norm`` /
      ``F.rms_norm``; then, unmeasured, at the shapes of
-     ``ROW_NORM_EDGES`` (hidden 1 to 32768, 0, 1 and 70 rows, a 1-D and
-     a strided x, fp16), and a row wider than the kernels take raises;
+     ``ROW_NORM_EDGES`` (hidden 1 to 32768, 0, 1 and 70 rows, a 1-D, a
+     strided and a misaligned x, fp16), and a row wider than the kernels
+     take raises;
 3. the serving engine at GPT-124M width (random weights from a seed,
    bf16 compute) serving 16 staggered requests of 64-600 prompt tokens
    and 32 greedy tokens each, once with a bf16 and once with an int8 KV
    cache; the launch counts show the kernels carried the run, every K2
-   launch on the tc route; then the
+   launch on the tc route and every K1 launch on the split route; then the
    bf16 wave once more under ``torch.profiler`` for the device busy
    share and the kernels that take the device's time;
 4. three of those requests in fp32 on the card and on the CPU, for
    GPT-124M and for a small rope + grouped-query + SwiGLU model: the
    greedy streams must agree (a divergence passes only where the CPU's
-   two best logits are within 1e-3 of each other); K2 on the simt route;
+   two best logits are within 1e-3 of each other); K1 and K2 on the simt
+   route;
 5. GPT-124M training at the widths of ``bench.py``'s flash step (hidden
    768, 12 layers, 12 heads of 64, vocabulary 50304, sequence 1024,
    batch 8, bf16 compute, fp32 parameters, flash attention, FusedAdam at
@@ -98,6 +107,7 @@ false.
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -142,39 +152,78 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-TC_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel",
-              "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
+# the kernels whose ptxas report is printed and held to no spill: the
+# tensor-core kernels (with their dynamic shared memory), K1's split route
+# and N2's row kernel (static shared memory only)
+PTXAS_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel",
+                 "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+                 "paged_decode_split_kernel", "rms_rows_kernel")
+# Itanium-mangled template arguments of those instances: an int, a bool,
+# a type, or a substitution (a repeat of an earlier type)
+MANGLED_ARG = re.compile(r"Li(-?\d+)E?|Lb([01])E?|(13__nv_bfloat16|6__half|f|a)|S\d*_")
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32",
+                 "a": "int8"}
 
 
-def check_tc_ptxas(build_log, lib):
-    """Print what ``ptxas -v`` reported for each instance of the
-    tensor-core kernels (registers, spills) with its dynamic shared memory,
-    and fail on a spill byte."""
+def template_args(args):
+    """``"I13__nv_bfloat16Li8ELi1"`` -> ``"bf16, 8, 1"`` (best effort)."""
+    out, types, i = [], [], args.find("I") + 1
+    while 0 < i < len(args):
+        m = MANGLED_ARG.match(args, i)
+        if m is None:
+            out.append(args[i:])
+            break
+        if m.group(1) is not None:
+            out.append(m.group(1))
+        elif m.group(2) is not None:
+            out.append("true" if m.group(2) == "1" else "false")
+        else:
+            types.append(MANGLED_TYPES[m.group(3)] if m.group(3) else types[-1])
+            out.append(types[-1])
+        i = m.end()
+    return ", ".join(out)
+
+
+def check_ptxas(build_log, lib):
+    """Print what ``ptxas -v`` reported for each instance of
+    ``PTXAS_KERNELS`` (registers, static shared memory, spills), with the
+    tensor-core kernels' dynamic shared memory, and fail on a spill
+    byte."""
     entries, name = {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in TC_KERNELS if k in line), None)
+            kernel = next((k for k in PTXAS_KERNELS if k in line), None)
             name = None
-            if kernel is not None:
-                args = line.split(kernel)[1].split("EE")[0]
+            if kernel is None:
+                continue
+            args = line.split(kernel)[1].split("EE")[0]
+            if kernel == "paged_prefill_tc_kernel":
                 d = int(args.split("Li")[-1])
-                if kernel == "paged_prefill_tc_kernel":
-                    int8 = "Lb1" in args
-                    smem = lib.apex_paged_prefill_tc_smem(2 if int8 else 1, d)
-                    name = f"{kernel}<{'int8' if int8 else 'bf16'} cache, D={d}>"
-                else:                # apex_flash_{fwd,dq,dkv}_tc_smem
-                    smem = getattr(lib, "apex_" + kernel.replace("_kernel", "_smem"))(d)
-                    name = f"{kernel}<D={d}>"
+                int8 = "Lb1" in args
+                smem = lib.apex_paged_prefill_tc_smem(2 if int8 else 1, d)
+                name = f"{kernel}<{'int8' if int8 else 'bf16'} cache, D={d}>"
                 entries[name] = [f"{smem} bytes dynamic shared memory"]
+            elif kernel.endswith("_tc_kernel"):   # apex_flash_{fwd,dq,dkv}_tc_smem
+                d = int(args.split("Li")[-1])
+                smem = getattr(lib, "apex_" + kernel.replace("_kernel", "_smem"))(d)
+                name = f"{kernel}<D={d}>"
+                entries[name] = [f"{smem} bytes dynamic shared memory"]
+            else:
+                name = f"{kernel}<{template_args(args)}>"
+                entries[name] = []
         elif name is not None and ("Used" in line or "spill" in line):
             entries[name].append(line.split(":", 1)[-1].strip())
-    check(all(any(k in n for n in entries) for k in TC_KERNELS),
-          f"ptxas reported every tensor-core kernel: {sorted(entries)}")
+    check(all(any(k in n for n in entries) for k in PTXAS_KERNELS),
+          f"ptxas reported every listed kernel: {sorted(entries)}")
+    spilled = []
     for n, lines in sorted(entries.items()):
         log(f"ptxas {n}: {'; '.join(lines)}")
         spills = [ln for ln in lines if "spill" in ln]
-        check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                             for ln in spills), f"{n}: no spill bytes")
+        if not (spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                               for ln in spills)):
+            spilled.append(n)
+    check(not spilled, f"no spill bytes: {spilled} spill")
+    return entries
 
 
 def device_rows(torch, prof):
@@ -239,24 +288,25 @@ def bound(n_bytes, n_ops, kind):
 # ------------------------------------------------- phase 2: the kernels
 
 
-def paged_inputs(torch, q_dtype, cache_dtype, T, seed, groups):
+def paged_inputs(torch, q_dtype, cache_dtype, T, seed, groups,
+                 lengths=LENGTHS, d=HEAD_DIM):
     """Operands of K1 (T is None) or K2 at the serving shapes, with
-    ``groups`` KV heads: mixed lengths including 0, distinct live blocks
-    per slot and in-range garbage past them."""
+    ``groups`` KV heads: a slot of each of ``lengths`` (mixed, including
+    0), distinct live blocks per slot and in-range garbage past them."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
-    mb = MAX_SEQ // BLOCK
-    nb = B * mb
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
-    tables = torch.randint(0, nb, (B, mb), generator=gen, device=dev,
+    b, mb = len(lengths), MAX_SEQ // BLOCK
+    nb = b * mb
+    tables = torch.randint(0, nb, (b, mb), generator=gen, device=dev,
                            dtype=torch.int32)
     perm = torch.randperm(nb, generator=gen, device=dev).int()
     nxt = 0
-    for i, n in enumerate(LENGTHS):
+    for i, n in enumerate(lengths):
         live = -(-n // BLOCK)
         tables[i, :live] = perm[nxt:nxt + live]
         nxt += live
-    shape = (nb, BLOCK, groups, HEAD_DIM)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    shape = (nb, BLOCK, groups, d)
     kw = {}
     if cache_dtype == torch.int8:
         k = torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
@@ -267,11 +317,11 @@ def paged_inputs(torch, q_dtype, cache_dtype, T, seed, groups):
         k = torch.randn(shape, generator=gen, device=dev).to(cache_dtype)
         v = torch.randn(shape, generator=gen, device=dev).to(cache_dtype)
     if T is None:
-        q = torch.randn((B, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+        q = torch.randn((b, N_HEADS, d), generator=gen, device=dev)
         return q.to(q_dtype), k, v, tables, lengths, None, kw
-    q = torch.randn((B, T, N_HEADS, HEAD_DIM), generator=gen, device=dev)
-    limits = torch.zeros((B, T), dtype=torch.int32, device=dev)
-    for i, n in enumerate(LENGTHS):
+    q = torch.randn((b, T, N_HEADS, d), generator=gen, device=dev)
+    limits = torch.zeros((b, T), dtype=torch.int32, device=dev)
+    for i, n in enumerate(lengths.tolist()):
         chunk = min(n, T - 16 * (i % 2))       # odd slots end in padding rows
         limits[i, :chunk] = torch.arange(n - chunk + 1, n + 1, device=dev)
     return q.to(q_dtype), k, v, tables, lengths, limits, kw
@@ -315,13 +365,15 @@ def check_paged(torch, F, pa, timer, q_dtype, cache_dtype, T,
             q, k, v, tables, lengths, limits, **kw)
         plain = lambda: pa.paged_prefill_attention_plain(  # noqa: E731
             q, k, v, tables, lengths, limits, **kw)
-    route = None if T is None else pa.prefill_route(q, k, v)
-    before = route_counts(pa)
+    if T is None:
+        route, counts, what = pa.decode_route(q, k, v), decode_counts, "K1"
+    else:
+        route, counts, what = pa.prefill_route(q, k, v), route_counts, "K2"
+    before = counts(pa)
     out = kernel()
     torch.cuda.synchronize()
-    if route is not None:
-        check_one_launch(route_counts(pa), before, route,
-                         f"K2 {q_dtype}/{cache_dtype}")
+    check_one_launch(counts(pa), before, route,
+                     f"{what} {q_dtype}/{cache_dtype}")
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -334,6 +386,10 @@ def check_paged(torch, F, pa, timer, q_dtype, cache_dtype, T,
     if route == "tc":
         simt = simt_record(torch, timer, ref, tol, lambda: pa._launch_prefill(
             "simt", q, k, v, tables, lengths, limits, kw.get("k_scales"),
+            kw.get("v_scales"), None))
+    elif route == "split":
+        simt = simt_record(torch, timer, ref, tol, lambda: pa._launch_decode(
+            "simt", q, k, v, tables, lengths, kw.get("k_scales"),
             kw.get("v_scales"), None))
 
     # yardstick: one SDPA call over the K/V gathered beforehand (not timed)
@@ -353,11 +409,14 @@ def check_paged(torch, F, pa, timer, q_dtype, cache_dtype, T,
     b_ms, b_by = bound(n_bytes, n_ops,
                        "fp32" if q_dtype == torch.float32 else "bf16")
     rec = dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
-               library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
-    if route is not None:
-        rec["kernel_route"] = route
+               library_ms=timer(library), bound_ms=b_ms, bound_by=b_by,
+               kernel_route=route)
     if simt is not None:
         rec["simt"] = simt
+    if T is None:             # the same launch with every length 0
+        idle = torch.zeros_like(lengths)
+        rec["floor_ms"] = timer(lambda: pa.paged_attention_decode(
+            q, k, v, tables, idle, **kw))
     return rec
 
 
@@ -365,12 +424,17 @@ def route_counts(pa):
     return pa.PREFILL_TC_LAUNCHES, pa.PREFILL_SIMT_LAUNCHES
 
 
+def decode_counts(pa):
+    return pa.DECODE_SPLIT_LAUNCHES, pa.DECODE_SIMT_LAUNCHES
+
+
 def check_one_launch(now, before, route, what):
     """One launch between the per-route counts ``before`` and ``now``
-    (tc, simt), on ``route``."""
-    tc, simt = (a - b for a, b in zip(now, before))
-    check((tc, simt) == ((1, 0) if route == "tc" else (0, 1)),
-          f"{what}: one launch on the {route} route (tc {tc}, simt {simt})")
+    (the fast route, tc or split, then simt), on ``route``."""
+    fast, simt = (a - b for a, b in zip(now, before))
+    check((fast, simt) == ((0, 1) if route == "simt" else (1, 0)),
+          f"{what}: one launch on the {route} route (fast route {fast}, "
+          f"simt {simt})")
 
 
 def simt_record(torch, timer, ref, tol, simt):
@@ -427,6 +491,50 @@ def check_paged_edges(torch, pa):
         log(f"kernel paged_prefill_attention edge [T={T}, {groups} KV groups, "
             f"{rows} rows, {cache} cache]: max |kernel - plain| "
             f"{(out.float() - ref.float()).abs().max().item():.3g}")
+
+
+# the edges of K1's split route (correctness only): (label, lengths, KV
+# groups, cache, head dim); 12 query heads, 16-token pages, 64 pages a slot
+DECODE_EDGES = (
+    ("ends mid-page", [37, 5, 1000, 129, 250, 0, 3, 500], N_HEADS, "bf16", 64),
+    ("at a split boundary", [128, 256, 384, 896, 127, 129, 255, 257],
+     N_HEADS, "bf16", 64),
+    ("the whole table", [1024, 1024, 1023, 0, 1024, 1, 1024, 512],
+     N_HEADS, "int8", 64),
+    ("all lengths 0", [0] * 8, N_HEADS, "bf16", 64),
+    ("one slot of 1", [1], N_HEADS, "bf16", 64),
+    ("hpg 3 over int8", LENGTHS, 4, "int8", 64),
+    ("head dim 128", LENGTHS, N_HEADS, "bf16", 128),
+)
+
+
+def check_decode_edges(torch, pa):
+    """K1's split route against plain at ``DECODE_EDGES``, each called
+    twice in a row: the second call (after the tickets' reset) must equal
+    the first bit for bit; a length of 0 gives exact zeros."""
+    for i, (label, lengths, groups, cache, d) in enumerate(DECODE_EDGES):
+        cache_dtype = torch.int8 if cache == "int8" else torch.bfloat16
+        q, k, v, tables, lens, _, kw = paged_inputs(
+            torch, torch.bfloat16, cache_dtype, None, seed=80 + i,
+            groups=groups, lengths=lengths, d=d)
+        check(pa.decode_route(q, k, v) == "split",
+              f"K1 edge {label}: takes the split route")
+        outs = []
+        for _ in range(2):
+            before = decode_counts(pa)
+            outs.append(pa.paged_attention_decode(q, k, v, tables, lens, **kw))
+            torch.cuda.synchronize()
+            check_one_launch(decode_counts(pa), before, "split",
+                             f"K1 edge {label}")
+        ref = pa.paged_attention_decode_plain(q, k, v, tables, lens, **kw)
+        torch.testing.assert_close(outs[0].float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        check(torch.equal(outs[0], outs[1]),
+              f"K1 edge {label}: a second call equals the first")
+        check(not outs[0][lens == 0].any(), "length 0 gives exact zeros")
+        log(f"kernel paged_attention_decode edge [{label}: lengths {lengths}, "
+            f"{groups} KV groups, {cache} cache, d {d}]: max |kernel - plain| "
+            f"{(outs[0].float() - ref.float()).abs().max().item():.3g}")
 
 
 def check_norm(torch, F, fo, timer, dtype, rows):
@@ -529,12 +637,17 @@ def check_row_norm(torch, F, pn, timer, kind, x_dtype, w_dtype):
     n_bytes = 2 * x.numel() * x.element_size() + n_params * hidden * w.element_size()
     n_ops = (8 if kind == "ln" else 4) * x.numel()
     b_ms, b_by = bound(n_bytes, n_ops, "fp32")
+    few = row_norm_calls(pn, kind, x[:B], w, b)[0]     # the same call on 8 rows
     return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
                 library_ms=None if library is None else timer(library),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, floor_ms=timer(few))
 
 
-# unmeasured edges of N1/N2: (x shape, x dtype, parameter dtype, layout)
+# unmeasured edges of N1/N2: (x shape, x dtype, parameter dtype, layout);
+# N2 takes its warp path at eight CTAs an SM (up to 96 16-byte chunks a
+# row) and at fewer (up to 512), its CTA path above that, and the same two
+# on single elements where a row start is not 16-byte aligned (hidden 1
+# fp32, 1500 bf16, the "offset" view)
 ROW_NORM_EDGES = (
     ((64, 96), "bf16", "fp32", "contiguous"),
     ((64, 100), "fp32", "fp32", "contiguous"),
@@ -548,6 +661,9 @@ ROW_NORM_EDGES = (
     ((3, 70, 768), "fp32", "bf16", "transposed"),
     ((0, 768), "bf16", "fp32", "contiguous"),
     ((8, 1), "fp32", "fp32", "contiguous"),
+    ((32, 2048), "bf16", "bf16", "contiguous"),
+    ((4, 1500), "bf16", "fp32", "contiguous"),
+    ((33, 768), "bf16", "fp32", "offset"),
 )
 
 
@@ -559,6 +675,11 @@ def check_row_norm_edges(torch, pn):
         if layout == "transposed":          # [3, 768, 70] seen as [3, 70, 768]
             x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
             check(not x.is_contiguous(), "the edge's x is a strided view")
+        elif layout == "offset":            # contiguous, one element off 16 bytes
+            flat = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+            x = flat[1:x.numel() + 1].view(shape).copy_(x)
+            check(x.is_contiguous() and x.data_ptr() % 16,
+                  "the edge's x is contiguous and misaligned")
         rows = x.numel() // shape[-1]
         for kind in ("ln", "rms"):
             kernel, plain = row_norm_calls(pn, kind, x, w, b)
@@ -1230,6 +1351,7 @@ def serve(engine, prompts, n_new, stagger=True, samplings=None,
 
 def zero_counts(pa, fo, lo):
     pa.DECODE_LAUNCHES = pa.PREFILL_LAUNCHES = 0
+    pa.DECODE_SPLIT_LAUNCHES = pa.DECODE_SIMT_LAUNCHES = 0
     pa.PREFILL_TC_LAUNCHES = pa.PREFILL_SIMT_LAUNCHES = 0
     fo.RESIDUAL_NORM_LAUNCHES = 0
     lo.LAUNCHES = 0
@@ -1246,6 +1368,8 @@ def check_prefill_routes(pa, route, what):
 
 def read_counts(pa, fo, lo):
     return {"paged_attention_decode": pa.DECODE_LAUNCHES,
+            "paged_attention_decode/split": pa.DECODE_SPLIT_LAUNCHES,
+            "paged_attention_decode/simt": pa.DECODE_SIMT_LAUNCHES,
             "paged_prefill_attention": pa.PREFILL_LAUNCHES,
             "fused_residual_norm": fo.RESIDUAL_NORM_LAUNCHES,
             "lora_delta": lo.LAUNCHES}
@@ -1256,14 +1380,17 @@ def calls_of(eng, base=(0, 0)):
     return eng.prefill_calls - base[0], eng.decode_calls - base[1]
 
 
-def check_path_counts(counts, calls, L, spec, lora):
+def check_path_counts(counts, calls, L, spec, lora, decode_route="split"):
     """The kernels the path must have launched, once per layer per call
-    of the kind that runs them."""
+    of the kind that runs them; every K1 launch on ``decode_route``."""
     prefill, decode = calls
     k1 = 0 if spec else L * decode
     k2 = L * (prefill + (decode if spec else 0))
     l1 = 4 * L * (prefill + decode) if lora else 0
-    want = {"paged_attention_decode": k1, "paged_prefill_attention": k2,
+    want = {"paged_attention_decode": k1,
+            "paged_attention_decode/split": k1 if decode_route == "split" else 0,
+            "paged_attention_decode/simt": k1 if decode_route == "simt" else 0,
+            "paged_prefill_attention": k2,
             "fused_residual_norm": L * (prefill + decode), "lora_delta": l1}
     check(counts == want, f"launches {counts} == {want} for {prefill} "
           f"prefill + {decode} decode calls")
@@ -1407,6 +1534,8 @@ def card_vs_cpu(torch, cfg, params, prompts, label):
     cpu = ServingEngine(cfg, shape, cpu_params, device="cpu")
     zero_counts(pa, fo, lo)
     g_reqs, _ = serve(gpu, three, 32, stagger=False)
+    check_path_counts(read_counts(pa, fo, lo), calls_of(gpu), cfg.num_layers,
+                      spec=False, lora=False, decode_route="simt")
     check_prefill_routes(pa, "simt", f"card vs CPU [{label}]")
     c_reqs, _ = serve(cpu, three, 32, stagger=False)
     compare_streams(torch, f"card vs CPU [{label}, fp32, TF32 off]", g_reqs,
@@ -1840,7 +1969,7 @@ def main():
     for line in _build.last_build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("  " + line.strip())
-    check_tc_ptxas(_build.last_build_log, _build.library())
+    check_ptxas(_build.last_build_log, _build.library())
 
     timer = Timer(torch)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -1862,6 +1991,7 @@ def main():
         log(f"kernel paged_prefill_attention[{label} cache, verify T="
             f"{SPEC_K + 1} through the decode entry]: {json.dumps(rec)}")
     check_paged_edges(torch, pa)
+    check_decode_edges(torch, pa)
     # (x, arena): bf16 and fp32 throughout, and the serving phases' bf16
     # activations over the fp32 arena (the arena is in param_dtype)
     for label, x_dtype, w_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32),
@@ -1973,6 +2103,9 @@ def main():
                if k != "err_over_rms"}
         if name == "paged_prefill_attention":      # and at the verify width
             rec["verify"] = results[(name, "bf16 verify")]
+        if name == "paged_attention_decode":       # and per route
+            rec["launches_by_route"] = {
+                r: launches[f"{name}/{r}"] for r in ("split", "simt")}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **rec})

@@ -82,3 +82,17 @@ def test_the_tensor_core_entry_points_are_bound():
         assert sig[f"apex_flash_{kernel}_tc_smem"] == [ctypes.c_int]
     assert sig["apex_paged_prefill_tc"] == sig[
         "apex_paged_attention_prefill"][1:]
+
+
+def test_the_split_decode_entry_points_are_bound():
+    """K1's split route: the launcher takes the first decode launcher's
+    operands less q's dtype (the route is bf16 q only), plus the partials
+    and tickets before ``out`` and the number of splits after the table
+    width; the splits query takes the table's cache positions."""
+    sig = _build._SIGNATURES
+    simt = sig["apex_paged_attention_decode"]
+    split = sig["apex_paged_decode_split"]
+    p = ctypes.c_void_p
+    assert split == simt[1:9] + [p, p, p] + simt[10:16] + [ctypes.c_int] + simt[16:]
+    assert sig["apex_paged_decode_splits"] == [ctypes.c_int]
+    assert split[-2:] == [ctypes.c_float, p]

@@ -336,3 +336,138 @@ def test_tc_rounding_contract_matches_jax(cache_dtype, hpg):
         torch.from_numpy(limits),
         **({} if tks is None else dict(k_scales=tks, v_scales=tvs)))
     assert not torch.equal(got, plain)
+
+
+def _decode_route_operands(q_dtype, cache_dtype, d, hpg, offset=False):
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    g = 2
+    q = torch.zeros((3, g * hpg, d), dtype=dt[q_dtype])
+    if offset:
+        q = torch.zeros(q.numel() + 8, dtype=q.dtype)[1:q.numel() + 1].view(
+            q.shape)
+    k, v = (torch.zeros((6, 16, g, d), dtype=dt[cache_dtype])
+            for _ in range(2))
+    return q, k, v
+
+
+# (q dtype, cache dtype, head dim, heads per KV group, layout) -> K1's route
+DECODE_ROUTES = [
+    ("bf16", "bf16", 64, 1, "aligned", "split"),
+    ("bf16", "bf16", 128, 1, "aligned", "split"),
+    ("bf16", "int8", 64, 1, "aligned", "split"),
+    ("bf16", "int8", 128, 2, "aligned", "split"),
+    ("bf16", "bf16", 8, 1, "aligned", "split"),
+    ("bf16", "bf16", 24, 4, "aligned", "split"),
+    ("bf16", "bf16", 80, 2, "aligned", "split"),
+    ("bf16", "bf16", 64, 3, "aligned", "split"),
+    ("bf16", "int8", 64, 8, "aligned", "split"),
+    ("bf16", "bf16", 64, 16, "aligned", "simt"),
+    ("fp32", "fp32", 64, 1, "aligned", "simt"),
+    ("fp32", "bf16", 64, 1, "aligned", "simt"),
+    ("fp32", "int8", 64, 2, "aligned", "simt"),
+    ("bf16", "fp32", 64, 1, "aligned", "simt"),
+    ("bf16", "bf16", 136, 1, "aligned", "simt"),
+    ("bf16", "bf16", 20, 1, "aligned", "simt"),
+    ("bf16", "bf16", 64, 1, "offset", "simt"),
+]
+
+
+@pytest.mark.parametrize("q_dtype, cache_dtype, d, hpg, layout, route",
+                         DECODE_ROUTES)
+def test_decode_route(q_dtype, cache_dtype, d, hpg, layout, route):
+    """bf16 q over a bf16 or int8 cache takes the split-context kernel for
+    a head dim that is a multiple of 8 up to 128, at most 8 query heads
+    per KV head and 16-byte-aligned storage; fp32 and every other shape
+    take the first kernel."""
+    q, k, v = _decode_route_operands(q_dtype, cache_dtype, d, hpg,
+                                     offset=layout == "offset")
+    assert pa.decode_route(q, k, v) == route
+    assert (pa.DECODE_LAUNCHES, pa.DECODE_SPLIT_LAUNCHES,
+            pa.DECODE_SIMT_LAUNCHES) == (0, 0, 0)
+
+
+# the split route's arithmetic (csrc/paged_attention.cu,
+# paged_decode_split_kernel), in plain torch: spans of 128 cache positions,
+# each with its own fp32 (m, l, acc) over the positions below the length,
+# int8 scales folded into the score and into P (fp32 P), the spans
+# combined by their maxima; a length of 0 is one empty span
+SPLIT_SPAN = 128
+
+
+def _split_decode(q, k_arena, v_arena, tables, lengths, k_scales, v_scales,
+                  scale):
+    b, n, d = q.shape
+    _, bs, g, _ = k_arena.shape
+    hpg = n // g
+    idx = tables.long()
+    k = k_arena[idx].float().reshape(b, -1, g, d).repeat_interleave(hpg, 2)
+    v = v_arena[idx].float().reshape(b, -1, g, d).repeat_interleave(hpg, 2)
+    positions = k.shape[1]
+    ks = vs = torch.ones((b, positions, n))
+    if k_scales is not None:
+        ks = k_scales[idx].reshape(b, -1, g).repeat_interleave(hpg, 2)
+        vs = v_scales[idx].reshape(b, -1, g).repeat_interleave(hpg, 2)
+    qf = q.float() * scale
+    out = torch.zeros((b, n, d))
+    for i in range(b):
+        length = min(int(lengths[i]), positions)
+        spans = []
+        for s0 in range(0, max(length, 1), SPLIT_SPAN):
+            s1 = min(s0 + SPLIT_SPAN, length)
+            s = torch.einsum("nd,snd->ns", qf[i], k[i, s0:s1]) * ks[i, s0:s1].T
+            m = s.amax(-1) if s1 > s0 else torch.full((n,), NEG)
+            p = torch.exp(s - m[:, None])
+            spans.append((m, p.sum(-1), torch.einsum(
+                "ns,snd->nd", p * vs[i, s0:s1].T, v[i, s0:s1])))
+        m_all = torch.stack([m for m, _, _ in spans]).amax(0)
+        l_all = sum(l * torch.exp(m - m_all) for m, l, _ in spans)
+        acc = sum(a * torch.exp(m - m_all)[:, None] for m, _, a in spans)
+        out[i] = acc / torch.where(l_all == 0.0, 1.0, l_all)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("hpg", [1, 3])
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_split_decode_contract_matches_jax(cache_dtype, hpg):
+    """The split route's decomposition (128-position spans combined by
+    their maxima, fp32 P) stays within the card's 2e-2 of the JAX kernel
+    (Pallas in interpret mode) for lengths of 0, 1, at, below and above a
+    span boundary and the whole table; a length of 0 gives exact zeros."""
+    rng = np.random.default_rng(50 + hpg)
+    bs, g, d, n_blocks, max_blocks = 16, 2, 16, 160, 24
+    shape = (n_blocks, bs, g, d)
+    if cache_dtype == "int8":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:-1]).astype(np.float32)
+        jk, jv = jnp.asarray(k), jnp.asarray(v)
+        jsc = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+        tks, tvs = torch.from_numpy(ks), torch.from_numpy(vs)
+    else:
+        k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        tk, tv = k.bfloat16(), v.bfloat16()
+        jk = jnp.asarray(tk.float().numpy(), jnp.bfloat16)
+        jv = jnp.asarray(tv.float().numpy(), jnp.bfloat16)
+        jsc, tks, tvs = {}, None, None
+    lengths = np.array([0, 1, 128, 127, 129, 300, 384], np.int32)
+    b, n = len(lengths), g * hpg
+    tables = np.stack([rng.permutation(n_blocks)[:max_blocks]
+                       for _ in range(b)]).astype(np.int32)
+    q = torch.from_numpy(rng.standard_normal((b, n, d)).astype(
+        np.float32)).bfloat16()
+    want = jax_pa.paged_attention_decode(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16), jk, jv,
+        jnp.asarray(tables), jnp.asarray(lengths), **jsc)
+    got = _split_decode(q, tk, tv, torch.from_numpy(tables),
+                        torch.from_numpy(lengths), tks, tvs, 1.0 / d ** 0.5)
+    np.testing.assert_allclose(got.float().numpy(), _to_np(want), atol=2e-2,
+                               rtol=2e-2)
+    assert not got[0].any(), "a slot of length 0 must give exact zeros"
+    plain = pa.paged_attention_decode(
+        q, tk, tv, torch.from_numpy(tables), torch.from_numpy(lengths),
+        **({} if tks is None else dict(k_scales=tks, v_scales=tvs)))
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=2e-2, rtol=2e-2)
