@@ -61,6 +61,7 @@ _SIGNATURES = {
     "apex_flash_dq_tc_smem": [_I],
     "apex_flash_dkv_tc_smem": [_I],
     "apex_lora_delta": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
+    "apex_lora_delta_cluster": [_I, _I] + [_P] * 5 + [_I] * 6 + [_L, _L, _P],
     "apex_row_norm": [_I, _I, _I] + [_P] * 4 + [_I, _I, _F, _P],
 }
 

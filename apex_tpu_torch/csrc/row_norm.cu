@@ -12,43 +12,40 @@
 // below the card's operations-per-byte balance point.  So the gain is in
 // keeping loads in flight, not in arithmetic.
 //
-// N1, row_norm_kernel: one CTA per row upcasts the row into dynamic shared
-// memory in fp32, takes the statistics from there with block reductions
-// (the two passes of the TPU kernel, not Welford and not E[x^2] - E[x]^2,
-// so fp32 results stay with the reference), and writes the normalised row
-// in the same pass that applies the affine.  From 48 KB on (hidden 12288
-// and up, with the block's static reduction scratch) the launcher raises
-// the kernel's dynamic shared-memory limit, up to kMaxHidden fp32 values
-// (128 KB).  About four elements per thread (32 to 1024 threads), 2- or
-// 4-byte scalar loads, two barriers per reduction.
-//
-// N2, rms_rows_kernel: the row stays in registers, in its storage type,
-// between the sum of squares and the write; nothing goes through shared
-// memory on the narrow path.
+// Both run on one kernel, rows_norm_kernel<LN, ...>: the row stays in
+// registers, in its storage type, between the statistics and the write;
+// nothing goes through shared memory on the narrow path.
 //   - A row whose 16-byte chunks number at most 32 * 16 (bf16 and fp16 up
 //     to 4096, fp32 up to 2048) is one warp's: lane t holds chunks t,
-//     t + 32, ..., all loaded before the first is used, and the sum of
-//     squares is reduced with shuffles only.  A CTA of eight warps walks
-//     the rows grid-stride, with a grid of at most eight CTAs an SM, so
-//     the launch is about a thousand CTAs, not one per row.  Up to 96
-//     chunks a row (768 bf16: three 16-byte loads a lane) the kernel is
-//     held to 32 registers so that eight CTAs, the SM's 64 warps, are
-//     resident and 8192 rows of 768 go in one wave; a fourth chunk a
-//     lane spilled under that cap.  w is read for each row from L1
-//     (every warp of the SM reads the same few KB): kept in registers
-//     instead, as fp32, it took 24 more registers a lane and halved the
-//     resident warps, which was slower on the card.
+//     t + 32, ..., all loaded before the first is used, and the sums are
+//     reduced with shuffles only.  A CTA of eight warps walks the rows
+//     grid-stride, with as many CTAs as the SMs hold at once, so the
+//     launch is one wave of about a thousand CTAs, not one CTA per row.
+//     Up to 96 chunks a row (768 bf16: three 16-byte loads a lane) N2 is
+//     held to 32 registers, so that eight CTAs, the SM's 64 warps, are
+//     resident (a fourth chunk a lane spilled under that cap); N1, which
+//     keeps the mean and reads b too, spilled at 32 and 36 registers and
+//     is held to 40 (six CTAs an SM).  The wider warp instance is left
+//     uncapped: held to 128 registers, N1's spilled and ran slower.  w
+//     and b are read for each row from L1 (every warp of the SM reads the
+//     same few KB): kept in registers instead, as fp32, w took 24 more
+//     registers a lane and halved the resident warps, which was slower on
+//     the card.
 //   - A wider row is one CTA's (up to 1024 threads, eight chunks a thread,
-//     one block reduction), up to kMaxHidden.
+//     block reductions), up to kMaxHidden.
 //   - 16-byte vector loads and stores only where every row start is
-//     16-byte aligned (aligned x, y and w, and hidden * sizeof(x) a
+//     16-byte aligned (aligned x, y, w and b, and hidden * sizeof(x) a
 //     multiple of 16); otherwise the same two shapes run on single
 //     elements (a warp up to 1024 of them, a CTA up to kMaxHidden, which
-//     reads x a second time for the write instead of holding 32 values a
-//     thread under the 64-register cap of 1024 threads).
-// The sum of squares runs in another order than the plain version (each
-// lane's chunks in turn, then the shuffle tree), which stays within the
-// fp32 rounding of the plain output.
+//     reads x again for each pass instead of holding 32 values a thread
+//     under the 64-register cap of 1024 threads).
+// N1 takes the two passes of the TPU kernel over the held values, first
+// the mean, then mean((x - mean)^2): not Welford and not E[x^2] - E[x]^2,
+// so fp32 results stay with the reference.  N2 takes the sum of squares
+// (its "mean" is 0).  The sums run in another order than the plain
+// version (each lane's chunks in turn, then the shuffle tree, then, on
+// the CTA path, the warps in order), which stays within the fp32
+// rounding of the plain output.
 //
 // Template parameters: TX the type of x and y (fp32, bf16, fp16), TW the
 // type of the parameters (fp32 or TX).  The launcher is a plain C function
@@ -63,7 +60,6 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxHidden = 32768;
-constexpr int kDefaultSmem = 48 * 1024;
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -94,62 +90,13 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return total;
 }
 
-// ------------------------------------------------------------------ N1
-
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kMaxThreads) row_norm_kernel(
-    const TX* __restrict__ x,     // [rows, hidden]
-    const TW* __restrict__ w,     // [hidden]
-    const TW* __restrict__ b,     // [hidden]
-    TX* __restrict__ y,           // [rows, hidden]
-    int hidden, float eps) {
-  extern __shared__ float row[];  // the row, fp32
-  __shared__ float red[kMaxThreads / 32];
-  const size_t off = (size_t)blockIdx.x * hidden;
-
-  float acc = 0.f;
-  for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
-    const float v = to_float(x[off + c]);
-    row[c] = v;
-    acc += v;
-  }
-  const float mean = block_sum(acc, red) / (float)hidden;
-  float sq = 0.f;
-  for (int c = threadIdx.x; c < hidden; c += blockDim.x) {
-    const float xc = row[c] - mean;
-    sq += xc * xc;
-  }
-  const float inv = rsqrtf(block_sum(sq, red) / (float)hidden + eps);
-  for (int c = threadIdx.x; c < hidden; c += blockDim.x)
-    store(y + off + c, (row[c] - mean) * inv * to_float(w[c]) + to_float(b[c]));
-}
-
-template <typename TX, typename TW>
-cudaError_t launch_ln(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
-                      float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)hidden;
-  auto kernel = row_norm_kernel<TX, TW>;
-  // the 48 KB default covers dynamic and static shared memory together
-  if (smem + sizeof(float) * (kMaxThreads / 32) > (size_t)kDefaultSmem) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  // about four elements per thread, whole warps, 32..1024 threads
-  int threads = ((hidden + 3) / 4 + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  kernel<<<rows, threads, smem, stream>>>(static_cast<const TX*>(x), static_cast<const TW*>(w),
-                                          static_cast<const TW*>(b), static_cast<TX*>(y), hidden,
-                                          eps);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ N2
+// ------------------------------------------------------- N1 and N2
 
 constexpr int kRowsThreads = 256;     // eight warps, a row each at a time
 constexpr int kWarpChunks = 16;       // chunks a lane holds on the warp path
 constexpr int kNarrowChunks = 3;      // ... on its narrow-row instance,
-constexpr int kNarrowMinBlocks = 8;   // which fills the SM: 64 warps, 32 registers
+constexpr int kNarrowMinBlocks = 8;   // N2's fills the SM: 64 warps, 32 registers;
+constexpr int kLnNarrowMinBlocks = 6; // N1's (the mean, b): 48 warps, 40 registers
 constexpr int kBlockChunks = 8;       // chunks a thread holds on the CTA path
 constexpr int kScalarChunks = 32;     // elements a lane / thread holds unaligned
 
@@ -248,12 +195,14 @@ __device__ __forceinline__ void load_w(const TW* p, float (&f)[VEC]) {
 
 // One row per warp (WARP) or per CTA; each thread of the row's unit holds
 // up to MAXV chunks of VEC values, all loaded before the first is used.
+// LN: N1 (the mean, then the centred sum of squares; b added), else N2.
 // MINB: CTAs an SM must hold at once (ptxas then caps the registers at
 // 65536 / (threads * MINB)).
-template <typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB>
-__global__ void __launch_bounds__(WARP ? kRowsThreads : kMaxThreads, MINB) rms_rows_kernel(
+template <bool LN, typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB>
+__global__ void __launch_bounds__(WARP ? kRowsThreads : kMaxThreads, MINB) rows_norm_kernel(
     const TX* __restrict__ x,     // [rows, hidden]
     const TW* __restrict__ w,     // [hidden]
+    const TW* __restrict__ b,     // [hidden] (N1; unread by N2)
     TX* __restrict__ y,           // [rows, hidden]
     int rows, int hidden, float eps) {
   __shared__ float red[WARP ? 1 : kMaxThreads / 32];
@@ -264,8 +213,10 @@ __global__ void __launch_bounds__(WARP ? kRowsThreads : kMaxThreads, MINB) rms_r
   const int stride = gridDim.x * per_cta;
 
   // the unaligned CTA path (up to 32 values a thread under the 64-register
-  // cap of 1024 threads) reads x again for the write instead of holding it
+  // cap of 1024 threads) reads x again for each pass instead of holding it,
+  // in loops left rolled (unrolled, the compiler keeps the values anyway)
   constexpr bool kHold = WARP || VEC > 1;
+  constexpr int kUnroll = kHold ? MAXV : 1;
   for (int row = blockIdx.x * per_cta + (WARP ? threadIdx.x / 32 : 0); row < rows;
        row += stride) {
     const TX* xr = x + (size_t)row * hidden;
@@ -276,31 +227,55 @@ __global__ void __launch_bounds__(WARP ? kRowsThreads : kMaxThreads, MINB) rms_r
       for (int i = 0; i < MAXV; ++i)
         if (i * unit + t < chunks) xc[i].load(xr + (size_t)(i * unit + t) * VEC);
     }
-    float ss = 0.f;
+    // chunk i of this thread as fp32
+    auto values = [&](int i, float (&f)[VEC]) {
+      if constexpr (!kHold) xc[0].load(xr + (size_t)(i * unit + t) * VEC);
+      xc[kHold ? i : 0].to_float(f);
+    };
+    auto row_sum = [&](float v) {
+      if constexpr (WARP) return warp_sum(v);
+      else return block_sum(v, red);
+    };
+    float mean = 0.f;
+    if constexpr (LN) {
+      float s = 0.f;
+#pragma unroll (kUnroll)
+      for (int i = 0; i < MAXV; ++i)
+        if (i * unit + t < chunks) {
+          float f[VEC];
+          values(i, f);
 #pragma unroll
+          for (int j = 0; j < VEC; ++j) s += f[j];
+        }
+      mean = row_sum(s) / (float)hidden;
+    }
+    float ss = 0.f;
+#pragma unroll (kUnroll)
     for (int i = 0; i < MAXV; ++i)
       if (i * unit + t < chunks) {
         float f[VEC];
-        if constexpr (!kHold) xc[0].load(xr + (size_t)(i * unit + t) * VEC);
-        xc[kHold ? i : 0].to_float(f);
+        values(i, f);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) ss += f[j] * f[j];
+        for (int j = 0; j < VEC; ++j) {
+          const float d = f[j] - mean;
+          ss += d * d;
+        }
       }
-    if constexpr (WARP)
-      ss = warp_sum(ss);
-    else
-      ss = block_sum(ss, red);
-    const float inv = rsqrtf(ss / (float)hidden + eps);
-#pragma unroll
+    const float inv = rsqrtf(row_sum(ss) / (float)hidden + eps);
+#pragma unroll (kUnroll)
     for (int i = 0; i < MAXV; ++i) {
       const int c = i * unit + t;
       if (c < chunks) {
         float f[VEC], wv[VEC];
-        if constexpr (!kHold) xc[0].load(xr + (size_t)c * VEC);
-        xc[kHold ? i : 0].to_float(f);
+        values(i, f);
         load_w<TW, VEC>(w + (size_t)c * VEC, wv);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) f[j] = f[j] * inv * wv[j];
+        for (int j = 0; j < VEC; ++j) f[j] = (f[j] - mean) * inv * wv[j];
+        if constexpr (LN) {
+          load_w<TW, VEC>(b + (size_t)c * VEC, wv);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) f[j] += wv[j];
+        }
         Chunk<TX, VEC>::store(yr + (size_t)c * VEC, f);
       }
     }
@@ -315,16 +290,22 @@ int sm_count() {
   return sms;
 }
 
-template <typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB = 1>
-cudaError_t launch_rms_shape(const void* x, const void* w, void* y, int rows, int hidden,
-                             float eps, cudaStream_t stream) {
-  auto kernel = rms_rows_kernel<TX, TW, VEC, MAXV, WARP, MINB>;
+template <bool LN, typename TX, typename TW, int VEC, int MAXV, bool WARP, int MINB = 1>
+cudaError_t launch_shape(const void* x, const void* w, const void* b, void* y, int rows,
+                         int hidden, float eps, cudaStream_t stream) {
+  auto kernel = rows_norm_kernel<LN, TX, TW, VEC, MAXV, WARP, MINB>;
   int blocks, threads;
   if (WARP) {
+    // one wave: as many CTAs as the SMs hold at once (asked once per
+    // instance), each walking rows grid-stride
+    static int per_sm = 0;
+    if (per_sm == 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &per_sm, kernel, kRowsThreads, 0) != cudaSuccess)
+      per_sm = 2048 / kRowsThreads;
     constexpr int per_cta = kRowsThreads / 32;
     threads = kRowsThreads;
     blocks = (rows + per_cta - 1) / per_cta;
-    const int most = sm_count() * (2048 / kRowsThreads);   // a full SM's worth each
+    const int most = sm_count() * (per_sm > 0 ? per_sm : 1);
     blocks = blocks < most ? blocks : most;
   } else {
     const int chunks = hidden / VEC;
@@ -333,29 +314,32 @@ cudaError_t launch_rms_shape(const void* x, const void* w, void* y, int rows, in
     blocks = rows;
   }
   kernel<<<blocks, threads, 0, stream>>>(static_cast<const TX*>(x), static_cast<const TW*>(w),
-                                         static_cast<TX*>(y), rows, hidden, eps);
+                                         static_cast<const TW*>(b), static_cast<TX*>(y), rows,
+                                         hidden, eps);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW>
-cudaError_t launch_rms(const void* x, const void* w, void* y, int rows, int hidden, float eps,
-                       cudaStream_t s) {
+template <bool LN, typename TX, typename TW>
+cudaError_t launch(const void* x, const void* w, const void* b, void* y, int rows, int hidden,
+                   float eps, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(TX);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
-                         reinterpret_cast<uintptr_t>(w)) % 16) == 0 &&
+                         reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(b)) %
+                        16) == 0 &&
                        hidden % kVec == 0;
   if (aligned) {
     const int chunks = hidden / kVec;
     if (chunks <= 32 * kNarrowChunks)
-      return launch_rms_shape<TX, TW, kVec, kNarrowChunks, true, kNarrowMinBlocks>(x, w, y, rows,
-                                                                                 hidden, eps, s);
+      return launch_shape<LN, TX, TW, kVec, kNarrowChunks, true,
+                          LN ? kLnNarrowMinBlocks : kNarrowMinBlocks>(x, w, b, y, rows, hidden,
+                                                                      eps, s);
     if (chunks <= 32 * kWarpChunks)
-      return launch_rms_shape<TX, TW, kVec, kWarpChunks, true>(x, w, y, rows, hidden, eps, s);
-    return launch_rms_shape<TX, TW, kVec, kBlockChunks, false>(x, w, y, rows, hidden, eps, s);
+      return launch_shape<LN, TX, TW, kVec, kWarpChunks, true>(x, w, b, y, rows, hidden, eps, s);
+    return launch_shape<LN, TX, TW, kVec, kBlockChunks, false>(x, w, b, y, rows, hidden, eps, s);
   }
   if (hidden <= 32 * kScalarChunks)
-    return launch_rms_shape<TX, TW, 1, kScalarChunks, true>(x, w, y, rows, hidden, eps, s);
-  return launch_rms_shape<TX, TW, 1, kScalarChunks, false>(x, w, y, rows, hidden, eps, s);
+    return launch_shape<LN, TX, TW, 1, kScalarChunks, true>(x, w, b, y, rows, hidden, eps, s);
+  return launch_shape<LN, TX, TW, 1, kScalarChunks, false>(x, w, b, y, rows, hidden, eps, s);
 }
 
 }  // namespace
@@ -369,8 +353,8 @@ extern "C" int apex_row_norm(int rms, int x_dtype, int w_dtype, const void* x, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define APEX_ROW_NORM_CASE(XT, WT, TX_, TW_)                                   \
   if (x_dtype == XT && w_dtype == WT)                                          \
-    return (int)(rms ? launch_rms<TX_, TW_>(x, w, y, rows, hidden, eps, s)     \
-                     : launch_ln<TX_, TW_>(x, w, b, y, rows, hidden, eps, s));
+    return (int)(rms ? launch<false, TX_, TW_>(x, w, nullptr, y, rows, hidden, eps, s) \
+                     : launch<true, TX_, TW_>(x, w, b, y, rows, hidden, eps, s));
   APEX_ROW_NORM_CASE(kF32, kF32, float, float)
   APEX_ROW_NORM_CASE(kBF16, kF32, __nv_bfloat16, float)
   APEX_ROW_NORM_CASE(kBF16, kBF16, __nv_bfloat16, __nv_bfloat16)

@@ -22,8 +22,8 @@ else raises); on CPU tensors it runs the plain version beside it
 (:func:`layer_norm_plain`, :func:`rms_norm_plain`), which repeats the
 kernels' arithmetic.  A CPU tensor is the port's counterpart of the JAX
 module's interpret mode, and the TPU's row tiling (``block_rows``) means
-nothing to the kernels, which choose their own rows per CTA (N1 one, N2 a
-row per warp up to 4096 bf16), so neither knob is ported.
+nothing to the kernels, which choose their own rows per CTA (a row per
+warp up to 4096 bf16, a CTA per row above), so neither knob is ported.
 :func:`is_available` keeps the reference's answers for callers that
 gate on it; the wrappers never consult it.
 
@@ -63,7 +63,8 @@ __all__ = [
 LAYER_NORM_LAUNCHES = 0
 RMS_NORM_LAUNCHES = 0
 
-# the widest row the kernels take (N1: an fp32 row in shared memory, 128 KB)
+# the widest row the kernels take (a CTA of 1024 threads, eight 16-byte
+# chunks or 32 single values a thread)
 MAX_HIDDEN = 32768
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

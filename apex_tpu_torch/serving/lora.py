@@ -19,9 +19,12 @@ many tenants: each tenant's fine-tune is a low-rank update
   ``delta = (x @ A[slot]) @ B_scaled[slot]`` per batch slot to the base
   projection.  ``B`` is stored pre-scaled by ``alpha / rank``.
 
-CUDA tensors launch the hand-written kernel of ``csrc/lora_delta.cu``;
-CPU tensors run :func:`lora_delta_plain`, the ``index_select`` twin of
-the JAX package's ``lora_delta_unfused``.
+CUDA tensors launch a hand-written kernel of ``csrc/lora_delta.cu``, the
+one :func:`lora_route` names: ``"cluster"`` (the first product computed
+once per row tile by a thread-block cluster) for ranks 4, 8 and 16 over
+16-byte-aligned adapter tensors, ``"simt"`` (the first kernel) for the
+rest.  CPU tensors run :func:`lora_delta_plain`, the ``index_select``
+twin of the JAX package's ``lora_delta_unfused``.
 
 Not ported yet: ``restore_adapter_for_serving`` (the adapter checkpoint
 restore, with the checkpoint module) and ``adapter_partition_specs``
@@ -52,6 +55,7 @@ __all__ = [
     "init_adapter_weights",
     "lora_delta",
     "lora_delta_plain",
+    "lora_route",
     "pack_adapter_values",
 ]
 
@@ -63,10 +67,14 @@ ADAPTER_REGISTRY = "<adapter-registry>"
 #: Arena tensor order: (A, B) per projection, projections in this order.
 PROJECTIONS = ("qkv", "dense", "fc1", "fc2")
 
-# launches of the L1 kernel since the count was last set to 0
+# launches of L1 since the count was last set to 0, in all and per route
 LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
+SIMT_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the ranks the cluster route is compiled for
+_CLUSTER_RANKS = (4, 8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,28 +365,51 @@ def lora_delta(x, a, b, slots):
     first two dims); ``a [n_slots, in, r]``; ``b [n_slots, r, out]``
     (pre-scaled); ``slots [B]`` int32, each in ``[0, n_slots)``.  Both
     products in fp32, cast once to ``x.dtype``; returns ``[S, B, out]``.
-    CUDA tensors launch the kernel; CPU tensors run
-    :func:`lora_delta_plain`."""
-    global LAUNCHES
+    CUDA tensors launch the kernel :func:`lora_route` names; CPU tensors
+    run :func:`lora_delta_plain`."""
     _check_delta(x, a, b, slots)
     if x.device.type == "cpu":
         return lora_delta_plain(x, a, b, slots)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda_operands(x, a, b, slots)
+    return _launch(lora_route(x, a, b), x, a, b, slots)
+
+
+def lora_route(x, a, b) -> str:
+    """The L1 kernel that operands of these shapes take: ``"cluster"``
+    for a rank of 4, 8 or 16 with ``a`` and ``b`` 16-byte aligned (``x``
+    may be any view the kernel takes); ``"simt"`` for anything else."""
+    del x   # every x the kernel takes suits both routes
+    if (a.shape[2] in _CLUSTER_RANKS and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0):
+        return "cluster"
+    return "simt"
+
+
+def _launch(route, x, a, b, slots):
+    """L1 on checked CUDA operands through the kernel ``route`` names."""
+    global LAUNCHES, CLUSTER_LAUNCHES, SIMT_LAUNCHES
     S, B, n_in = x.shape
     n_slots, _, r = a.shape
     n_out = b.shape[2]
     y = torch.empty((S, B, n_out), dtype=x.dtype, device=x.device)
-    fn = _build.library().apex_lora_delta
+    lib = _build.library()
+    fn = (lib.apex_lora_delta_cluster if route == "cluster"
+          else lib.apex_lora_delta)
     with torch.cuda.device(x.device):
         rc = fn(_DTYPE_CODES[x.dtype], _DTYPE_CODES[a.dtype], x.data_ptr(),
                 a.data_ptr(), b.data_ptr(), slots.data_ptr(), y.data_ptr(),
                 S, B, n_in, r, n_out, n_slots, x.stride(0), x.stride(1),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"LoRA delta kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"LoRA delta kernel ({route}) launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    if route == "cluster":
+        CLUSTER_LAUNCHES += 1
+    else:
+        SIMT_LAUNCHES += 1
     return y
 
 

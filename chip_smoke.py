@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; none is caught):
 2. each kernel against its plain PyTorch version, with its device time
    (CUDA events, median of 30 launches, L2 flushed before each), the
    plain version's, one PyTorch library call's as a yardstick, and the
-   least time the card could take (``bound_ms``); K1, N1 and N2 also
+   least time the card could take (``bound_ms``); K1, L1, N1 and N2 also
    with ``floor_ms``, the same launch with nothing to do (every length 0;
-   8 rows), the fixed cost of a launch in this harness:
+   every slot out of range; 8 rows), the fixed cost of a launch in this
+   harness:
    - the serving kernels K1-K3 at GPT-124M serving shapes (8 slots, 12
      heads of 64, 16-token blocks, 1024-token context, a 128-token
      prefill chunk, hidden 768; plus a grouped-query case);
@@ -39,8 +40,9 @@ Phases (any failure exits non-zero; none is caught):
      before; the bf16 ``FLASH_EDGES`` run F2/F3 on both routes; K2's tc
      route is also held at the ragged ``PAGED_EDGES`` (T x heads per group
      over two 64-row tiles, the last ragged); ``ptxas -v``'s registers,
-     shared memory and spills of every tc kernel, of K1's split kernel and
-     of N2's row kernel are printed, and a spill byte fails;
+     shared memory and spills of every tc kernel, of K1's split kernel, of
+     N1/N2's row kernel and of L1's cluster kernel are printed, and a
+     spill byte fails;
    - the row norms N1 (LayerNorm) and N2 (RMSNorm) at GPT-124M's training
      activation (8192 rows of 768) with bf16 x over fp32 parameters, in
      fp32, and in bf16 throughout, beside ``F.layer_norm`` /
@@ -76,7 +78,14 @@ Phases (any failure exits non-zero; none is caught):
    compute and cache, fp32 parameters and adapter arena, as in the
    serving phases): in phase 2 beside the other kernels,
    L1 (the gathered LoRA delta) at the four projections' (in, out) pairs
-   and S = 1, 5 and 128, and K2 at the verify width (T = k + 1 = 5, draft
+   and S = 1, 5 and 128 through the route ``lora_route`` names ("cluster":
+   the first product once per row tile; the first kernel, the "simt"
+   route, held and timed on the same operands), then, twice in a row and the
+   second call bit for bit the first, at ``LORA_EDGES`` (S of 1, 17 and
+   129, out off the column tile and off the 16-byte chunk, in 3072 at
+   ranks 4 and 16, a misaligned strided x, every slot the zero adapter,
+   a slot out of range, rank 12 on simt), and K2 at the verify width
+   (T = k + 1 = 5, draft
    counts 0..4, bf16 and int8 caches); then a wave of 16 motif prompts
    (a random motif of 4-16 tokens repeated to 64-600 tokens, a 4-token
    suffix) decoding 64 greedy tokens, with k = 4 drafting and without:
@@ -85,10 +94,12 @@ Phases (any failure exits non-zero; none is caught):
    route (here and in the LoRA waves); a LoRA wave (rank 8, four
    adapters, requests cycling over them and no adapter, a hot swap after
    the first tick, an LRU eviction after the drain): L1 48 times per
-   call, the no-adapter streams bit for bit a bare engine's, the arena's
+   call, every launch on the cluster route, the no-adapter streams bit
+   for bit a bare engine's, the arena's
    books closed; the same with k = 4 drafting and an int8 cache; four
    requests with drafting and two adapters in fp32 on the card and on the
-   CPU; eight drafting LoRA requests under ``torch.profiler``;
+   CPU; eight drafting LoRA requests under ``torch.profiler``, with L1's
+   device time per kernel instance (8-row tiles: the verify; 16: prefill);
 8. the norm path: ``pallas_layer_norm`` and ``pallas_rms_norm`` forward
    and backward at ``[8, 1024, 768]``, 10 passes each, bf16 x and fp32
    parameters all requiring gradients, a seeded cotangent: N1 (N2) once
@@ -153,11 +164,12 @@ def card_line():
 
 
 # the kernels whose ptxas report is printed and held to no spill: the
-# tensor-core kernels (with their dynamic shared memory), K1's split route
-# and N2's row kernel (static shared memory only)
+# tensor-core kernels (with their dynamic shared memory), K1's split route,
+# N1/N2's row kernel and L1's cluster route (static shared memory only)
 PTXAS_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel",
                  "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
-                 "paged_decode_split_kernel", "rms_rows_kernel")
+                 "paged_decode_split_kernel", "rows_norm_kernel",
+                 "lora_cluster_kernel")
 # Itanium-mangled template arguments of those instances: an int, a bool,
 # a type, or a substitution (a repeat of an earlier type)
 MANGLED_ARG = re.compile(r"Li(-?\d+)E?|Lb([01])E?|(13__nv_bfloat16|6__half|f|a)|S\d*_")
@@ -895,38 +907,65 @@ def lora_inputs(torch, x_dtype, w_dtype, proj, S, strided):
     return x, a.to(w_dtype), b.to(w_dtype), slots
 
 
-def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
-    """L1 against its plain version: the zero adapter's rows exactly 0;
-    fp32 within 1e-5 of the output's RMS times sqrt(in / 768) (both sum
-    ``in`` products of the first product in another order, so their
-    difference grows with the square root of its length; card readings
-    1.2e-5 of the RMS at in = 3072, 0.8e-5 at 768); bf16 within 0.01 of
-    the RMS plus one bf16 step at the element's own magnitude (2**-7 of
-    it: both round fp32 sums that differ in the last bits once each, so
-    an element near a rounding boundary may land one step apart, and a
-    step at 4 RMS is 0.03 RMS; card readings up to 0.015 of the RMS)."""
-    x, a, b, slots = lora_inputs(torch, x_dtype, w_dtype, proj, S,
-                                 strided=S == SPEC_K + 1)
-    kernel = lambda: lo.lora_delta(x, a, b, slots)  # noqa: E731
-    plain = lambda: lo.lora_delta_plain(x, a, b, slots)  # noqa: E731
-    out = kernel()
-    torch.cuda.synchronize()
-    ref = plain()
-    torch.cuda.synchronize()
+def lora_counts(lo):
+    return lo.CLUSTER_LAUNCHES, lo.SIMT_LAUNCHES
+
+
+def lora_close(torch, what, out, ref, n_in):
+    """L1 against its plain version: fp32 within 1e-5 of the output's RMS
+    times sqrt(in / 768) (both sum ``in`` products of the first product
+    in another order, so their difference grows with the square root of
+    its length; card readings 1.2e-5 of the RMS at in = 3072, 0.8e-5 at
+    768); bf16 within 0.01 of the RMS plus one bf16 step at the element's
+    own magnitude (2**-7 of it: both round fp32 sums that differ in the
+    last bits once each, so an element near a rounding boundary may land
+    one step apart, and a step at 4 RMS is 0.03 RMS; card readings up to
+    0.015 of the RMS).  Returns the largest difference and its ratio to
+    the RMS."""
     diff = (out.float() - ref.float()).abs()
     rms = ref.float().square().mean().sqrt().item()
     err = diff.max().item()
-    zero = slots == 0
-    check(not out[:, zero].any(), f"L1 {proj} S={S}: zero-slot rows are 0")
     if out.dtype == torch.float32:
-        limit = 1e-5 * rms * (LORA_PAIRS[proj][0] / 768) ** 0.5
-        check(err <= limit, f"L1 {proj} S={S} fp32: max |kernel - plain| "
-              f"{err:.3g} within {limit:.3g} (rms {rms:.3g})")
+        limit = 1e-5 * rms * (n_in / 768) ** 0.5
+        check(err <= limit, f"{what} fp32: max |kernel - plain| {err:.3g} "
+              f"within {limit:.3g} (rms {rms:.3g})")
     else:
         limit = 0.01 * rms + 2.0 ** -7 * ref.float().abs()
-        check(bool((diff <= limit).all()), f"L1 {proj} S={S} bf16: max "
-              f"|kernel - plain| {err:.3g} (rms {rms:.3g})")
-    rec = dict(max_abs_err=err, err_over_rms=err / rms)
+        check(bool((diff <= limit).all()), f"{what} bf16: max |kernel - "
+              f"plain| {err:.3g} (rms {rms:.3g})")
+    return err, err / rms if rms else 0.0
+
+
+def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
+    """L1 through the route ``lora_route`` names against its plain
+    version (``lora_close``), the zero adapter's rows exactly 0; a
+    cluster-route check also holds and times the simt route on the same
+    operands (``rec["simt"]``).  ``floor_ms`` is the same launch with
+    nothing to do: every slot out of range, so each CTA reads its slot and
+    writes NaN rows, and no x, A or B is read."""
+    x, a, b, slots = lora_inputs(torch, x_dtype, w_dtype, proj, S,
+                                 strided=S == SPEC_K + 1)
+    n_in, n_out = LORA_PAIRS[proj]
+    route = lo.lora_route(x, a, b)
+    kernel = lambda: lo.lora_delta(x, a, b, slots)  # noqa: E731
+    plain = lambda: lo.lora_delta_plain(x, a, b, slots)  # noqa: E731
+    before = lora_counts(lo)
+    out = kernel()
+    torch.cuda.synchronize()
+    check_one_launch(lora_counts(lo), before, route, f"L1 {proj} S={S}")
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = lora_close(torch, f"L1 {proj} S={S}", out, ref, n_in)
+    zero = slots == 0
+    check(not out[:, zero].any(), f"L1 {proj} S={S}: zero-slot rows are 0")
+    rec = dict(max_abs_err=err, err_over_rms=rel, kernel_route=route)
+    simt = None
+    if route != "simt":
+        simt = lambda: lo._launch("simt", x, a, b, slots)  # noqa: E731
+        s_out = simt()
+        torch.cuda.synchronize()
+        s_err, _ = lora_close(torch, f"L1 simt {proj} S={S}", s_out, ref, n_in)
+        rec["simt"] = dict(max_abs_err=s_err)
     if not timed:
         return rec
     ag_idx = slots.long()
@@ -936,7 +975,6 @@ def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
         bg = b.index_select(0, ag_idx)
         return torch.bmm(torch.bmm(x.transpose(0, 1).to(a.dtype), ag), bg)
 
-    n_in, n_out = LORA_PAIRS[proj]
     distinct = len(set(LORA_SLOTS))
     n_bytes = (x.numel() * x.element_size() + out.numel() * out.element_size()
                + distinct * RANK * (n_in + n_out) * a.element_size()
@@ -944,8 +982,103 @@ def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
     n_ops = 2 * S * B * RANK * (n_in + n_out)
     b_ms, b_by = bound(n_bytes, n_ops,
                        "fp32" if x_dtype == torch.float32 else "bf16")
-    return dict(rec, ms=timer(kernel), plain_ms=timer(plain),
-                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+    if simt is not None:
+        rec["simt"]["ms"] = timer(simt)
+    idle = torch.full_like(slots, -1)
+    rec.update(ms=timer(kernel), plain_ms=timer(plain),
+               library_ms=timer(library), bound_ms=b_ms, bound_by=b_by,
+               floor_ms=timer(lambda: lo.lora_delta(x, a, b, idle)))
+    return rec
+
+
+# unmeasured edges of L1: (label, x dtype, arena dtype, S, in, r, out,
+# x layout, slots, route); "offset" is a sequence-major view of a
+# [B, S, in + 1] buffer one element past a 16-byte boundary, so no x row
+# is aligned; slots "mixed" are LORA_SLOTS, "zero" all the zero adapter,
+# "bad" LORA_SLOTS with slot 2 out of range (its rows NaN)
+LORA_EDGES = (
+    ("S=1", "bf16", "fp32", 1, 768, 8, 2304, "contiguous", "mixed", "cluster"),
+    ("S=17", "bf16", "fp32", 17, 768, 8, 768, "contiguous", "mixed", "cluster"),
+    ("S=129", "bf16", "bf16", 129, 768, 8, 3072, "contiguous", "mixed", "cluster"),
+    ("S=129 fp32", "fp32", "fp32", 129, 3072, 8, 768, "contiguous", "mixed",
+     "cluster"),
+    ("out 1000, off the column tile", "bf16", "fp32", 5, 768, 8, 1000,
+     "contiguous", "mixed", "cluster"),
+    ("out 1001, unaligned rows", "bf16", "fp32", 5, 768, 8, 1001,
+     "contiguous", "mixed", "cluster"),
+    ("in 3072, r 4", "bf16", "fp32", 5, 3072, 4, 768, "contiguous", "mixed",
+     "cluster"),
+    ("in 3072, r 16", "bf16", "fp32", 128, 3072, 16, 768, "contiguous",
+     "mixed", "cluster"),
+    ("in 770, out 24", "fp32", "bf16", 5, 770, 8, 24, "contiguous", "mixed",
+     "cluster"),
+    ("strided misaligned x", "bf16", "fp32", 5, 768, 8, 768, "offset",
+     "mixed", "cluster"),
+    ("every slot the zero adapter", "bf16", "fp32", 5, 768, 8, 2304,
+     "contiguous", "zero", "cluster"),
+    ("a slot out of range", "bf16", "fp32", 5, 768, 8, 768, "contiguous",
+     "bad", "cluster"),
+    ("r 12", "bf16", "fp32", 5, 768, 12, 768, "contiguous", "mixed", "simt"),
+)
+
+
+def same_bits(torch, p, q):
+    """Bit for bit equal (NaN rows included)."""
+    ints = torch.int32 if p.element_size() == 4 else torch.int16
+    return p.dtype == q.dtype and torch.equal(p.view(ints), q.view(ints))
+
+
+def check_lora_edges(torch, lo):
+    """L1 at ``LORA_EDGES`` on the route each names, each called twice in
+    a row: the second call bit for bit the first; against plain within
+    ``lora_close``; the zero adapter's rows exact zeros, an out-of-range
+    slot's rows NaN."""
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    for e, (label, xd, wd, S, n_in, r, n_out, layout, kind,
+            route) in enumerate(LORA_EDGES):
+        gen = torch.Generator(device="cuda").manual_seed(90 + e)
+        n_slots = ADAPTERS + 1
+        x = torch.randn((B, S, n_in), generator=gen, device="cuda")
+        if layout == "offset":
+            flat = torch.empty(B * S * (n_in + 1) + 1, device="cuda",
+                               dtype=dtypes[xd])
+            view = flat[1:].view(B, S, n_in + 1)[..., :n_in]
+            view.copy_(x)
+            x = view.transpose(0, 1)
+            check(x.data_ptr() % 16 and x.stride(2) == 1,
+                  "the edge's x is a misaligned strided view")
+        else:
+            x = x.to(dtypes[xd]).transpose(0, 1).contiguous()
+        a = 0.25 * torch.randn((n_slots, n_in, r), generator=gen, device="cuda")
+        b = 0.5 * torch.randn((n_slots, r, n_out), generator=gen, device="cuda")
+        a[0] = 0.0
+        b[0] = 0.0
+        a, b = a.to(dtypes[wd]), b.to(dtypes[wd])
+        picked = {"zero": [0] * B, "bad": [n_slots if s == 2 else s
+                                           for s in LORA_SLOTS]}.get(kind, LORA_SLOTS)
+        slots = torch.tensor(picked, dtype=torch.int32, device="cuda")
+        check(lo.lora_route(x, a, b) == route, f"L1 edge {label}: takes the "
+              f"{route} route")
+        outs = []
+        for _ in range(2):
+            before = lora_counts(lo)
+            outs.append(lo.lora_delta(x, a, b, slots))
+            torch.cuda.synchronize()
+            check_one_launch(lora_counts(lo), before, route, f"L1 edge {label}")
+        check(same_bits(torch, outs[0], outs[1]),
+              f"L1 edge {label}: a second call is bit for bit the first")
+        out = outs[0]
+        good = slots < n_slots
+        ref = lo.lora_delta_plain(x, a, b, torch.where(good, slots, 0))
+        check(bool(out[:, ~good].isnan().all()),
+              f"L1 edge {label}: out-of-range slots give NaN rows")
+        check(not out[:, slots == 0].any(),
+              f"L1 edge {label}: zero-slot rows are 0")
+        err, _ = lora_close(torch, f"L1 edge {label}", out[:, good],
+                            ref[:, good], n_in)
+        log(f"kernel lora_delta edge [{label}: x/arena {xd}/{wd}, S={S}, in "
+            f"{n_in}, r {r}, out {n_out}, {layout} x, {kind} slots, {route}]: "
+            f"max |kernel - plain| {err:.3g}")
 
 
 # ----------------------------------------- phase 2: the flash kernels
@@ -1354,7 +1487,7 @@ def zero_counts(pa, fo, lo):
     pa.DECODE_SPLIT_LAUNCHES = pa.DECODE_SIMT_LAUNCHES = 0
     pa.PREFILL_TC_LAUNCHES = pa.PREFILL_SIMT_LAUNCHES = 0
     fo.RESIDUAL_NORM_LAUNCHES = 0
-    lo.LAUNCHES = 0
+    lo.LAUNCHES = lo.CLUSTER_LAUNCHES = lo.SIMT_LAUNCHES = 0
 
 
 def check_prefill_routes(pa, route, what):
@@ -1372,7 +1505,9 @@ def read_counts(pa, fo, lo):
             "paged_attention_decode/simt": pa.DECODE_SIMT_LAUNCHES,
             "paged_prefill_attention": pa.PREFILL_LAUNCHES,
             "fused_residual_norm": fo.RESIDUAL_NORM_LAUNCHES,
-            "lora_delta": lo.LAUNCHES}
+            "lora_delta": lo.LAUNCHES,
+            "lora_delta/cluster": lo.CLUSTER_LAUNCHES,
+            "lora_delta/simt": lo.SIMT_LAUNCHES}
 
 
 def calls_of(eng, base=(0, 0)):
@@ -1380,9 +1515,11 @@ def calls_of(eng, base=(0, 0)):
     return eng.prefill_calls - base[0], eng.decode_calls - base[1]
 
 
-def check_path_counts(counts, calls, L, spec, lora, decode_route="split"):
+def check_path_counts(counts, calls, L, spec, lora, decode_route="split",
+                      lora_route="cluster"):
     """The kernels the path must have launched, once per layer per call
-    of the kind that runs them; every K1 launch on ``decode_route``."""
+    of the kind that runs them; every K1 launch on ``decode_route``,
+    every L1 launch on ``lora_route``."""
     prefill, decode = calls
     k1 = 0 if spec else L * decode
     k2 = L * (prefill + (decode if spec else 0))
@@ -1391,7 +1528,9 @@ def check_path_counts(counts, calls, L, spec, lora, decode_route="split"):
             "paged_attention_decode/split": k1 if decode_route == "split" else 0,
             "paged_attention_decode/simt": k1 if decode_route == "simt" else 0,
             "paged_prefill_attention": k2,
-            "fused_residual_norm": L * (prefill + decode), "lora_delta": l1}
+            "fused_residual_norm": L * (prefill + decode), "lora_delta": l1,
+            "lora_delta/cluster": l1 if lora_route == "cluster" else 0,
+            "lora_delta/simt": l1 if lora_route == "simt" else 0}
     check(counts == want, f"launches {counts} == {want} for {prefill} "
           f"prefill + {decode} decode calls")
 
@@ -1737,6 +1876,8 @@ def card_vs_cpu_lora(torch, params, prompts):
                         samplings=[SamplingParams(adapter_id=a) for a in ids])
         if device == "cuda":
             check_prefill_routes(pa, "simt", "card vs CPU [spec + LoRA]")
+            check_path_counts(read_counts(pa, fo, lo), calls_of(eng),
+                              cfg.num_layers, spec=True, lora=True)
         engines[device] = (eng, reqs)
     cpu, c_reqs = engines["cpu"]
     slots = [cpu.adapter_arena.slot_of(a) if a else 0 for a in ids]
@@ -1784,6 +1925,16 @@ def profile_spec_lora(torch, params, prompts):
         f"wall (the profiler's own cost included)")
     for us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    # L1 by kernel instance: the route, and on the cluster route the rows
+    # per tile (8: the k + 1 verify; 16: prefill chunks)
+    l1 = [(us, count, key[key.index("lora_"):].split("(")[0])
+          for us, count, key in rows if "lora_" in key]
+    check(l1, "the profile holds L1's launches")
+    log(f"  L1 device total {sum(r[0] for r in l1) / 1e3:.3f} ms over "
+        f"{sum(r[1] for r in l1)} launches:")
+    for us, count, name in sorted(l1, reverse=True):
+        log(f"    {us / 1e3:9.3f} ms {count:6d}x {name} "
+            f"({us / count:.2f} us each)")
 
 
 # ----------------------------------------------- phase 5/6: training
@@ -2006,6 +2157,7 @@ def main():
     rec = check_lora(torch, lo, timer, f32, bf16, "fc2", CHUNK, timed=False)
     log(f"kernel lora_delta[x/arena fp32/bf16, fc2, S={CHUNK}]: "
         f"{json.dumps(rec)}")
+    check_lora_edges(torch, lo)
     for label, dtype in (("bf16", bf16), ("fp32", f32)):
         for rows in (B, B * CHUNK):
             rec = check_norm(torch, F, fo, timer, dtype, rows)
@@ -2106,6 +2258,14 @@ def main():
         if name == "paged_attention_decode":       # and per route
             rec["launches_by_route"] = {
                 r: launches[f"{name}/{r}"] for r in ("split", "simt")}
+        if name == "lora_delta":                   # per route, and wider
+            rec["launches_by_route"] = {
+                r: launches[f"{name}/{r}"] for r in ("cluster", "simt")}
+            rec["widths"] = {
+                f"{proj} S={S}": {k: v for k, v in results[
+                    (name, f"bf16/fp32 {proj} S={S}")].items()
+                    if k != "err_over_rms"}
+                for proj in LORA_PAIRS for S in (SPEC_K + 1, CHUNK)}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **rec})

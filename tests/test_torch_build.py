@@ -96,3 +96,14 @@ def test_the_split_decode_entry_points_are_bound():
     assert split == simt[1:9] + [p, p, p] + simt[10:16] + [ctypes.c_int] + simt[16:]
     assert sig["apex_paged_decode_splits"] == [ctypes.c_int]
     assert split[-2:] == [ctypes.c_float, p]
+
+
+def test_the_cluster_lora_entry_point_is_bound():
+    """L1's cluster route: its launcher takes the first L1 launcher's
+    operands, dtype codes, sizes and strides, in the same order; the row
+    norms keep their one launcher."""
+    sig = _build._SIGNATURES
+    assert sig["apex_lora_delta_cluster"] == sig["apex_lora_delta"]
+    assert sig["apex_lora_delta"][-3:] == [ctypes.c_longlong,
+                                           ctypes.c_longlong, ctypes.c_void_p]
+    assert [name for name in sig if "row_norm" in name] == ["apex_row_norm"]

@@ -124,6 +124,129 @@ def test_delta_takes_strided_x_and_checks_its_operands():
     assert lora.LAUNCHES == 0
 
 
+def _aligned_view(t, offset):
+    """``t``'s values in a fresh buffer, ``offset`` elements past its
+    start (a misaligned view for ``offset`` not a multiple of 16 bytes)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case,route", [
+    ("r8", "cluster"), ("r4", "cluster"), ("r16", "cluster"),
+    ("r8 bf16", "cluster"), ("r8 strided x", "cluster"),
+    ("r1", "simt"), ("r12", "simt"), ("r32", "simt"),
+    ("r8 a misaligned", "simt"), ("r8 b misaligned", "simt"),
+])
+def test_lora_route(case, route):
+    """The cluster route takes ranks 4, 8 and 16 over 16-byte-aligned A
+    and B (x may be a strided view); any other rank or alignment takes
+    the first kernel.  On the CPU the route is only named: nothing
+    launches."""
+    r = int(case.split()[0][1:])
+    dtype = torch.bfloat16 if "bf16" in case else torch.float32
+    x = torch.zeros((5, 4, 64), dtype=dtype)
+    a = torch.zeros((3, 64, r), dtype=dtype)
+    b = torch.zeros((3, r, 40), dtype=dtype)
+    if case.endswith("strided x"):
+        x = torch.zeros((4, 5, 64), dtype=dtype).transpose(0, 1)
+    if case.endswith("a misaligned"):
+        a = _aligned_view(a, 1)
+    if case.endswith("b misaligned"):
+        b = _aligned_view(b, 1)
+    assert lora.lora_route(x, a, b) == route
+    lora.lora_delta(x, a, b, torch.zeros(4, dtype=torch.int32))
+    assert (lora.LAUNCHES, lora.CLUSTER_LAUNCHES,
+            lora.SIMT_LAUNCHES) == (0, 0, 0)
+
+
+# the cluster route's arithmetic (csrc/lora_delta.cu, lora_cluster_kernel),
+# in plain torch: a cluster of 8 CTAs per (slot, tile of 8 rows up to S = 8,
+# else 16); CTA q takes the q-th slice of in (whole 16-byte chunks of x);
+# a row's k in the slice go to the 32 lanes of one of nsplit warps (lane l
+# of split sp: k0 + sp * 32 + l + m * nsplit * 32), each lane sums its
+# products in order, the lanes meet in the xor-shuffle tree, the splits in
+# order, the 8 partials in rank order; then y = t @ B summed over the rank
+# in order, one cast
+CLUSTER_RANKS = 8
+
+
+def _shuffle_sum(v):
+    """``__shfl_xor_sync`` tree over the last-but-one axis of 32 lanes."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o, :]
+    return v[..., 0, :]
+
+
+def _cluster_delta(x, a, b, slots):
+    S, B, n_in = x.shape
+    r, n_out = b.shape[1], b.shape[2]
+    xv = 16 // x.element_size()
+    tile = 8 if S <= 8 else 16
+    k_per = -(-n_in // (CLUSTER_RANKS * xv)) * xv
+    x32, a32, b32 = x.float(), a.float(), b.float()
+    y = torch.empty((S, B, n_out))
+    for i in range(B):
+        slot = int(slots[i])
+        for s0 in range(0, S, tile):
+            rows = min(tile, S - s0)
+            nsplit = 8 // min(rows, 8)
+            xr = x32[s0:s0 + rows, i]                        # [rows, in]
+            t = None
+            for q in range(CLUSTER_RANKS):
+                k0 = min(n_in, q * k_per)
+                k1 = min(n_in, k0 + k_per)
+                part = torch.zeros((rows, r))
+                for sp in range(nsplit):
+                    acc = torch.zeros((rows, 32, r))         # one per lane
+                    for first in range(k0 + sp * 32, k1, nsplit * 32):
+                        k = first + torch.arange(32)
+                        live = k < k1
+                        kk = torch.where(live, k, 0)
+                        term = xr[:, kk, None] * a32[slot, kk][None]
+                        acc = acc + torch.where(live[None, :, None], term, 0.0)
+                    part = part + _shuffle_sum(acc)
+                t = part if t is None else t + part
+            out = torch.zeros((rows, n_out))
+            for j in range(r):
+                out = out + t[:, j, None] * b32[slot, j][None]
+            y[s0:s0 + rows, i] = out
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("S,IN,r,OUT", [
+    (1, 96, 8, 64), (5, 100, 4, 37), (5, 770, 8, 24), (17, 130, 16, 50)])
+def test_tile_contract_matches_jax(S, IN, r, OUT, dtype):
+    """The cluster route's decomposition (slices of in per CTA, k per
+    lane, the shuffle tree, the splits and ranks in order) stays within
+    the plain delta's tolerances of the JAX kernel (Pallas in interpret
+    mode) at S = 1, 5 and 17, ragged in and out, ranks 4, 8 and 16; the
+    zero adapter's rows are exact zeros.  A is scaled by 1/sqrt(in) and B
+    by 1/sqrt(r), so t and y are of order 1, as a trained adapter's are:
+    with unit-normal A and B the outputs reach a few hundred at in = 770,
+    and the plain delta itself then differs from JAX's by more than 1e-5
+    through summation order alone."""
+    rng = np.random.default_rng(11 + S + IN + r)
+    B, n_slots = 4, 5
+    x, a, b = _delta_inputs(rng, S, B, IN, r, OUT, n_slots)
+    a, b = a / np.float32(IN ** 0.5), b / np.float32(r ** 0.5)
+    slots = np.asarray([3, 0, 1, 3], np.int32)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tx, ta, tb = (torch.from_numpy(v).to(tdt) for v in (x, a, b))
+    jx, ja, jb = (jnp.asarray(v.float().numpy(), jdt) for v in (tx, ta, tb))
+    got = _cluster_delta(tx, ta, tb, torch.from_numpy(slots))
+    want = jax_lora.lora_delta_fused(jx, ja, jb, jnp.asarray(slots))
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == "fp32"
+           else dict(atol=1e-6, rtol=2.0 ** -7))
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(jnp.asarray(want, jnp.float32)), **tol)
+    assert not got[:, slots == 0].any()
+
+
 # -------------------------------------------------------------- arena
 
 

@@ -190,3 +190,79 @@ def test_backward_does_not_depend_on_the_forward(kind):
         grads.append([t.grad for t in leaves])
     for a, c in zip(*grads):
         assert torch.equal(a, c)
+
+
+# N1's arithmetic on the card (csrc/row_norm.cu, rows_norm_kernel<LN>), in
+# plain torch: the launcher's shape for the row (a warp holding three or up
+# to sixteen 16-byte chunks a lane, a CTA holding eight a thread, or single
+# values where a row is not 16-byte aligned), each thread's sum over its
+# chunks in order, the xor-shuffle tree in each warp, on the CTA path the
+# warps in order; first the mean, then the centred sum of squares, both
+# from the held values
+def _row_shape(hidden, itemsize):
+    """(values a chunk, chunks a thread, threads a row) as launched."""
+    def warps_for(chunks, per_thread):       # whole warps, at least one
+        threads = -(-chunks // per_thread)
+        return max(32, (threads + 31) // 32 * 32)
+
+    vec = 16 // itemsize
+    if hidden % vec == 0:                 # contiguous rows start aligned
+        chunks = hidden // vec
+        if chunks <= 32 * 16:
+            return vec, 3 if chunks <= 32 * 3 else 16, 32
+        return vec, 8, warps_for(chunks, 8)
+    if hidden <= 32 * 32:
+        return 1, 32, 32
+    return 1, 32, warps_for(hidden, 32)
+
+
+def _row_sum(v, live):
+    """Per thread in order, then the shuffle tree, then the warps in order:
+    ``v`` [rows, chunks a thread, threads, values a chunk]."""
+    rows, maxv, unit, vec = v.shape
+    part = torch.zeros((rows, unit))
+    for i in range(maxv):
+        for j in range(vec):
+            part = part + torch.where(live[i][None, :], v[:, i, :, j], 0.0)
+    warps = part.reshape(rows, unit // 32, 32)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        warps = warps + warps[..., lanes ^ o]
+    total = torch.zeros(rows)
+    for w in range(unit // 32):
+        total = total + warps[:, w, 0]
+    return total
+
+
+def _rows_layer_norm(x, w, b, eps):
+    rows, hidden = x.shape
+    vec, maxv, unit = _row_shape(hidden, x.element_size())
+    idx = ((torch.arange(maxv)[:, None] * unit + torch.arange(unit)[None, :])
+           [:, :, None] * vec + torch.arange(vec))       # [maxv, unit, vec]
+    live = idx[..., 0] < hidden
+    v = x.float()[:, torch.where(idx < hidden, idx, 0)]
+    mean = _row_sum(v, live) / hidden
+    d = v - mean[:, None, None, None]
+    inv = torch.rsqrt(_row_sum(d * d, live) / hidden + eps)
+    y = torch.empty((rows, hidden))
+    y[:, idx[live]] = (d * inv[:, None, None, None])[:, live]
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("hidden", [768, 1500, 4096])
+def test_layer_norm_rows_contract_matches_jax(hidden, dtype):
+    """N1's decomposition on the card (per-thread sums, the shuffle tree,
+    the warps in order, the two passes over the held values), for each
+    shape the launcher picks at these widths, stays within fp32 1e-6 (bf16:
+    one step) of ``_ln_kernel`` in interpret mode."""
+    x, w, b, _ = _inputs((6, hidden), seed=hidden)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    tx = torch.from_numpy(x).to(tdt)
+    got = _rows_layer_norm(tx, torch.from_numpy(w), torch.from_numpy(b), 1e-5)
+    want = jax_pn.pallas_layer_norm(jnp.asarray(tx.float().numpy(), jdt),
+                                    jnp.asarray(w), jnp.asarray(b), 1e-5,
+                                    interpret=True)
+    tol = BF16_STEP if dtype == "bf16" else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(_tnp(got), _np(want), **tol)
