@@ -49,8 +49,7 @@ _SIGNATURES = {
         [_I, _I] + [_P] * 9 + [_I] * 8 + [_F, _P],
     "apex_paged_prefill_tc": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
     "apex_paged_prefill_tc_smem": [_I, _I],
-    "apex_fused_residual_norm":
-        [_I, _I] + [_P] * 7 + [_I, _I, _F, _P],
+    "apex_fused_residual_norm": [_I, _I, _I] + [_P] * 7 + [_I, _I, _F, _P],
     "apex_flash_fwd": [_I] + [_P] * 8 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_fwd_tc": [_P] * 8 + [_I] * 8 + [_F, _U, _F, _P],
     "apex_flash_fwd_tc_smem": [_I],

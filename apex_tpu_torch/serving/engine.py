@@ -81,6 +81,9 @@ class ServingConfig:
     is the model's param dtype.  ``speculative`` turns the decode step
     into the ``[max_batch, k + 1]`` self-speculative verify; ``lora``
     enables the multi-LoRA adapter arena.  ``None`` keeps either off.
+    ``fuse_epilogue=False`` runs the layers' bias/residual/LayerNorm
+    epilogue as separate ops instead of the K3 kernel (the reference's
+    A/B switch).
     """
 
     max_batch: int = 8           # concurrent decode slots
@@ -89,6 +92,7 @@ class ServingConfig:
     n_blocks: Optional[int] = None   # arena size; default = worst case
     prefill_len: Optional[int] = None  # chunk width; default max_seq
     cache_dtype: Optional[torch.dtype] = None
+    fuse_epilogue: bool = True     # the K3 kernel vs separate ops
     speculative: Optional[SpeculativeConfig] = None
     lora: Optional[LoRAConfig] = None
 
@@ -139,8 +143,9 @@ class ServingEngine:
             probe,
             n_blocks=serving.resolve_n_blocks(probe.max_blocks_per_request))
         self.lora = serving.lora
-        self.model = DecodeModel(config, self.cache, lora=self.lora,
-                                 device=device)
+        self.model = DecodeModel(config, self.cache,
+                                 fuse_epilogue=serving.fuse_epilogue,
+                                 lora=self.lora, device=device)
         self.model.load_params(params)
         self.prefill_len = serving.prefill_len or serving.max_seq
         self.arenas: Tuple[torch.Tensor, ...] = init_kv_arena(self.cache,

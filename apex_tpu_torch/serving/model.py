@@ -48,7 +48,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.serving.fused_ops import fused_residual_norm
+from apex_tpu_torch.serving.fused_ops import (
+    fused_residual_norm,
+    residual_norm_unfused,
+)
 from apex_tpu_torch.serving.kv_cache import KVCacheConfig
 from apex_tpu_torch.serving.lora import LoRAConfig, lora_delta
 from apex_tpu_torch.serving.paged_attention import (
@@ -142,15 +145,21 @@ class DecodeModel(nn.Module):
     The parameters live in the module (:meth:`load_params` copies a
     :class:`GPT3DParams` in); the cache arenas are arguments, updated in
     place, and so are the adapter tensors when ``lora`` is set.  ``device``
-    defaults to the CUDA device."""
+    defaults to the CUDA device.  ``fuse_epilogue`` (the default) runs
+    the bias/residual/LayerNorm epilogue through the K3 kernel; ``False``
+    is the reference's separate-ops lowering
+    (:func:`~apex_tpu_torch.serving.fused_ops.residual_norm_unfused`),
+    chosen by the caller, never as a fallback."""
 
     def __init__(self, config: TransformerConfig, cache: KVCacheConfig, *,
+                 fuse_epilogue: bool = True,
                  lora: Optional[LoRAConfig] = None, device=None):
         super().__init__()
         cfg = serving_config(config)
         device = resolve_device(device)
         self.cfg = cfg
         self.cache = cache
+        self.fuse_epilogue = fuse_epilogue
         self.lora = lora
         self.device = device
         d = cfg.head_dim
@@ -265,8 +274,10 @@ class DecodeModel(nn.Module):
             if adapters is not None:
                 y = y + lora_delta(ctx, dense_a, dense_b, adapter_slots)
             ln2 = layer.post_attention_layernorm
-            ln2_out, h = fused_residual_norm(y, x, ln2.scale, ln2.bias,
-                                             bias=y_bias, eps=eps)
+            epilogue = (fused_residual_norm if self.fuse_epilogue
+                        else residual_norm_unfused)
+            ln2_out, h = epilogue(y, x, ln2.scale, ln2.bias, bias=y_bias,
+                                  eps=eps)
             if adapters is not None:
                 m, m_bias = self._mlp_with_adapter(
                     layer.mlp, ln2_out, fc1_a, fc1_b, fc2_a, fc2_b,

@@ -18,7 +18,16 @@ Phases (any failure exits non-zero; none is caught):
    harness:
    - the serving kernels K1-K3 at GPT-124M serving shapes (8 slots, 12
      heads of 64, 16-token blocks, 1024-token context, a 128-token
-     prefill chunk, hidden 768; plus a grouped-query case);
+     prefill chunk, hidden 768; plus a grouped-query case); K3 at 8, 40
+     and 1024 rows (the decode step, the k + 1 verify, a prefill chunk)
+     with bf16 x over a bf16 or fp32 residual and in fp32, each with
+     ``floor_ms`` (one row), ``chain_ms`` (the reference's unfused
+     lowering on the card, the separate ops K3 replaces) and the dense
+     projection that makes x alone and followed by K3; then, unmeasured,
+     at ``NORM_EDGES`` (hidden 100, 1500 and 8192, a misaligned x, 0
+     rows, no skip bias, fp16, parameters in x's dtype, fp32 x over a
+     bf16 residual), each called twice, the second call bit for bit the
+     first and the new residual bit for bit plain's;
    - the flash kernels F1-F3 at the training shape (batch 8, 12 heads of
      64, sequence 1024, causal) in bf16 and fp32, with packed segment ids
      and with attention dropout (0.1 and 0.3); then, unmeasured, at the
@@ -41,8 +50,8 @@ Phases (any failure exits non-zero; none is caught):
      route is also held at the ragged ``PAGED_EDGES`` (T x heads per group
      over two 64-row tiles, the last ragged); ``ptxas -v``'s registers,
      shared memory and spills of every tc kernel, of K1's split kernel, of
-     N1/N2's row kernel and of L1's cluster kernel are printed, and a
-     spill byte fails;
+     N1/N2's row kernel, of L1's cluster kernel and of K3's row kernel
+     are printed, and a spill byte fails;
    - the row norms N1 (LayerNorm) and N2 (RMSNorm) at GPT-124M's training
      activation (8192 rows of 768) with bf16 x over fp32 parameters, in
      fp32, and in bf16 throughout, beside ``F.layer_norm`` /
@@ -54,9 +63,12 @@ Phases (any failure exits non-zero; none is caught):
    bf16 compute) serving 16 staggered requests of 64-600 prompt tokens
    and 32 greedy tokens each, once with a bf16 and once with an int8 KV
    cache; the launch counts show the kernels carried the run, every K2
-   launch on the tc route and every K1 launch on the split route; then the
-   bf16 wave once more under ``torch.profiler`` for the device busy
-   share and the kernels that take the device's time;
+   launch on the tc route and every K1 launch on the split route; the
+   bf16 wave once more with ``fuse_epilogue=False`` (the reference's A/B
+   of K3: no K3 launch, every other count as in the fused wave, the
+   streams equal up to bf16 near ties); then the bf16 wave under
+   ``torch.profiler``, fused and unfused, for the device busy share, the
+   kernels that take the device's time and the epilogue's device time;
 4. three of those requests in fp32 on the card and on the CPU, for
    GPT-124M and for a small rope + grouped-query + SwiGLU model: the
    greedy streams must agree (a divergence passes only where the CPU's
@@ -165,11 +177,12 @@ def card_line():
 
 # the kernels whose ptxas report is printed and held to no spill: the
 # tensor-core kernels (with their dynamic shared memory), K1's split route,
-# N1/N2's row kernel and L1's cluster route (static shared memory only)
+# N1/N2's row kernel, L1's cluster route and K3's row kernel (static shared
+# memory only)
 PTXAS_KERNELS = ("flash_fwd_tc_kernel", "paged_prefill_tc_kernel",
                  "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                  "paged_decode_split_kernel", "rows_norm_kernel",
-                 "lora_cluster_kernel")
+                 "lora_cluster_kernel", "residual_norm_kernel")
 # Itanium-mangled template arguments of those instances: an int, a bool,
 # a type, or a substitution (a repeat of an earlier type)
 MANGLED_ARG = re.compile(r"Li(-?\d+)E?|Lb([01])E?|(13__nv_bfloat16|6__half|f|a)|S\d*_")
@@ -222,6 +235,8 @@ def check_ptxas(build_log, lib):
                 entries[name] = [f"{smem} bytes dynamic shared memory"]
             else:
                 name = f"{kernel}<{template_args(args)}>"
+                while name in entries:     # a substitution read as the wrong type
+                    name += "'"
                 entries[name] = []
         elif name is not None and ("Used" in line or "spill" in line):
             entries[name].append(line.split(":", 1)[-1].strip())
@@ -549,33 +564,117 @@ def check_decode_edges(torch, pa):
             f"{(outs[0].float() - ref.float()).abs().max().item():.3g}")
 
 
-def check_norm(torch, F, fo, timer, dtype, rows):
-    gen = torch.Generator(device="cuda").manual_seed(rows)
-    x = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(dtype)
-    res = (3 * torch.randn((rows, HIDDEN), generator=gen, device="cuda")).to(dtype)
-    bias = torch.randn((HIDDEN,), generator=gen, device="cuda").to(dtype)
-    w = torch.rand((HIDDEN,), generator=gen, device="cuda") + 0.5
-    beta = 0.1 * torch.randn((HIDDEN,), generator=gen, device="cuda")
+# K3's cases: (label, x dtype, residual dtype, parameter dtype) at the rows
+# of the decode step, the k + 1 verify and a prefill chunk
+NORM_CASES = (("bf16", "bf16", "bf16", "fp32"), ("bf16/fp32", "bf16", "fp32", "fp32"),
+              ("fp32", "fp32", "fp32", "fp32"))
+NORM_ROWS = (B, B * (SPEC_K + 1), B * CHUNK)
+DTYPES = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
+
+
+def norm_inputs(torch, rows, hidden, x_dtype, r_dtype, w_dtype, seed,
+                bias=True):
+    """K3's operands: x, the residual, the skip bias, w, b (on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = {k: getattr(torch, v) for k, v in DTYPES.items()}
+    x = torch.randn((rows, hidden), generator=gen, device="cuda").to(dt[x_dtype])
+    res = (3 * torch.randn((rows, hidden), generator=gen, device="cuda")).to(dt[r_dtype])
+    b = torch.randn((hidden,), generator=gen, device="cuda").to(dt[x_dtype])
+    w = (torch.rand((hidden,), generator=gen, device="cuda") + 0.5).to(dt[w_dtype])
+    beta = (0.1 * torch.randn((hidden,), generator=gen, device="cuda")).to(dt[w_dtype])
+    return x, res, (b if bias else None), w, beta
+
+
+def norm_close(torch, fo, what, x, res, bias, w, beta):
+    """K3 against ``residual_norm_plain`` on the same operands: the normed
+    row as ``row_norm_close`` holds N1 (fp32 within 1e-5 of its RMS,
+    bf16/fp16 within one step), the new residual bit for bit (the same
+    fp32 adds in the same order), and a second call bit for bit the
+    first.  Returns the largest difference."""
+    before = fo.RESIDUAL_NORM_LAUNCHES
+    y, r = fo.fused_residual_norm(x, res, w, beta, bias=bias)
+    y2, r2 = fo.fused_residual_norm(x, res, w, beta, bias=bias)
+    torch.cuda.synchronize()
+    rows = x.numel() // x.shape[-1]
+    check(fo.RESIDUAL_NORM_LAUNCHES == before + (2 if rows else 0),
+          f"K3 {what}: one launch a call, none for 0 rows")
+    check(y.dtype == x.dtype and r.dtype == res.dtype and y.shape == x.shape
+          and r.shape == x.shape, f"K3 {what}: x's and the residual's dtypes")
+    y_ref, r_ref = fo.residual_norm_plain(x, res, w, beta, bias=bias)
+    check(same_bits(torch, y, y2) and same_bits(torch, r, r2),
+          f"K3 {what}: a second call equals the first")
+    check(same_bits(torch, r, r_ref), f"K3 {what}: the new residual is exact")
+    return row_norm_close(torch, f"K3 {what}", y, y_ref)
+
+
+def check_norm(torch, F, fo, timer, x_dtype, r_dtype, w_dtype, rows):
+    """K3 against plain at a serving width, with its times: ``library_ms``
+    is ``F.layer_norm`` on the pre-summed row (it does neither add),
+    ``chain_ms`` the reference's unfused lowering on the card (the
+    separate ops K3 replaces), ``floor_ms`` the same call on one row, and
+    ``matmul_ms`` / ``after_matmul_ms`` the dense projection that makes x
+    (``ctx @ W^T``, bf16 or fp32 as x) alone and followed by K3."""
+    x, res, bias, w, beta = norm_inputs(torch, rows, HIDDEN, x_dtype, r_dtype,
+                                        w_dtype, seed=rows)
+    err = norm_close(torch, fo, f"{x_dtype}/{r_dtype}/{w_dtype} {rows} rows",
+                     x, res, bias, w, beta)
     kernel = lambda: fo.fused_residual_norm(x, res, w, beta, bias=bias)  # noqa: E731
     plain = lambda: fo.residual_norm_plain(x, res, w, beta, bias=bias)  # noqa: E731
-    y, r = kernel()
-    torch.cuda.synchronize()
-    y_ref, r_ref = plain()
-    torch.cuda.synchronize()
-    err = max((y.float() - y_ref.float()).abs().max().item(),
-              (r.float() - r_ref.float()).abs().max().item())
-    tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
-           else dict(atol=2e-2, rtol=2e-2))
-    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
-    torch.testing.assert_close(r.float(), r_ref.float(), **tol)
-    summed = (x.float() + bias.float() + res.float()).to(dtype)
-    wl, bl = w.to(dtype), beta.to(dtype)
+    chain = lambda: fo.residual_norm_unfused(x, res, w, beta, bias=bias)  # noqa: E731
+    summed = (x.float() + bias.float() + res.float()).to(x.dtype)
+    wl, bl = w.to(x.dtype), beta.to(x.dtype)
     library = lambda: F.layer_norm(summed, (HIDDEN,), wl, bl)  # noqa: E731
-    e = x.element_size()
-    n_bytes = 4 * rows * HIDDEN * e + HIDDEN * (e + 8)   # x, res, y, new res; bias, w, beta
+    one = lambda: fo.fused_residual_norm(x[:1], res[:1], w, beta, bias=bias)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(rows + 1)
+    ctx = torch.randn((rows, HIDDEN), generator=gen, device="cuda").to(x.dtype)
+    dense = (torch.randn((HIDDEN, HIDDEN), generator=gen, device="cuda")
+             / HIDDEN ** 0.5).to(x.dtype)
+    matmul = lambda: torch.matmul(ctx, dense.t())  # noqa: E731
+    after = lambda: fo.fused_residual_norm(  # noqa: E731
+        torch.matmul(ctx, dense.t()), res, w, beta, bias=bias)
+    ex, er, ew = x.element_size(), res.element_size(), w.element_size()
+    # x, the residual, y and the new residual; the skip bias, w and b
+    n_bytes = 2 * rows * HIDDEN * (ex + er) + HIDDEN * (ex + 2 * ew)
     b_ms, b_by = bound(n_bytes, 10 * rows * HIDDEN, "fp32")
     return dict(max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain),
-                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
+                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by,
+                floor_ms=timer(one), chain_ms=timer(chain),
+                matmul_ms=timer(matmul), after_matmul_ms=timer(after))
+
+
+# unmeasured edges of K3: (rows, hidden, x, residual, parameter dtype,
+# layout, skip bias); the warp path up to 1024 values a row, the CTA path
+# above, and the same two on single values where a row start is not 16-byte
+# aligned (hidden 100 and 1500 bf16, the "offset" view)
+NORM_EDGES = (
+    (40, 100, "bf16", "bf16", "fp32", "contiguous", True),
+    (4, 1500, "bf16", "fp32", "fp32", "contiguous", True),
+    (8, 8192, "bf16", "bf16", "fp32", "contiguous", True),
+    (8, 8192, "fp32", "fp32", "fp32", "contiguous", True),
+    (33, 768, "bf16", "bf16", "fp32", "offset", True),
+    (0, 768, "bf16", "bf16", "fp32", "contiguous", True),
+    (40, 768, "bf16", "bf16", "fp32", "contiguous", False),
+    (40, 768, "fp16", "fp16", "fp32", "contiguous", True),
+    (40, 768, "fp16", "fp32", "fp16", "contiguous", True),
+    (40, 768, "bf16", "bf16", "bf16", "contiguous", True),
+    (40, 768, "fp32", "bf16", "fp32", "contiguous", True),
+    (1, 1024, "bf16", "fp32", "bf16", "contiguous", False),
+)
+
+
+def check_norm_edges(torch, fo):
+    for i, (rows, hidden, xd, rd, wd, layout, with_bias) in enumerate(NORM_EDGES):
+        x, res, bias, w, beta = norm_inputs(torch, rows, hidden, xd, rd, wd,
+                                            seed=60 + i, bias=with_bias)
+        if layout == "offset":      # contiguous, one element off 16 bytes
+            flat = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+            x = flat[1:x.numel() + 1].view(x.shape).copy_(x)
+            check(x.is_contiguous() and x.data_ptr() % 16,
+                  "the edge's x is contiguous and misaligned")
+        what = (f"edge {rows} x {hidden} {xd}/{rd}/{wd} {layout}"
+                f"{'' if with_bias else ', no bias'}")
+        err = norm_close(torch, fo, what, x, res, bias, w, beta)
+        log(f"kernel fused_residual_norm {what}: max |kernel - plain| {err:.3g}")
 
 
 # --------------------------------- phase 2 and 8: the row norms N1/N2
@@ -1516,10 +1615,11 @@ def calls_of(eng, base=(0, 0)):
 
 
 def check_path_counts(counts, calls, L, spec, lora, decode_route="split",
-                      lora_route="cluster"):
+                      lora_route="cluster", epilogue=True):
     """The kernels the path must have launched, once per layer per call
     of the kind that runs them; every K1 launch on ``decode_route``,
-    every L1 launch on ``lora_route``."""
+    every L1 launch on ``lora_route``; K3 none without ``epilogue``
+    (``fuse_epilogue=False``)."""
     prefill, decode = calls
     k1 = 0 if spec else L * decode
     k2 = L * (prefill + (decode if spec else 0))
@@ -1528,20 +1628,24 @@ def check_path_counts(counts, calls, L, spec, lora, decode_route="split",
             "paged_attention_decode/split": k1 if decode_route == "split" else 0,
             "paged_attention_decode/simt": k1 if decode_route == "simt" else 0,
             "paged_prefill_attention": k2,
-            "fused_residual_norm": L * (prefill + decode), "lora_delta": l1,
+            "fused_residual_norm": L * (prefill + decode) if epilogue else 0,
+            "lora_delta": l1,
             "lora_delta/cluster": l1 if lora_route == "cluster" else 0,
             "lora_delta/simt": l1 if lora_route == "simt" else 0}
     check(counts == want, f"launches {counts} == {want} for {prefill} "
           f"prefill + {decode} decode calls")
 
 
-def engine_phase(torch, np, pa, fo, lo, params, cache_dtype, prompts):
+def engine_phase(torch, np, pa, fo, lo, params, cache_dtype, prompts,
+                 fuse_epilogue=True):
+    """One wave of ``prompts``; returns the launch counts, the engine, its
+    requests and tokens/s."""
     from apex_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = gpt124m(torch, torch.bfloat16)
     eng = ServingEngine(cfg, ServingConfig(
         max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ, prefill_len=CHUNK,
-        cache_dtype=cache_dtype), params)
+        cache_dtype=cache_dtype, fuse_epilogue=fuse_epilogue), params)
     serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up, not counted
     base = (eng.prefill_calls, eng.decode_calls, eng.tokens_generated,
             len(eng.tpot_ms))
@@ -1559,36 +1663,80 @@ def engine_phase(torch, np, pa, fo, lo, params, cache_dtype, prompts):
               f"request {req.rid}'s tokens lie in the vocabulary")
     check(prefill_calls > 0 and decode_calls > 0, "both calls ran")
     check_path_counts(counts, (prefill_calls, decode_calls), cfg.num_layers,
-                      spec=False, lora=False)
-    name = str(cache_dtype).replace("torch.", "")
-    check_prefill_routes(pa, "tc", f"engine[{name} cache]")
-    log(f"engine[{name} cache]: {len(reqs)} requests, {tokens} tokens in "
+                      spec=False, lora=False, epilogue=fuse_epilogue)
+    name = str(cache_dtype).replace("torch.", "") + " cache"
+    if not fuse_epilogue:
+        name += ", fuse_epilogue=False"
+    check_prefill_routes(pa, "tc", f"engine[{name}]")
+    log(f"engine[{name}]: {len(reqs)} requests, {tokens} tokens in "
         f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; TPOT p50 "
         f"{np.percentile(tpot, 50):.3f} ms p99 {np.percentile(tpot, 99):.3f} ms; "
         f"{prefill_calls} prefill + {decode_calls} decode calls; "
         f"preemptions {eng.scheduler.preemptions}; launches {counts}")
-    return counts
+    return counts, eng, reqs, tokens / wall
+
+
+EPILOGUE = "serving.epilogue"
+
+
+def epilogue_device_us(torch, prof, rows):
+    """``(k3_us, ops_us, calls)`` of the layers' epilogue in a profile:
+    K3's device time from its kernel rows (it is launched through ctypes,
+    not by a torch op), the device time of the torch ops' kernels inside
+    the ``EPILOGUE`` ranges (the separate ops), and the number of
+    ranges."""
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e for e in prof.events()
+              if e.name == EPILOGUE and e.device_type == cpu]
+    k3 = sum(us for us, _, key in rows if "residual_norm_kernel" in key)
+    ops = sum(getattr(e, "device_time_total", 0) for e in ranges)
+    return k3, ops, len(ranges)
 
 
 def profile_engine(torch, np, params, prompts):
     """Where the time of the bf16-cache wave goes: device busy share and
-    the kernels with the most device time (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    the kernels with the most device time (torch.profiler); then the same
+    wave with ``fuse_epilogue=False``, with the device time of the
+    layers' epilogue both ways (K3, or the separate ops it replaces),
+    printed only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from apex_tpu_torch.serving import ServingConfig, ServingEngine
+    from apex_tpu_torch.serving import model as serving_model
 
-    eng = ServingEngine(gpt124m(torch, torch.bfloat16), ServingConfig(
-        max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ, prefill_len=CHUNK,
-        cache_dtype=torch.bfloat16), params)
-    serve(eng, [prompts[1][:64]], 4, stagger=False)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = serve(eng, prompts, 32)
-    rows, busy_us = device_rows(torch, prof)
-    log(f"profile[bf16 cache wave]: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the wall "
-        f"(the profiler's own cost included)")
-    for us, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    def annotated(fn):
+        def call(*args, **kw):
+            with record_function(EPILOGUE):
+                return fn(*args, **kw)
+        return call
+
+    patched = {name: getattr(serving_model, name) for name in
+               ("fused_residual_norm", "residual_norm_unfused")}
+    try:
+        for name, fn in patched.items():
+            setattr(serving_model, name, annotated(fn))
+        for fuse in (True, False):
+            eng = ServingEngine(gpt124m(torch, torch.bfloat16), ServingConfig(
+                max_batch=B, block_size=BLOCK, max_seq=MAX_SEQ,
+                prefill_len=CHUNK, cache_dtype=torch.bfloat16,
+                fuse_epilogue=fuse), params)
+            serve(eng, [prompts[1][:64]], 4, stagger=False)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = serve(eng, prompts, 32)
+            rows, busy_us = device_rows(torch, prof)
+            k3_us, ops_us, calls = epilogue_device_us(torch, prof, rows)
+            label = "bf16 cache wave" + ("" if fuse else ", fuse_epilogue=False")
+            log(f"profile[{label}]: wall {wall * 1e3:.1f} ms, device busy "
+                f"{busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the "
+                f"wall (the profiler's own cost included); the epilogue's "
+                f"{calls} calls: K3 {k3_us / 1e3:.3f} ms, torch ops "
+                f"{ops_us / 1e3:.3f} ms of device time")
+            for us, count, key in sorted(rows, reverse=True)[:10 if fuse else 5]:
+                log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    finally:
+        for name, fn in patched.items():
+            setattr(serving_model, name, fn)
 
 
 def top2_gap(torch, model, tokens, adapters=None, adapter_slot=0):
@@ -2158,12 +2306,14 @@ def main():
     log(f"kernel lora_delta[x/arena fp32/bf16, fc2, S={CHUNK}]: "
         f"{json.dumps(rec)}")
     check_lora_edges(torch, lo)
-    for label, dtype in (("bf16", bf16), ("fp32", f32)):
-        for rows in (B, B * CHUNK):
-            rec = check_norm(torch, F, fo, timer, dtype, rows)
+    for label, x_dtype, r_dtype, w_dtype in NORM_CASES:
+        for rows in NORM_ROWS:
+            rec = check_norm(torch, F, fo, timer, x_dtype, r_dtype, w_dtype,
+                             rows)
             results[("fused_residual_norm", f"{label} rows={rows}")] = rec
-            log(f"kernel fused_residual_norm[{label}, {rows} rows]: "
-                f"{json.dumps(rec)}")
+            log(f"kernel fused_residual_norm[x/residual/params {x_dtype}/"
+                f"{r_dtype}/{w_dtype}, {rows} x {HIDDEN}]: {json.dumps(rec)}")
+    check_norm_edges(torch, fo)
     for label, x_dtype, w_dtype in (("bf16/fp32", bf16, f32), ("fp32", f32, f32),
                                     ("bf16", bf16, bf16)):
         for name, kind in (("pallas_layer_norm", "ln"), ("pallas_rms_norm", "rms")):
@@ -2186,12 +2336,24 @@ def main():
     cfg = gpt124m(torch, torch.bfloat16)
     params = init_gpt_params(cfg, seed=0)
     prompts = wave(np)
-    launches = {}
-    for cache_dtype in (bf16, i8):
-        counts = engine_phase(torch, np, pa, fo, lo, params, cache_dtype,
-                              prompts)
-        for k, v in counts.items():
+    launches, waves = {}, {}
+    for cache_dtype, fuse in ((bf16, True), (i8, True), (bf16, False)):
+        waves[cache_dtype, fuse] = engine_phase(
+            torch, np, pa, fo, lo, params, cache_dtype, prompts,
+            fuse_epilogue=fuse)
+        for k, v in waves[cache_dtype, fuse][0].items():
             launches[k] = launches.get(k, 0) + v
+    # the reference's A/B of K3: the same bf16 wave with the epilogue as
+    # separate ops; every other kernel's count as in the fused wave
+    fused_counts, fused_eng, fused, fused_tps = waves[bf16, True]
+    counts, _, unfused, tps = waves[bf16, False]
+    check(counts == dict(fused_counts, fused_residual_norm=0),
+          f"the unfused wave's launches {counts}: the fused wave's "
+          f"{fused_counts} less K3's")
+    compare_streams(torch, "fuse_epilogue=False vs the K3 wave (bf16)",
+                    unfused, fused, fused_eng.model, BF16_TIE)
+    log(f"epilogue A/B (bf16 cache wave): tokens/s {fused_tps:.1f} with K3, "
+        f"{tps:.1f} with separate ops")
     profile_engine(torch, np, params, prompts)
     card_vs_cpu(torch, gpt124m(torch, torch.float32), params, prompts,
                 "GPT-124M")
@@ -2258,6 +2420,10 @@ def main():
         if name == "paged_attention_decode":       # and per route
             rec["launches_by_route"] = {
                 r: launches[f"{name}/{r}"] for r in ("split", "simt")}
+        if name == "fused_residual_norm":          # every case and width
+            rec["widths"] = {
+                f"{label} rows={rows}": results[(name, f"{label} rows={rows}")]
+                for label, *_ in NORM_CASES for rows in NORM_ROWS}
         if name == "lora_delta":                   # per route, and wider
             rec["launches_by_route"] = {
                 r: launches[f"{name}/{r}"] for r in ("cluster", "simt")}

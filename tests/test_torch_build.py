@@ -107,3 +107,13 @@ def test_the_cluster_lora_entry_point_is_bound():
     assert sig["apex_lora_delta"][-3:] == [ctypes.c_longlong,
                                            ctypes.c_longlong, ctypes.c_void_p]
     assert [name for name in sig if "row_norm" in name] == ["apex_row_norm"]
+
+
+def test_the_residual_norm_entry_point_is_bound():
+    """K3's launcher takes the dtype codes of x, the residual and the
+    parameters, then its seven operands (x, residual, skip bias, weight,
+    bias_ln, normed, new residual), the rows, the hidden size, eps and the
+    stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build._SIGNATURES["apex_fused_residual_norm"] == (
+        [i, i, i] + [p] * 7 + [i, i, ctypes.c_float, p])

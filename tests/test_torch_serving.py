@@ -182,15 +182,27 @@ def test_prefill_and_decode_logits_match_jax(shape):
     """Chunked prefill of two slots, then one decode step: the logits of
     both calls agree with the JAX DecodeModel to atol 1e-4 (fp32 weights,
     cache and compute; the GEMMs and softmax sum in another order)."""
+    _check_logits(shape, fuse_epilogue=True)
+
+
+def test_unfused_epilogue_logits_match_jax():
+    """The same with ``fuse_epilogue=False`` on both sides: the layers'
+    epilogue as the reference's separate ops."""
+    _check_logits(GPT, fuse_epilogue=False)
+
+
+def _check_logits(shape, fuse_epilogue):
     jcfg, tcfg = _configs(shape)
     tree = _jax_tree(jcfg, 1)
     bs, T, B = 4, 8, 2
     eng = JaxServingEngine(
         jcfg, JaxServingConfig(max_batch=B, block_size=bs, max_seq=16,
-                               prefill_len=T),
+                               prefill_len=T, fuse_epilogue=fuse_epilogue),
         _as_jax(tree), mesh=_mesh(), registry=MetricRegistry())
+    assert eng.model.fuse_epilogue is fuse_epilogue
     cache = _cache(tcfg, eng.cache.n_blocks, bs)
-    model = DecodeModel(tcfg, cache, device="cpu")
+    model = DecodeModel(tcfg, cache, fuse_epilogue=fuse_epilogue,
+                        device="cpu")
     model.load_params(from_jax_params(tree))
     arenas = init_kv_arena(cache, device="cpu")
 
@@ -272,17 +284,28 @@ def test_engine_streams_match_jax(model, cache_dtype):
     """A staggered wave with chunked prefill, a prefix-cache hit and a
     preemption: the port's greedy streams are token-identical to the JAX
     engine's on the same weights."""
+    _check_streams(model, cache_dtype, fuse_epilogue=True)
+
+
+def test_unfused_epilogue_streams_match_jax():
+    """The same wave with ``ServingConfig(fuse_epilogue=False)`` on both
+    sides: token-identical, and no kernel launched."""
+    _check_streams("gpt", "bf16", fuse_epilogue=False)
+
+
+def _check_streams(model, cache_dtype, fuse_epilogue):
     jcfg, tcfg = _configs({"gpt": GPT, "modern": MODERN}[model])
     tree = _jax_tree(jcfg, 3)
     jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
                 "int8": (jnp.int8, torch.int8)}[cache_dtype]
     shape = dict(max_batch=3, block_size=4, max_seq=32, prefill_len=6,
-                 n_blocks=8)
+                 n_blocks=8, fuse_epilogue=fuse_epilogue)
     jeng = JaxServingEngine(jcfg, JaxServingConfig(**shape, cache_dtype=jdt),
                             _as_jax(tree), mesh=_mesh(),
                             registry=MetricRegistry())
     teng = ServingEngine(tcfg, ServingConfig(**shape, cache_dtype=tdt),
                          from_jax_params(tree), device="cpu")
+    assert teng.model.fuse_epilogue is fuse_epilogue
     j_reqs = _serve(jeng, WAVE)
     t_reqs = _serve(teng, WAVE)
     for jr, tr in zip(j_reqs, t_reqs):
