@@ -13,9 +13,17 @@ Ported so far:
   chunked-prefill attention and the fused residual/LayerNorm epilogue;
 - single-device GPT training (:mod:`apex_tpu_torch.transformer.testing.
   standalone_gpt`, :mod:`apex_tpu_torch.optimizers`,
-  :mod:`apex_tpu_torch.testing.l1`), whose attention runs the flash
-  forward and backward kernels (``csrc/flash_attention.cu``) through
+  :mod:`apex_tpu_torch.testing.l1`) through either attention core: the
+  default fused-softmax one (:mod:`apex_tpu_torch.ops.softmax`, also at
+  :mod:`apex_tpu_torch.transformer.functional`), or the flash forward and
+  backward kernels (``csrc/flash_attention.cu``) through
   :mod:`apex_tpu_torch.ops.flash_attention`;
+- mixed precision (:mod:`apex_tpu_torch.amp` without fp8: the O0-O3
+  policies, dynamic, static and no-op loss scaling, master weights,
+  ``initialize`` with its state dict; the transformer's
+  :class:`~apex_tpu_torch.transformer.amp.GradScaler`), with FusedAdam's
+  ``master_weights``, ``flat`` and ``step(lr=, grad_scale=,
+  skip_update=)``;
 - speculative k+1 verify and multi-LoRA serving, with the gathered
   LoRA-delta kernel (``csrc/lora_delta.cu``);
 - the normalization API (:mod:`apex_tpu_torch.normalization`: fused
@@ -32,4 +40,4 @@ runs instead.
 """
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
-           "testing"]
+           "amp", "testing"]

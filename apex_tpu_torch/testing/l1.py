@@ -5,14 +5,16 @@
 2 layers, 4 heads, vocabulary 128, 32 positions, no dropout) trained for
 ``ITERS`` steps of FusedAdam (lr 1e-3) on one fixed ``[4, 32]`` batch,
 recording the mean next-token loss and the global gradient norm of every
-step.  With the JAX run's initial parameters (carried over by
+step.  Each config runs the attention core its JAX config runs: the
+default fused-softmax core, or flash for ``gpt_flash``.  With the JAX
+run's initial parameters (carried over by
 :func:`apex_tpu_torch.serving.bridge.from_flax_gpt`) and tokens, the two
 traces agree to :func:`compare_traces`' tolerances.
 
-Every config runs the flash attention core: it is the only one ported (the
-JAX ``gpt_smoke``, ``gpt_bf16`` and ``gpt_modern`` traces run the
-fused-softmax core, which computes the same function; in fp32 the two
-differ by rounding only).
+:func:`amp_train_step` is one mixed-precision step (loss scaling, the
+overflow check, FusedAdam's skip and the scaler's update), as the JAX
+``_trace_rn50`` composes it; :func:`apply_policy` casts a module's
+parameters by an amp policy.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp.policy import Policy
+from apex_tpu_torch.amp.scaler import LossScaleState, all_finite
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     GPT3DParams,
@@ -33,15 +37,16 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
 
-__all__ = ["ITERS", "CONFIGS", "trace_config", "trace_gpt", "train_step",
-           "global_grad_norm", "compare_traces"]
+__all__ = ["ITERS", "CONFIGS", "trace_config", "trace_gpt", "run_trace",
+           "train_step", "amp_train_step", "apply_policy", "global_grad_norm",
+           "compare_traces"]
 
 ITERS = 10
 # the JAX package's GPT trace configs (testing/l1.py CONFIGS), by name
 CONFIGS = {
     "gpt_smoke": {},
     "gpt_bf16": {"dtype": torch.bfloat16},
-    "gpt_flash": {"dtype": torch.bfloat16},
+    "gpt_flash": {"dtype": torch.bfloat16, "use_flash_attention": True},
     "gpt_modern": {"position_embedding_type": "rope", "num_query_groups": 2,
                    "swiglu": True},
 }
@@ -52,14 +57,27 @@ def trace_config(name: str) -> TransformerConfig:
     return TransformerConfig(
         hidden_size=64, num_layers=2, num_attention_heads=4,
         padded_vocab_size=128, max_position_embeddings=32,
-        hidden_dropout=0.0, attention_dropout=0.0, use_flash_attention=True,
-        **CONFIGS[name])
+        hidden_dropout=0.0, attention_dropout=0.0, **CONFIGS[name])
+
+
+def _norm(tensors) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
 def global_grad_norm(params) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in fp32."""
-    grads = [p.grad.float() for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    return _norm([p.grad.float() for p in params if p.grad is not None])
+
+
+@torch.no_grad()
+def apply_policy(model: torch.nn.Module, policy: Policy) -> None:
+    """Cast ``model``'s parameters in place by ``policy.cast_to_param``
+    over ``named_parameters()``: under O2 every parameter goes to the half
+    dtype but those of norm modules (``...input_layernorm.scale``,
+    ``...final_layernorm.bias``), which stay fp32."""
+    cast = policy.cast_to_param(dict(model.named_parameters()))
+    for name, p in model.named_parameters():
+        p.data = cast[name].detach()
 
 
 def train_step(model: GPTModel, opt: torch.optim.Optimizer, tokens,
@@ -72,6 +90,26 @@ def train_step(model: GPTModel, opt: torch.optim.Optimizer, tokens,
     loss.backward()
     opt.step()
     return loss.detach()
+
+
+def amp_train_step(model: GPTModel, opt: FusedAdam, tokens, scaler,
+                   state: LossScaleState,
+                   generator: Optional[torch.Generator] = None):
+    """One loss-scaled step: the scaled loss's backward, the overflow
+    check over every gradient (``all_finite``), ``FusedAdam.step`` with
+    the gradients divided by the scale and the update skipped on
+    overflow, and the scaler's update; all on the device, with no host
+    sync.  Returns ``(loss, grad_norm, new_state)``: the unscaled loss,
+    the global norm of the unscaled gradients (not finite on an overflow
+    step) and the next scaler state."""
+    opt.zero_grad(set_to_none=True)
+    loss = model(tokens, labels=tokens, generator=generator).mean()
+    scaler.scale(loss, state).backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    finite = all_finite(grads)
+    opt.step(grad_scale=state.scale, skip_update=~finite)
+    grad_norm = _norm(scaler.unscale(grads, state))
+    return loss.detach(), grad_norm, scaler.update(state, finite)
 
 
 def trace_gpt(name: str, *, params: Optional[GPT3DParams] = None,
@@ -101,14 +139,24 @@ def trace_gpt(name: str, *, params: Optional[GPT3DParams] = None,
     return out
 
 
+def run_trace(name: str, **kw) -> Dict[str, List[float]]:
+    """The trace of config ``name`` (:func:`trace_gpt`'s keywords)."""
+    return trace_gpt(name, **kw)
+
+
 def compare_traces(got: Dict[str, List[float]],
                    baseline: Dict[str, List[float]],
                    loss_rtol: float = 1e-4,
                    grad_rtol: float = 1e-3) -> List[str]:
     """Per-iteration diff; a list of mismatch descriptions (empty =
-    pass), as the JAX package's ``compare_traces``."""
+    pass), as the JAX package's ``compare_traces``.  The ``loss_scale``
+    series, when either side has one, must match exactly: the scaler's
+    decisions are discrete."""
     problems = []
-    for key, rtol in (("loss", loss_rtol), ("grad_norm", grad_rtol)):
+    keys = [("loss", loss_rtol), ("grad_norm", grad_rtol)]
+    if "loss_scale" in baseline or "loss_scale" in got:
+        keys.append(("loss_scale", 0.0))
+    for key, rtol in keys:
         a, b = got.get(key, []), baseline.get(key, [])
         if len(a) != len(b):
             problems.append(f"{key}: {len(a)} iters vs baseline {len(b)}")

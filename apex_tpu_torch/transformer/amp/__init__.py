@@ -1,0 +1,6 @@
+"""The transformer's gradient scaler (port of
+:mod:`apex_tpu.transformer.amp`)."""
+
+from apex_tpu_torch.transformer.amp.grad_scaler import GradScaler
+
+__all__ = ["GradScaler"]

@@ -7,7 +7,7 @@ import enum
 
 from apex_tpu_torch.ops.softmax import AttnMaskType
 
-__all__ = ["LayerType", "AttnType", "AttnMaskType"]
+__all__ = ["LayerType", "AttnType", "AttnMaskType", "ModelType"]
 
 
 class LayerType(enum.Enum):
@@ -22,3 +22,11 @@ class AttnType(enum.Enum):
 
     self_attn = 1
     cross_attn = 2
+
+
+class ModelType(enum.Enum):
+    """``apex/transformer/enums.py`` ModelType (the encoder/decoder split
+    of T5-style pipelines)."""
+
+    encoder_or_decoder = 1
+    encoder_and_decoder = 2

@@ -2,8 +2,9 @@
 
 Port of :mod:`apex_tpu.transformer.testing.standalone_transformer_lm` at
 tensor-parallel size 1: the configuration, the MLP, the attention (fused
-group-major QKV, RoPE, grouped-query K/V, the flash core), the pre-LN
-transformer layer and stack, the embedding and the tied LM head.
+group-major QKV, RoPE, grouped-query K/V, and both cores: the default
+fused-softmax one and the flash one), the pre-LN transformer layer and
+stack, the embedding and the tied LM head.
 Activations keep the JAX package's ``[s, b, h]`` (sequence-major) layout
 and the modules its parameter names.
 
@@ -14,19 +15,19 @@ Parameters are held in ``config.param_dtype`` and cast to the compute
 Dropout: the JAX modules draw from the Flax ``"dropout"`` rng when not
 ``deterministic``; here every ``forward`` takes ``generator``, an explicit
 ``torch.Generator`` on the activations' device, and ``None`` means
-deterministic (no dropout).  Hidden dropout draws a Bernoulli keep mask
-from it; attention dropout draws one int32 seed per call for the flash
-kernels' counter hash.
+deterministic (no dropout).  Hidden dropout and the fused-softmax core's
+attention dropout draw a Bernoulli keep mask from it; the flash core
+draws one int32 seed per call for the kernels' counter hash.
 
-Not ported yet (ROADMAP.md, section A): the fused-softmax attention core
-(``CoreAttention`` without flash, with ``ops/softmax.py``), cross
-attention and the decoder layer, the pooler, mixture of experts, fp8,
-and tensor, sequence and context parallelism.
+Not ported yet (ROADMAP.md, section A): cross attention and the decoder
+layer, the pooler, mixture of experts, fp8, and tensor, sequence and
+context parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -35,7 +36,7 @@ from torch import nn
 
 from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
-from apex_tpu_torch.ops.softmax import AttnMaskType
+from apex_tpu_torch.ops.softmax import AttnMaskType, FusedScaleMaskSoftmax
 from apex_tpu_torch.transformer.enums import AttnType, LayerType
 from apex_tpu_torch.transformer.rope import apply_rotary, rotary_cos_sin
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
@@ -67,11 +68,15 @@ class TransformerConfig:
     attention_dropout: float = 0.1
     init_method_std: float = 0.02
     layernorm_epsilon: float = 1e-5
-    # the fused-softmax core's fp16 overflow guard; the flash core, the
-    # only one ported, ignores it as the JAX flash branch does
+    # the fused-softmax core's fp16 overflow guard; the flash core
+    # ignores it, as the JAX flash branch does
     apply_query_key_layer_scaling: bool = True
+    attention_softmax_in_fp32: bool = False
     apply_residual_connection_post_layernorm: bool = False
     bias_gelu_fusion: bool = True          # tanh-approximate GELU
+    masked_softmax_fusion: bool = True
+    # the flash kernels for a causal mask or padding given as segment ids;
+    # anything else takes the fused-softmax core
     use_flash_attention: bool = False
     position_embedding_type: str = "learned"   # or "rope" / "none"
     rotary_base: float = 10000.0
@@ -161,10 +166,17 @@ class ParallelMLP(nn.Module):
 
 class CoreAttention(nn.Module):
     """Scaled-dot-product attention core over ``[s, b, n, d]`` q/k/v,
-    returning the context ``[s, b, n * d]``: the flash branch of the JAX
-    module (causal mask, or padding given as segment ids), with
-    in-kernel attention dropout.  Scale ``1/sqrt(d)``; query-key layer
-    scaling does not apply to it."""
+    returning the context ``[s, b, n * d]``.
+
+    With ``use_flash_attention`` and a causal mask, or padding given as
+    segment ids, the flash kernels run (scale ``1/sqrt(d)``, in-kernel
+    attention dropout; query-key layer scaling does not apply).  Anything
+    else takes the JAX module's default core: BMM1, then
+    :class:`FusedScaleMaskSoftmax` (a causal mask, or an arbitrary bool
+    ``mask`` ``[b, 1, sq, sk]``, True = masked out), attention dropout,
+    and BMM2.  With ``apply_query_key_layer_scaling`` the scores are
+    divided by ``sqrt(d) * coeff``, ``coeff = max(1, layer_number)``, and
+    the softmax multiplies them by ``coeff`` again in fp32."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  attn_mask_type: AttnMaskType = AttnMaskType.padding):
@@ -175,15 +187,42 @@ class CoreAttention(nn.Module):
 
     def forward(self, q, k, v, mask=None, generator=None, segment_ids=None):
         cfg = self.config
-        sq, b, n, d = q.shape
         causal = self.attn_mask_type == AttnMaskType.causal
-        if not (cfg.use_flash_attention
-                and (causal or segment_ids is not None)):
-            raise NotImplementedError(
-                "only the flash attention core is ported: set "
-                "use_flash_attention=True with a causal mask or padding as "
-                "segment ids (the fused-softmax core and arbitrary masks "
-                "are listed in ROADMAP.md, section A)")
+        if cfg.use_flash_attention and (causal or segment_ids is not None):
+            return self._flash(q, k, v, causal, generator, segment_ids)
+        sq, b, n, d = q.shape
+        sk = k.shape[0]
+        norm_factor = math.sqrt(d)
+        coeff = None
+        if cfg.apply_query_key_layer_scaling:
+            coeff = max(1, self.layer_number)
+            norm_factor *= coeff
+        # BMM1: the JAX module divides an fp32-accumulated product before
+        # any rounding, where a bf16 bmm would round its output first; so
+        # q and k are upcast and the product and the division run in fp32
+        # (a product of two bf16 or fp16 values is exact in fp32)
+        qt = q.permute(1, 2, 0, 3).reshape(b * n, sq, d).float()
+        kt = k.permute(1, 2, 0, 3).reshape(b * n, sk, d).float()
+        scores = torch.bmm(qt, kt.transpose(1, 2)) / norm_factor
+        scores = scores.reshape(b, n, sq, sk).to(
+            torch.float32 if cfg.attention_softmax_in_fp32 else cfg.dtype)
+        softmax = FusedScaleMaskSoftmax(
+            input_in_fp16=cfg.dtype == torch.float16,
+            input_in_bf16=cfg.dtype == torch.bfloat16,
+            attn_mask_type=self.attn_mask_type,
+            scaled_masked_softmax_fusion=cfg.masked_softmax_fusion,
+            mask_func=None, softmax_in_fp32=True, scale=coeff)
+        probs = dropout(softmax(scores, mask), cfg.attention_dropout,
+                        generator).to(cfg.dtype)
+        # BMM2 in the compute dtype, as the reference's batch_matmul
+        ctx = torch.bmm(probs.reshape(b * n, sq, sk),
+                        v.permute(1, 2, 0, 3).reshape(b * n, sk, d))
+        return ctx.reshape(b, n, sq, d).permute(2, 0, 1, 3).reshape(
+            sq, b, n * d)
+
+    def _flash(self, q, k, v, causal, generator, segment_ids):
+        cfg = self.config
+        sq, b, n, d = q.shape
         kw = {}
         if cfg.attention_dropout > 0.0 and generator is not None:
             kw = dict(dropout_rate=cfg.attention_dropout,
@@ -200,7 +239,7 @@ class CoreAttention(nn.Module):
 class ParallelAttention(nn.Module):
     """Self-attention: fused QKV column linear in group-major layout (per
     K/V group its query heads, then one K and one V head), RoPE on q/k,
-    grouped K/V repeated over their query heads, the flash core, and the
+    grouped K/V repeated over their query heads, the core, and the
     row-linear output projection.  Returns ``(out, bias)``."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,

@@ -120,7 +120,21 @@ Phases (any failure exits non-zero; none is caught):
    card and on the CPU (y, dx, dw, db within 1e-5 of each one's RMS);
    ``FusedRMSNorm``, ``MixedFusedLayerNorm`` and a non-affine
    ``FusedLayerNorm``, with ``memory_efficient`` off and on, card vs CPU
-   in fp32 at the same limit.
+   in fp32 at the same limit;
+9. single-device training, completed: GPT-124M at phase 5's widths, weights
+   and batch through the default (fused-softmax) attention core, 2
+   warm-up and 4 timed steps: no flash launch, the losses finite and
+   falling, the first within 2e-2 (relative) of phase 5's first loss;
+   then one profiled step; three fp32 steps of a 2-layer default-core
+   model on the card and on the CPU (batch 2 x 128, ``compare_traces``'
+   defaults); then GPT-124M under O2 over the flash core (bf16
+   parameters but the LayerNorms' fp32, FusedAdam with fp32 masters,
+   ``DynamicLossScale(init_scale=2**16, growth_interval=4)``, driven by
+   ``l1.amp_train_step``), 2 warm-up and 8 timed steps: F1-F3 12 times a
+   step on the tc route, no overflow, the scale doubling at every 4th
+   clean step; then an inf in one gradient: the step is skipped with
+   parameters, masters, moments and step count bit for bit, and the
+   scale halves.
 
 The lines before the last hold a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
@@ -2132,17 +2146,22 @@ def trainer(torch, cfg, seed, device="cuda", params=None):
     return model, FusedAdam(model.parameters(), lr=1e-4)
 
 
+def train_tokens(torch):
+    """The fixed batch of the GPT-124M training phases."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return torch.randint(0, 50257, (TRAIN_BATCH, SEQ), generator=gen,
+                         device="cuda")
+
+
 def train_phase(torch, fa):
     """GPT-124M training steps on one fixed batch; returns the flash
-    launch counts of the run and the (model, opt, tokens) for the
-    profile."""
+    launch counts of the run, the (model, opt, tokens) for the profile,
+    the losses and the step time (s)."""
     from apex_tpu_torch.testing.l1 import train_step
 
     cfg = gpt124m_train(torch, torch.bfloat16)
     model, opt = trainer(torch, cfg, seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    tokens = torch.randint(0, 50257, (TRAIN_BATCH, SEQ), generator=gen,
-                           device="cuda")
+    tokens = train_tokens(torch)
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2173,10 +2192,10 @@ def train_phase(torch, fa):
         f"{TIMED_STEPS} timed steps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); launches {counts}")
-    return counts, (model, opt, tokens)
+    return counts, (model, opt, tokens), losses, wall / TIMED_STEPS
 
 
-def profile_train(torch, model, opt, tokens):
+def profile_train(torch, model, opt, tokens, label="GPT-124M train step"):
     """Where one training step's time goes: device busy share and the
     kernels with the most device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2190,7 +2209,7 @@ def profile_train(torch, model, opt, tokens):
         wall = time.perf_counter() - t0
     rows, busy_us = device_rows(torch, prof)
     check(busy_us > 0, "the profiler saw device time")
-    log(f"profile[GPT-124M train step]: wall {wall * 1e3:.1f} ms, device "
+    log(f"profile[{label}]: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy_us / 1e3:.1f} ms = {busy_us / (wall * 1e6):.3f} of the "
         f"wall (the profiler's own cost included)")
     for us, count, key in sorted(rows, reverse=True)[:12]:
@@ -2224,15 +2243,195 @@ def train_card_vs_cpu(torch, cfg, label, batch, seq):
                 float(global_grad_norm(model.parameters())))
         if device == "cuda":
             routes = flash_route_counts(fa)
-            check(routes == {"tc": (0, 0, 0),
-                             "simt": (3 * cfg.num_layers,) * 3},
+            n = 3 * cfg.num_layers if cfg.use_flash_attention else 0
+            check(routes == {"tc": (0, 0, 0), "simt": (n,) * 3},
                   f"train card vs CPU [{label}]: every F1, F2 and F3 launch "
-                  f"on the simt route (F1/F2/F3: {routes})")
+                  f"on the simt route, {n} each (F1/F2/F3: {routes})")
         traces[device] = trace
     problems = compare_traces(traces["cuda"], traces["cpu"])
     log(f"train card vs CPU [{label}] (fp32, TF32 off, batch {batch} x "
         f"{seq}): card {traces['cuda']}, CPU {traces['cpu']}")
     check(not problems, f"card and CPU training agree: {problems}")
+
+
+# ------------------------- phase 9: single-device training, completed
+
+O2_STEPS = 8                 # timed O2 steps, after WARMUP_STEPS
+DEFAULT_CORE_STEPS = 4       # timed default-core steps, after WARMUP_STEPS
+
+
+def default_core_phase(torch, fa, flash_first_loss, flash_step):
+    """GPT-124M through the default (fused-softmax) core from the flash
+    phase's weights and batch: no flash launch, finite and falling losses,
+    the first loss the flash step's (the same function: causal attention,
+    no dropout); then one profiled step."""
+    from apex_tpu_torch.testing.l1 import train_step
+
+    cfg = dataclasses.replace(gpt124m_train(torch, torch.bfloat16),
+                              use_flash_attention=False)
+    model, opt = trainer(torch, cfg, seed=0)
+    tokens = train_tokens(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    losses = [train_step(model, opt, tokens) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step(model, opt, tokens)
+               for _ in range(DEFAULT_CORE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    check(counts == {k: 0 for k in counts},
+          f"the default core launches no flash kernel: {counts}")
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) < 1e4 for x in losses),
+          f"default core: the losses are finite: {losses}")
+    check(losses[-1] < losses[0], f"default core: the loss falls: {losses}")
+    rel = abs(losses[0] - flash_first_loss) / abs(flash_first_loss)
+    check(rel <= 2e-2,
+          f"default core: the first loss {losses[0]:.6f} within 2e-2 of the "
+          f"flash step's {flash_first_loss:.6f} (relative {rel:.2e})")
+    step = wall / DEFAULT_CORE_STEPS
+    log(f"train[GPT-124M, default core, batch {TRAIN_BATCH} x {SEQ}, bf16 "
+        f"compute]: step {step * 1e3:.3f} ms = "
+        f"{TRAIN_BATCH * SEQ / step:.1f} tokens/s over {DEFAULT_CORE_STEPS} "
+        f"timed steps (flash step {flash_step * 1e3:.3f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first loss "
+        f"{losses[0]:.6f} (flash {flash_first_loss:.6f}, relative "
+        f"{rel:.2e}); losses {losses}")
+    profile_train(torch, model, opt, tokens, "GPT-124M default-core step")
+    # the softmax's share of the step: its forward and backward alone at
+    # one layer's score shape, as the causal core calls it
+    from apex_tpu_torch.ops.softmax import AttnMaskType, FusedScaleMaskSoftmax
+
+    softmax = FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.causal,
+                                    scale=2.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((TRAIN_BATCH, N_HEADS, SEQ, SEQ), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    dy = torch.randn_like(x)
+    ms = Timer(torch)(lambda: torch.autograd.grad(softmax(x, None), x, dy))
+    log(f"softmax[FusedScaleMaskSoftmax, causal, bf16, {tuple(x.shape)}]: "
+        f"forward + backward {ms:.3f} ms; x {cfg.num_layers} layers = "
+        f"{ms * cfg.num_layers:.1f} ms of the default-core step's "
+        f"{step * 1e3:.1f} ms")
+
+
+def optimizer_snapshot(torch, model, opt):
+    """Copies of every parameter and of the optimizer's masters, moments
+    and step counts."""
+    params = [p.detach().clone() for p in model.parameters()]
+    state = [{k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in opt.state[p].items()} for p in model.parameters()]
+    return params, state
+
+
+def o2_phase(torch, fa, flash_step):
+    """GPT-124M under O2 over the flash core: parameters cast by
+    ``policy("O2")``, FusedAdam with fp32 masters, dynamic loss scaling
+    from 2**16 growing every 4 clean steps, driven by
+    ``l1.amp_train_step``; then one overflow forced by an inf in one
+    gradient.  Returns the flash launches of the O2 steps."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.testing.l1 import amp_train_step, apply_policy
+
+    cfg = gpt124m_train(torch, torch.bfloat16)
+    model, _ = trainer(torch, cfg, seed=0)
+    apply_policy(model, amp.O2)
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    check(all((dt == torch.float32) == ("layernorm" in n)
+              for n, dt in dtypes.items()),
+          "O2: every LayerNorm parameter fp32, every other bf16")
+    opt = FusedAdam(model.parameters(), lr=1e-4, master_weights=True)
+    scaler = amp.DynamicLossScale(init_scale=2.0 ** 16, growth_interval=4)
+    state = scaler.init()
+    tokens = train_tokens(torch)
+    steps = WARMUP_STEPS + O2_STEPS
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    losses, states = [], []
+    for i in range(steps):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, norm, state = amp_train_step(model, opt, tokens, scaler, state)
+        losses.append(loss)
+        states.append(state)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / O2_STEPS
+    counts = flash_counts(fa)
+    routes = flash_route_counts(fa)
+    check(all(c == cfg.num_layers * steps for c in counts.values())
+          and routes == {"tc": (cfg.num_layers * steps,) * 3,
+                         "simt": (0, 0, 0)},
+          f"O2: F1/F2/F3 launched {cfg.num_layers} times per step, all on "
+          f"the tc route: {counts}, {routes}")
+    losses = [float(x) for x in losses]
+    scales = [float(s.scale) for s in states]
+    check(all(x == x and abs(x) < 1e4 for x in losses) and
+          losses[-1] < losses[0], f"O2: the losses are finite and fall: "
+          f"{losses}")
+    check(not any(bool(s.found_inf) for s in states),
+          "O2: no step overflowed")
+    want = [2.0 ** (16 + (i + 1) // 4) for i in range(steps)]
+    check(scales == want, f"O2: the scale doubles at every 4th clean step: "
+          f"{scales} (expected {want})")
+    # one overflow: an inf in one gradient skips the step bit for bit
+    first = next(model.parameters())
+    before_params, before_state = optimizer_snapshot(torch, model, opt)
+
+    def poison(g):
+        g = g.clone()
+        g.view(-1)[0] = float("inf")
+        return g
+
+    hook = first.register_hook(poison)
+    try:
+        _, norm, after = amp_train_step(model, opt, tokens, scaler, state)
+    finally:
+        hook.remove()
+    after_params, after_state = optimizer_snapshot(torch, model, opt)
+    same = all(torch.equal(a, b) for a, b in zip(after_params,
+                                                 before_params))
+    same_state = all(
+        set(a) == set(b) and all(torch.equal(torch.as_tensor(a[k]),
+                                             torch.as_tensor(b[k]))
+                                 for k in a)
+        for a, b in zip(after_state, before_state))
+    check(bool(after.found_inf) and not bool(torch.isfinite(norm)),
+          "O2: the forced overflow is found")
+    check(same, "O2: the skipped step leaves every parameter bit for bit")
+    check(same_state, "O2: the skipped step leaves every master, moment "
+          "and step count bit for bit")
+    n_steps = int(opt.state[first]["step"])
+    check(n_steps == steps, f"O2: the step count stays {steps}: {n_steps}")
+    check(float(after.scale) == scales[-1] / 2,
+          f"O2: the scale halves on the overflow: {scales[-1]} -> "
+          f"{float(after.scale)}")
+    log(f"train[GPT-124M, O2 + dynamic loss scale, flash core, batch "
+        f"{TRAIN_BATCH} x {SEQ}]: step {step * 1e3:.3f} ms = "
+        f"{TRAIN_BATCH * SEQ / step:.1f} tokens/s over {O2_STEPS} timed "
+        f"steps (phase 5's plain bf16 step {flash_step * 1e3:.3f} ms); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; scales {scales}; forced "
+        f"overflow: scale {scales[-1]} -> {float(after.scale)}, step count "
+        f"{n_steps}; launches {counts}")
+    return counts
+
+
+def training_completed_phase(torch, fa, flash_first_loss, flash_step):
+    """Phase 9: the default core on GPT-124M and against the CPU, then O2
+    with dynamic loss scaling; returns the O2 steps' flash launches."""
+    t0 = time.perf_counter()
+    default_core_phase(torch, fa, flash_first_loss, flash_step)
+    small = dataclasses.replace(gpt124m_train(torch, torch.float32),
+                                num_layers=2, use_flash_attention=False)
+    train_card_vs_cpu(torch, small, "default core, 2 layers", 2, 128)
+    counts = o2_phase(torch, fa, flash_step)
+    log(f"phase 9 (single-device training, completed): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def main():
@@ -2362,7 +2561,8 @@ def main():
                 [[t % small.padded_vocab_size for t in p] for p in prompts],
                 "rope + GQA + SwiGLU")
 
-    counts, (model, opt, tokens) = train_phase(torch, fa)
+    counts, (model, opt, tokens), flash_losses, flash_step = train_phase(
+        torch, fa)
     launches.update(counts)
     profile_train(torch, model, opt, tokens)
     del model, opt, tokens
@@ -2383,6 +2583,10 @@ def main():
     profile_spec_lora(torch, params, motifs)
 
     launches.update(norm_path_phase(torch, pn, tn))
+
+    for k, v in training_completed_phase(torch, fa, flash_losses[0],
+                                         flash_step).items():
+        launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {

@@ -7,6 +7,9 @@ Initial weights come from the JAX model's init and cross over through
 :func:`from_flax_gpt`; other inputs come from numpy seeds.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +76,18 @@ def test_gpt_logits_loss_and_grads_match_jax(shape):
     """fp32: logits, per-token loss and every parameter's gradient of the
     mean loss against the JAX GPTModel (its fused-softmax core; the port
     runs flash) on bridged weights."""
+    _check_gpt_against_jax(shape, use_flash_attention=True)
+
+
+@pytest.mark.parametrize("shape", [GPT, MODERN], ids=["learned_mha",
+                                                      "rope_gqa_swiglu"])
+def test_default_core_gpt_logits_loss_and_grads_match_jax(shape):
+    """The same with the port's default (fused-softmax) core, the one the
+    JAX GPTModel runs by default."""
+    _check_gpt_against_jax(shape, use_flash_attention=False)
+
+
+def _check_gpt_against_jax(shape, use_flash_attention):
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, VOCAB, (3, 24)).astype(np.int32)
     jcfg = JaxConfig(**shape, hidden_dropout=0.0, attention_dropout=0.0,
@@ -96,10 +111,9 @@ def test_gpt_logits_loss_and_grads_match_jax(shape):
     jlogits, jlosses, jgrads = jfn(params, jnp.asarray(tokens))
     jgrads = _flat(jgrads)
 
-    model = GPTModel(TransformerConfig(**shape, hidden_dropout=0.0,
-                                       attention_dropout=0.0,
-                                       use_flash_attention=True),
-                     device="cpu")
+    model = GPTModel(TransformerConfig(
+        **shape, hidden_dropout=0.0, attention_dropout=0.0,
+        use_flash_attention=use_flash_attention), device="cpu")
     model.load_params(from_flax_gpt(jax.tree_util.tree_map(np.asarray,
                                                             params)))
     t = torch.from_numpy(tokens).long()
@@ -239,17 +253,24 @@ def test_fused_adam_steps_match_jax(adam_w_mode):
 def _live_traces(name):
     """The JAX trace of ``name`` and the port's from the same initial
     weights and tokens (``_trace_gpt``'s own keys)."""
+    return _port_trace(name), jax_l1.run_trace(name)
+
+
+def _port_trace(name):
+    """The port's trace of ``name`` from ``_trace_gpt``'s initial weights
+    (``PRNGKey(2)``) and tokens (``PRNGKey(1)``) under the current JAX
+    PRNG mode."""
     jkw = {"gpt_smoke": {}, "gpt_modern": dict(
         position_embedding_type="rope", num_query_groups=2, swiglu=True),
+        "gpt_bf16": dict(dtype=jnp.bfloat16),
         "gpt_flash": dict(dtype=jnp.bfloat16, use_flash_attention=True)}[name]
     jcfg = JaxConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0,
                      tensor_axis=None, **jkw)
     tokens = jax.random.randint(jax.random.PRNGKey(1), (4, 32), 0, VOCAB)
     params = JaxGPTModel(jcfg).init(jax.random.PRNGKey(2), tokens)["params"]
-    got = l1.trace_gpt(name, device="cpu", params=from_flax_gpt(
+    return l1.run_trace(name, device="cpu", params=from_flax_gpt(
         jax.tree_util.tree_map(np.asarray, params)),
         tokens=torch.from_numpy(np.array(tokens)))
-    return got, jax_l1.run_trace(name)
 
 
 @pytest.mark.parametrize("name", ["gpt_smoke", "gpt_modern"])
@@ -277,6 +298,32 @@ def test_bf16_flash_trace_matches_live_jax():
     assert want["loss"][0] - want["loss"][-1] > 0.5
 
 
+def test_bf16_trace_matches_live_jax():
+    """``gpt_bf16`` (bf16 compute, the default fused-softmax core, fp32
+    parameters) at ``gpt_flash``'s tolerances, for the same reasons: both
+    sides round to bf16 after every op, XLA once per fusion and torch
+    once per op."""
+    got, want = _live_traces("gpt_bf16")
+    assert not l1.compare_traces(got, want, loss_rtol=1e-3, grad_rtol=1e-2)
+    assert want["loss"][0] - want["loss"][-1] > 0.5
+
+
+@pytest.mark.parametrize("name, tols", [
+    ("gpt_smoke", {}), ("gpt_bf16", dict(loss_rtol=1e-3, grad_rtol=1e-2))])
+def test_trace_matches_the_stored_baseline(name, tols):
+    """The port's trace from the baseline's initial weights against the
+    JAX package's stored baseline (``tests/L1/baselines``): fp32 at
+    ``compare_traces``' defaults, bf16 at the live bf16 tolerances."""
+    path = Path(__file__).parent / "L1" / "baselines" / f"{name}.json"
+    baseline = json.loads(path.read_text())
+    # the baselines were recorded before JAX made its threefry PRNG
+    # partitionable by default, which changed the values a key draws:
+    # their initial weights and tokens come from the old mode
+    with jax.threefry_partitionable(False):
+        got = _port_trace(name)
+    assert not l1.compare_traces(got, baseline, **tols)
+
+
 def test_dropout_is_seeded_by_the_generator():
     """With dropout on, a generator seed fixes the step (hidden dropout
     masks and the flash kernels' dropout seed); another seed or
@@ -299,12 +346,22 @@ def test_dropout_is_seeded_by_the_generator():
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
-def test_unported_options_raise():
-    cfg = TransformerConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0)
+def test_default_config_trains_on_cpu():
+    """``TransformerConfig``'s defaults (the fused-softmax core, hidden and
+    attention dropout 0.1) train: finite losses that fall over five
+    FusedAdam steps with a seeded generator, and no flash launch."""
+    cfg = TransformerConfig(**GPT)
+    assert not cfg.use_flash_attention and cfg.attention_dropout == 0.1
     model = GPTModel(cfg, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="flash"):
-        model(tokens)
+    model.load_params(init_gpt_params(cfg, 0, device="cpu"))
+    opt = FusedAdam(model.parameters(), lr=3e-3)
+    tokens = torch.randint(0, VOCAB, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    losses = [float(l1.train_step(model, opt, tokens, gen))
+              for _ in range(5)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.1, losses
+    assert (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (0, 0, 0)
 
 
 def test_trace_entry_points_default_to_cuda(monkeypatch):
