@@ -18,9 +18,10 @@ Ported so far:
   :mod:`apex_tpu_torch.transformer.functional`), or the flash forward and
   backward kernels (``csrc/flash_attention.cu``) through
   :mod:`apex_tpu_torch.ops.flash_attention`;
-- mixed precision (:mod:`apex_tpu_torch.amp` without fp8: the O0-O3
-  policies, dynamic, static and no-op loss scaling, master weights,
-  ``initialize`` with its state dict; the transformer's
+- mixed precision (:mod:`apex_tpu_torch.amp`: the O0-O3 policies,
+  dynamic, static and no-op loss scaling, master weights, ``initialize``
+  with its state dict, fp8 with delayed scaling, whose GEMMs run on the
+  card's fp8 tensor cores through ``torch._scaled_mm``; the transformer's
   :class:`~apex_tpu_torch.transformer.amp.GradScaler`), with FusedAdam's
   ``master_weights``, ``flat`` and ``step(lr=, grad_scale=,
   skip_update=)``;

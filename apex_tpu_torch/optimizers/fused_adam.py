@@ -18,7 +18,10 @@ parameters' device: where it is True the parameters, masters and both
 moments keep their old values and the step counter does not advance).
 The skip is a select on the device, with no host sync; once one has been
 given, the step counter is a device tensor and the bias corrections are
-taken on the device too.  AMSGrad is rejected like the reference.
+taken on the device too.  The step counter is one per parameter group
+(``group["step"]``, as in Apex), so a parameter whose first gradient
+comes late joins the group's count, and ``state_dict`` carries it with
+the group.  AMSGrad is rejected like the reference.
 
 Plain torch ops (``torch._foreach_*``, one launch per op for all
 parameters): the JAX FusedAdam is plain XLA, not a Pallas kernel.
@@ -73,7 +76,6 @@ class FusedAdam(torch.optim.Optimizer):
     def _state(self, p):
         state = self.state[p]
         if not state:
-            state["step"] = 0
             state["exp_avg"] = torch.zeros_like(
                 p, dtype=torch.float32, memory_format=torch.preserve_format)
             state["exp_avg_sq"] = torch.zeros_like(
@@ -96,7 +98,8 @@ class FusedAdam(torch.optim.Optimizer):
             states = [self._state(p) for p in params]
             skip = (None if skip_update is None else torch.as_tensor(
                 skip_update, dtype=torch.bool, device=params[0].device))
-            t = states[0]["step"] + 1        # the update being applied
+            step = group.setdefault("step", 0)
+            t = step + 1                     # the update being applied
             b1, b2 = group["betas"]
             if group["bias_correction"]:
                 bc1, bc2 = _bias_correction(b1, t), _bias_correction(b2, t)
@@ -122,7 +125,5 @@ class FusedAdam(torch.optim.Optimizer):
             if skip is not None:
                 apply_skip(skip, p32 + m + v, old)
             finalize_params(p32, params)
-            new_step = advance_step(states[0]["step"], skip)
-            for s in states:
-                s["step"] = new_step
+            group["step"] = advance_step(step, skip)
         return loss

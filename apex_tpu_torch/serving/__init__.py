@@ -16,6 +16,11 @@ from apex_tpu_torch.serving.lora import (
     AdapterArena,
     LoRAConfig,
     OutOfAdapterSlotsError,
+    init_adapter_weights,
+)
+from apex_tpu_torch.serving.paged_attention import (
+    paged_attention_decode,
+    paged_prefill_attention,
 )
 from apex_tpu_torch.serving.model import DecodeModel
 from apex_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -43,7 +48,10 @@ __all__ = [
     "ServingConfig",
     "ServingEngine",
     "SpeculativeConfig",
+    "init_adapter_weights",
     "init_kv_arena",
     "ngram_propose",
+    "paged_attention_decode",
+    "paged_prefill_attention",
     "sample_tokens",
 ]

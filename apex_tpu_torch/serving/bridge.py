@@ -24,6 +24,12 @@ load_params` (or the serving engine).
 :func:`from_flax_norm` turns a Flax norm module's parameters (``scale``
 and, for LayerNorm, ``bias``) into the state dict of the port's module
 of the same name (:mod:`apex_tpu_torch.normalization`).
+
+:func:`from_flax_fp8_meta` turns the ``"fp8_meta"`` collection of an fp8
+Flax model (its ``{"metas": {"x", "w"}}`` of ``Fp8Meta(amax_history,
+scale)`` per layer) into the port's fp8 buffers by layer path, for
+:meth:`~apex_tpu_torch.transformer.testing.standalone_gpt.GPTModel.
+load_fp8_meta` or ``load_state_dict(..., strict=False)``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     merge_layer_stack,
 )
 
-__all__ = ["from_jax_params", "from_flax_gpt", "from_flax_norm"]
+__all__ = ["from_jax_params", "from_flax_gpt", "from_flax_norm",
+           "from_flax_fp8_meta"]
 
 
 def _tree(tree) -> dict:
@@ -95,3 +102,31 @@ def from_flax_norm(params: Any) -> dict:
         params = params["params"]
     return {name: _tree(params[name]) for name in ("scale", "bias")
             if name in params}
+
+
+def _module_name(flax_name: str) -> str:
+    """A Flax scope name in the port: ``layers_<i>`` is ``layers.<i>``
+    (a ``ModuleList``), ``metas`` is the linear's ``fp8_meta``."""
+    if flax_name.startswith("layers_"):
+        return flax_name.replace("_", ".", 1)
+    return "fp8_meta" if flax_name == "metas" else flax_name
+
+
+def from_flax_fp8_meta(collection: Any) -> dict:
+    """The port's fp8 buffers (``{"...query_key_value.fp8_meta.x.scale":
+    tensor, ...}``) from a Flax ``"fp8_meta"`` collection whose leaves are
+    numpy arrays (or anything ``numpy.asarray`` reads) and whose metas are
+    ``Fp8Meta`` named tuples or mappings of their two fields."""
+    out = {}
+
+    def walk(node, path):
+        if hasattr(node, "_asdict"):             # an Fp8Meta
+            node = node._asdict()
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + [_module_name(str(k))])
+        else:
+            out[".".join(path)] = _tree(node)
+
+    walk(collection, [])
+    return out

@@ -41,6 +41,7 @@ zero adapter's exact-zero delta leaves every value bit for bit as it was.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -85,14 +86,17 @@ __all__ = ["DecodeModel", "serving_config"]
 
 
 def serving_config(config: TransformerConfig) -> TransformerConfig:
-    """Check that the served config is one the decode path wires (the
-    JAX function also turns dropout, sequence parallelism and fp8 off;
-    the port's config has none of them)."""
+    """The inference view of a training config: fp8 off (the
+    delayed-scaling state is training-side, and the parameters are the
+    same, so a checkpoint trained in fp8 serves unchanged).  The decode
+    path takes no dropout generator, so dropout is off as the JAX
+    function sets it; the port's config has no sequence parallelism to
+    turn off."""
     if config.apply_residual_connection_post_layernorm:
         raise NotImplementedError(
             "serving decode assumes the standard pre-LN residual; "
             "apply_residual_connection_post_layernorm is not wired")
-    return config
+    return dataclasses.replace(config, fp8=False)
 
 
 def _quantize_rows(x):

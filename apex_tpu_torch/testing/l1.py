@@ -6,7 +6,10 @@
 ``ITERS`` steps of FusedAdam (lr 1e-3) on one fixed ``[4, 32]`` batch,
 recording the mean next-token loss and the global gradient norm of every
 step.  Each config runs the attention core its JAX config runs: the
-default fused-softmax core, or flash for ``gpt_flash``.  With the JAX
+default fused-softmax core, or flash for ``gpt_flash``.  ``gpt_fp8`` runs
+the transformer layers' GEMMs in fp8 with delayed scaling; the metas
+carry from step to step in the linears' buffers, as the JAX loop carries
+its mutable ``"fp8_meta"`` collection.  With the JAX
 run's initial parameters (carried over by
 :func:`apex_tpu_torch.serving.bridge.from_flax_gpt`) and tokens, the two
 traces agree to :func:`compare_traces`' tolerances.
@@ -49,6 +52,7 @@ CONFIGS = {
     "gpt_flash": {"dtype": torch.bfloat16, "use_flash_attention": True},
     "gpt_modern": {"position_embedding_type": "rope", "num_query_groups": 2,
                    "swiglu": True},
+    "gpt_fp8": {"fp8": True},
 }
 
 
@@ -114,12 +118,14 @@ def amp_train_step(model: GPTModel, opt: FusedAdam, tokens, scaler,
 
 def trace_gpt(name: str, *, params: Optional[GPT3DParams] = None,
               tokens: Optional[torch.Tensor] = None, seed: int = 0,
-              device=None) -> Dict[str, List[float]]:
+              device=None, with_fp8_meta: bool = False):
     """``{"loss": [...], "grad_norm": [...]}`` over ``ITERS`` steps.
 
     ``params`` default to :func:`init_gpt_params` from ``seed``, ``tokens``
     to a ``[4, 32]`` batch drawn from ``seed + 1``; ``device`` defaults to
-    the CUDA device."""
+    the CUDA device.  With ``with_fp8_meta`` the result is ``(trace,
+    metas)``, ``metas`` the final fp8 buffers by name
+    (:meth:`GPTModel.fp8_meta_state`)."""
     device = resolve_device(device)
     cfg = trace_config(name)
     model = GPTModel(cfg, device=device)
@@ -136,6 +142,8 @@ def trace_gpt(name: str, *, params: Optional[GPT3DParams] = None,
         loss = train_step(model, opt, tokens)
         out["loss"].append(float(loss))
         out["grad_norm"].append(float(global_grad_norm(model.parameters())))
+    if with_fp8_meta:
+        return out, model.fp8_meta_state()
     return out
 
 

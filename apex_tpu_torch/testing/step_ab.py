@@ -28,10 +28,10 @@ WARMUP_STEPS, TIMED_STEPS = 2, 8
 
 # run in each checkout with its root as the working directory
 _STEP = f"""
-import sys, time
+import importlib, sys, time
 sys.path.insert(0, ".")
 import torch
-from apex_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.testing.l1 import train_step
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import init_gpt_params

@@ -5,8 +5,10 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    linear_with_grad_accumulation,
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "divide"]
+           "VocabParallelEmbedding", "divide",
+           "linear_with_grad_accumulation"]

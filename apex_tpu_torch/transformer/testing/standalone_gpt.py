@@ -58,7 +58,8 @@ class GPTModel(nn.Module):
 
     def load_params(self, params: GPT3DParams) -> None:
         """Copy a :class:`GPT3DParams` in (layer stack ``[L, ...]`` or
-        ``[vpp, pp, ...]``), cast to each parameter's dtype."""
+        ``[vpp, pp, ...]``), cast to each parameter's dtype; the fp8
+        buffers, if any, are left as they are."""
         n = self.config.num_layers
         state = _flatten(params.embedding, "language_model.embedding.")
         for name, t in _flatten(merge_layer_stack(params.layers, n)).items():
@@ -66,7 +67,29 @@ class GPTModel(nn.Module):
                 state[f"language_model.encoder.layers.{i}.{name}"] = t[i]
         state.update(_flatten(params.final_ln,
                               "language_model.encoder.final_layernorm."))
-        self.load_state_dict(state, strict=True)
+        missing, unexpected = self.load_state_dict(state, strict=False)
+        missing = [k for k in missing if ".fp8_meta." not in k]
+        if missing or unexpected:
+            raise RuntimeError(
+                f"load_params: missing {missing}, unexpected {unexpected}")
+
+    def fp8_meta_state(self) -> dict:
+        """The fp8 linears' delayed-scaling buffers, by name (empty
+        without ``config.fp8``)."""
+        return {k: v for k, v in self.state_dict().items()
+                if ".fp8_meta." in k}
+
+    def load_fp8_meta(self, metas: dict) -> None:
+        """Load every fp8 buffer from ``metas`` (as
+        :func:`~apex_tpu_torch.serving.bridge.from_flax_fp8_meta` or
+        :meth:`fp8_meta_state` gives them); a missing or unknown name
+        raises."""
+        want = set(self.fp8_meta_state())
+        if set(metas) != want:
+            raise RuntimeError(
+                f"load_fp8_meta: missing {sorted(want - set(metas))}, "
+                f"unexpected {sorted(set(metas) - want)}")
+        self.load_state_dict(metas, strict=False)
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
                 labels=None, generator=None):

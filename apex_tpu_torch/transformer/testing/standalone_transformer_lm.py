@@ -19,9 +19,15 @@ deterministic (no dropout).  Hidden dropout and the fused-softmax core's
 attention dropout draw a Bernoulli keep mask from it; the flash core
 draws one int32 seed per call for the kernels' counter hash.
 
+``fp8=True`` runs the transformer layers' four GEMMs (QKV, the attention
+output, and the MLP's two or, with SwiGLU, three) through
+:func:`apex_tpu_torch.amp.fp8.fp8_matmul_t`, each linear carrying its
+delayed-scaling metas as buffers; the embedding and the tied LM head stay
+in the compute dtype (the TransformerEngine recipe).
+
 Not ported yet (ROADMAP.md, section A): cross attention and the decoder
-layer, the pooler, mixture of experts, fp8, and tensor, sequence and
-context parallelism.
+layer, the pooler, mixture of experts, and tensor, sequence and context
+parallelism.
 """
 
 from __future__ import annotations
@@ -85,6 +91,9 @@ class TransformerConfig:
     swiglu: bool = False
     dtype: torch.dtype = torch.float32         # compute dtype
     param_dtype: torch.dtype = torch.float32
+    # the transformer layers' GEMMs in fp8 with delayed scaling; the
+    # metas roll in training mode only
+    fp8: bool = False
 
     def __post_init__(self):
         if self.position_embedding_type not in ("learned", "rope", "none"):
@@ -143,7 +152,8 @@ class ParallelMLP(nn.Module):
         cfg = config
         self.config = cfg
         kw = dict(skip_bias_add=True, dtype=cfg.dtype,
-                  param_dtype=param_dtype or cfg.param_dtype, device=device)
+                  param_dtype=param_dtype or cfg.param_dtype, fp8=cfg.fp8,
+                  device=device)
         self.dense_h_to_4h = ColumnParallelLinear(
             cfg.hidden_size, cfg.ffn_size, **kw)
         if cfg.swiglu:
@@ -254,7 +264,8 @@ class ParallelAttention(nn.Module):
         self.config = cfg
         n, g, d = cfg.num_attention_heads, cfg.query_groups, cfg.head_dim
         self.hpg = divide(n, g)
-        kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, fp8=cfg.fp8,
+                  device=device)
         self.query_key_value = ColumnParallelLinear(
             cfg.hidden_size, (n + 2 * g) * d, **kw)
         self.core_attention = CoreAttention(cfg, layer_number, attn_mask_type)

@@ -134,15 +134,40 @@ Phases (any failure exits non-zero; none is caught):
    step on the tc route, no overflow, the scale doubling at every 4th
    clean step; then an inf in one gradient: the step is skipped with
    parameters, masters, moments and step count bit for bit, and the
-   scale halves.
+   scale halves;
+10. fp8 with delayed scaling (``apex_tpu_torch.amp.fp8``; its GEMMs are
+   ``torch._scaled_mm`` on the fp8 tensor cores, not a kernel of this
+   repository, so they are not in the kernels line): ``fp8_matmul_t``'s
+   card route against its plain version (fp32 on the card) at GPT-124M's
+   four projections and 8192 tokens, bf16 x over fp32 weights and metas
+   whose scales are not 1: forward, dx and dw each with the RMS of the
+   difference within 1e-3 of the plain output's RMS and no element more
+   than 1e-2 of it beyond one step of the output dtype, then at
+   ``FP8_EDGES``
+   (hidden 100, 9 tokens, fp16 x), with the card GEMMs' times (forward,
+   dx, dw), the plain forward's, ``torch.matmul`` in bf16 at the same
+   shape and one operand's quantize passes (amax, scale, clip, cast)
+   beside ``bound_ms`` at 1,979 TFLOP/s fp8 or 3.35 TB/s; then GPT-124M
+   at phase 5's widths, weights and batch with ``fp8=True`` (2 warm-up and
+   8 timed steps): 48 forward and 96 backward fp8 GEMMs and 12 launches
+   each of F1-F3 (tc) a step, losses finite and falling, the first within
+   2e-2 of phase 5's, every scale finite and positive, an ``eval()``
+   forward leaving every meta bit for bit, one profiled step with the fp8
+   kernels' device time; then ``gpt_fp8`` (fp32) for its ten steps on the
+   card and on the CPU from the same weights, within ``FP8_TRACE_TOL``
+   and the final scales within ``FP8_SCALE_RTOL`` (fp8 rounding grows
+   one-ulp differences of the fp32 sums; the limits come from the JAX
+   package's own spread).
 
-The lines before the last hold a ``{"kernels": [...]}`` JSON object and
-the ``nvidia-smi`` name/power line; the last line is the JSON result.
+The lines before the last hold a ``{"fp8_gemms": {...}}`` and a
+``{"kernels": [...]}`` JSON object and the ``nvidia-smi`` name/power line;
+the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
 """
 
 import dataclasses
+import importlib
 import json
 import re
 import statistics
@@ -151,7 +176,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 FMA
+# dense tensor-core bf16 and fp8; fp32 FMA
+PEAK_OPS = {"bf16": 989e12, "fp8": 1979e12, "fp32": 67e12}
 B, N_HEADS, HEAD_DIM, BLOCK, MAX_SEQ, CHUNK, HIDDEN = 8, 12, 64, 16, 1024, 128, 768
 TRAIN_BATCH, SEQ = 8, 1024          # bench.py's flash training step
 WARMUP_STEPS, TIMED_STEPS = 2, 8
@@ -2214,6 +2240,7 @@ def profile_train(torch, model, opt, tokens, label="GPT-124M train step"):
         f"wall (the profiler's own cost included)")
     for us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    return prof
 
 
 def train_card_vs_cpu(torch, cfg, label, batch, seq):
@@ -2229,7 +2256,7 @@ def train_card_vs_cpu(torch, cfg, label, batch, seq):
     gen = torch.Generator().manual_seed(6)
     tokens = torch.randint(0, cfg.padded_vocab_size, (batch, seq),
                            generator=gen)
-    from apex_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
     traces = {}
     for device in ("cuda", "cpu"):
@@ -2319,11 +2346,13 @@ def default_core_phase(torch, fa, flash_first_loss, flash_step):
 
 
 def optimizer_snapshot(torch, model, opt):
-    """Copies of every parameter and of the optimizer's masters, moments
-    and step counts."""
+    """Copies of every parameter and of the optimizer's masters and
+    moments, and of each parameter group's step count."""
     params = [p.detach().clone() for p in model.parameters()]
     state = [{k: v.clone() if isinstance(v, torch.Tensor) else v
               for k, v in opt.state[p].items()} for p in model.parameters()]
+    state += [{"step": torch.as_tensor(g["step"]).clone()}
+              for g in opt.param_groups]
     return params, state
 
 
@@ -2405,7 +2434,7 @@ def o2_phase(torch, fa, flash_step):
     check(same, "O2: the skipped step leaves every parameter bit for bit")
     check(same_state, "O2: the skipped step leaves every master, moment "
           "and step count bit for bit")
-    n_steps = int(opt.state[first]["step"])
+    n_steps = int(opt.param_groups[0]["step"])
     check(n_steps == steps, f"O2: the step count stays {steps}: {n_steps}")
     check(float(after.scale) == scales[-1] / 2,
           f"O2: the scale halves on the overflow: {scales[-1]} -> "
@@ -2434,6 +2463,275 @@ def training_completed_phase(torch, fa, flash_first_loss, flash_step):
     return counts
 
 
+# ------------------------------------------------------- phase 10: fp8
+
+FP8_TOKENS = TRAIN_BATCH * SEQ      # the training step's [1024, 8] rows
+FP8_TOL = 1e-3        # the difference's RMS, of the plain output's RMS
+FP8_OUTLIER = 1e-2    # any element beyond one output step, of that RMS
+# (label, tokens, in, out, x dtype): ragged widths and token counts,
+# padded to the GEMM's multiples of 16 inside the card route, and fp16
+FP8_EDGES = (("hidden 100", 64, 100, 300, "bf16"),
+             ("hidden 100, fc2", 64, 300, 100, "bf16"),
+             ("9 tokens", 9, 768, 2304, "bf16"),
+             ("fp16 x", 512, 768, 768, "fp16"))
+# the fp32 card-vs-CPU gpt_fp8 trace: fp8 rounding turns one-ulp
+# differences of fp32 sums into whole fp8 steps, and those grow over the
+# steps; the JAX package against itself, with every initial weight moved
+# by at most one ulp, parts by 2.0e-4 (loss), 8.4e-3 (gradient norm) and
+# 3.0e-2 (final scales) over the ten steps (tests/test_torch_training.py);
+# the limits are those of its stored-baseline test, above that spread
+FP8_TRACE_TOL = dict(loss_rtol=5e-4, grad_rtol=5e-2)
+FP8_SCALE_RTOL = 1e-1
+
+
+def fp8_counts(fp8):
+    return fp8.FWD_GEMMS, fp8.BWD_GEMMS
+
+
+def zero_fp8_counts(fp8):
+    fp8.FWD_GEMMS = fp8.BWD_GEMMS = 0
+
+
+def fp8_operands(torch, fp8, n, d_in, d_out, x_dtype, seed):
+    """Seeded bf16 (or fp16) ``x [n, in]`` over fp32 ``w [out, in]``, the
+    cotangent, and metas whose scales are not 1: x's from an amax 0.9 of
+    its own (its largest values clip), w's from 1.25 of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((n, d_in), generator=gen, device="cuda") * 2.0).to(
+        x_dtype)
+    w = torch.randn((d_out, d_in), generator=gen, device="cuda") * 0.02
+    g = (torch.randn((n, d_out), generator=gen, device="cuda") * 1e-3).to(
+        x_dtype)
+    init = fp8.Fp8Meta.init(device="cuda")
+    xm = fp8.update_meta(init, x.float().abs().amax() * 0.9)
+    wm = fp8.update_meta(init, w.abs().amax() * 1.25)
+    return x, w, g, xm, wm
+
+
+def fp8_route(torch, fp8, route, x, w, g, xm, wm):
+    """(y, dx, dw) of ``fp8_matmul_t`` on ``route``."""
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = fp8._fp8_matmul_t(x, w, xm, wm, route)
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    return y.detach(), dx, dw
+
+
+def fp8_close(torch, what, got, want):
+    """The card's product against the plain one on the same operands: the
+    RMS of the difference at most ``FP8_TOL`` of the plain output's RMS,
+    and no element farther than ``FP8_OUTLIER`` of it beyond one step of
+    the output dtype (each side rounds its fp32 sum to bf16 or fp16 once,
+    and the fp8 tensor cores sum in reduced precision between cuBLAS's
+    promotions to fp32, so single elements part by about 1e-3 of the RMS
+    where the sums over all elements agree far closer).  Returns the
+    readings (fractions of the RMS)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs())
+    step = torch.ldexp(torch.full_like(w, torch.finfo(got.dtype).eps), e - 1)
+    diff = (g - w).abs()
+    rms = w.square().mean().sqrt().item()
+    rel = diff.square().mean().sqrt().item() / rms
+    excess = (diff - step).clamp_min(0).max().item() / rms
+    log(f"    {what}: RMS of the difference {rel:.3g} of the RMS; largest "
+        f"beyond one {got.dtype} step {excess:.3g} (max |card - plain| "
+        f"{diff.max().item() / rms:.3g}; RMS {rms:.3g})")
+    check(rel <= FP8_TOL and excess <= FP8_OUTLIER,
+          f"fp8 {what}: the difference's RMS within {FP8_TOL} and every "
+          f"element within {FP8_OUTLIER} beyond one step, of the RMS")
+    return {"rms": float(f"{rel:.3g}"), "max": float(f"{excess:.3g}")}
+
+
+def check_fp8_gemm(torch, fp8, timer, label, n, d_in, d_out, x_dtype,
+                   seed, timed):
+    """The card route of ``fp8_matmul_t`` against its plain version (fp32
+    on the card, TF32 off) on the same operands: forward, dx and dw; at
+    the projection shapes also the times."""
+    x, w, g, xm, wm = fp8_operands(torch, fp8, n, d_in, d_out, x_dtype, seed)
+    card = fp8_route(torch, fp8, "card", x, w, g, xm, wm)
+    plain = fp8_route(torch, fp8, "plain", x, w, g, xm, wm)
+    log(f"  fp8 GEMM[{label}: {n} x {d_in} -> {d_out}, x {x.dtype}, w "
+        f"{w.dtype}, scales x {xm.scale.item():.4g} w {wm.scale.item():.4g}]")
+    errs = {name: fp8_close(torch, name, a, b)
+            for name, a, b in zip(("y", "dx", "dw"), card, plain)}
+    check(card[0].dtype == x.dtype and card[1].dtype == x.dtype
+          and card[2].dtype == w.dtype, "fp8: y and dx in x's dtype, dw in "
+          "w's")
+    if not timed:
+        return errs
+    xq = fp8._quantize(x, xm.scale, fp8.E4M3)
+    wq = fp8._quantize(w, wm.scale, fp8.E4M3)
+    inv_x, inv_w = xm.scale.reciprocal(), wm.scale.reciprocal()
+    gs = fp8._jit_scale(g)
+    gq, inv_g = fp8._quantize(g, gs, fp8.E5M2), gs.reciprocal()
+    wq_t, gq_t, xq_t = fp8._t(wq), fp8._t(gq), fp8._t(xq)
+    wb = w.to(x_dtype)
+    ms = {
+        "fwd": timer(lambda: fp8._scaled_mm_t(xq, wq, inv_x, inv_w, x.dtype)),
+        "dx": timer(lambda: fp8._scaled_mm_t(gq, wq_t, inv_g, inv_w,
+                                             torch.float32)),
+        "dw": timer(lambda: fp8._scaled_mm_t(gq_t, xq_t, inv_g, inv_x,
+                                             torch.float32)),
+        "plain_fwd": timer(lambda: fp8._fp8_matmul_t(x, w, xm, wm, "plain")),
+        "bf16_matmul": timer(lambda: torch.matmul(x, wb.t())),
+        "quantize_x": timer(lambda: fp8.update_meta(
+            xm, fp8.fp8_quantize(x, xm)[1])),
+    }
+    # fp8 operands read once, the bf16 product written once; 2 n in out
+    # fp8 operations
+    by, kind = bound(n * d_in + d_out * d_in + n * d_out * 2,
+                     2 * n * d_in * d_out, "fp8")
+    rec = {k: round(v, 4) for k, v in ms.items()}
+    rec.update(bound_ms=round(by, 5), bound_by=kind,
+               err=errs)
+    log(f"  fp8 GEMM[{label}] ms: {json.dumps(rec)}")
+    return rec
+
+
+def fp8_train(torch, fa, fp8, flash_first_loss, flash_step):
+    """GPT-124M with fp8 transformer GEMMs over the flash core: phase 5's
+    widths, weights, batch and optimizer; returns the flash launches and
+    the step time (s)."""
+    from apex_tpu_torch.testing.l1 import train_step
+
+    cfg = dataclasses.replace(gpt124m_train(torch, torch.bfloat16), fp8=True)
+    model, opt = trainer(torch, cfg, seed=0)
+    tokens = train_tokens(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    zero_fp8_counts(fp8)
+    losses = [train_step(model, opt, tokens) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step(model, opt, tokens) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / TIMED_STEPS
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counts, gemms = flash_counts(fa), fp8_counts(fp8)
+    L = cfg.num_layers
+    check(all(c == L * steps for c in counts.values())
+          and flash_route_counts(fa) == {"tc": (L * steps,) * 3,
+                                         "simt": (0, 0, 0)},
+          f"fp8: F1/F2/F3 launched {L} times per step, all on the tc "
+          f"route: {counts}, {flash_route_counts(fa)}")
+    check(gemms == (4 * L * steps, 8 * L * steps),
+          f"fp8: {4 * L} forward and {8 * L} backward fp8 GEMMs per step: "
+          f"{gemms} over {steps} steps")
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) < 1e4 for x in losses)
+          and losses[-1] < losses[0],
+          f"fp8: the losses are finite and fall: {losses}")
+    rel = abs(losses[0] - flash_first_loss) / abs(flash_first_loss)
+    check(rel <= 2e-2, f"fp8: the first loss {losses[0]:.6f} within 2e-2 of "
+          f"phase 5's {flash_first_loss:.6f} (relative {rel:.2e})")
+    scales = torch.stack([v for k, v in model.fp8_meta_state().items()
+                          if k.endswith(".scale")])
+    check(len(scales) == 8 * L and bool(torch.isfinite(scales).all())
+          and bool((scales > 0).all()),
+          f"fp8: all {8 * L} scales finite and positive: "
+          f"{scales.min().item():.4g} to {scales.max().item():.4g}")
+    log(f"train[GPT-124M fp8, flash core, batch {TRAIN_BATCH} x {SEQ}, bf16 "
+        f"compute]: step {step * 1e3:.3f} ms = {TRAIN_BATCH * SEQ / step:.1f}"
+        f" tokens/s over {TIMED_STEPS} timed steps (phase 5's bf16 step "
+        f"{flash_step * 1e3:.3f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first loss "
+        f"{losses[0]:.6f} (phase 5 {flash_first_loss:.6f}, relative "
+        f"{rel:.2e}); losses {losses}; launches {counts}; fp8 GEMMs "
+        f"{gemms}; scales {scales.min().item():.4g} to "
+        f"{scales.max().item():.4g}")
+    # an eval() forward leaves every meta as it was, bit for bit
+    before = {k: v.clone() for k, v in model.fp8_meta_state().items()}
+    model.eval()
+    with torch.no_grad():
+        model(tokens, labels=tokens)
+    model.train()
+    after = model.fp8_meta_state()
+    check(all(torch.equal(before[k], after[k]) for k in before),
+          "fp8: an eval() forward leaves every meta bit for bit")
+    # the profiled step, with each fp8 stage in a profiler range (the
+    # functions are wrapped for this step only)
+    stages = {"_scaled_mm_t": "fp8 GEMMs", "_quantize": "fp8 quantize",
+              "_amax": "fp8 amax", "update_meta": "fp8 roll"}
+    originals = {name: getattr(fp8, name) for name in stages}
+
+    def ranged(label, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    zero_fp8_counts(fp8)
+    for name, label in stages.items():
+        setattr(fp8, name, ranged(label, originals[name]))
+    try:
+        prof = profile_train(torch, model, opt, tokens, "GPT-124M fp8 step")
+    finally:
+        for name, fn in originals.items():
+            setattr(fp8, name, fn)
+    check(fp8_counts(fp8) == (4 * L, 8 * L), "fp8: the profiled step's GEMMs")
+    cpu = torch.autograd.DeviceType.CPU
+    spent = {e.key: (e.device_time_total, e.count)
+             for e in prof.key_averages()
+             if e.device_type == cpu and e.key in stages.values()}
+    log("  fp8 stages in the profiled step (device time of the kernels "
+        "each launched): " + ", ".join(
+            f"{k} {us / 1e3:.3f} ms over {n} calls"
+            for k, (us, n) in sorted(spent.items())))
+    return counts, step
+
+
+def fp8_card_vs_cpu(torch):
+    """``gpt_fp8`` (fp32, fused-softmax core, fp8 GEMMs) for its ten steps
+    on the card and on the CPU from the same weights and tokens."""
+    from apex_tpu_torch.testing import l1
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+
+    cfg = l1.trace_config("gpt_fp8")
+    params = init_gpt_params(cfg, seed=5)
+    tokens = torch.randint(0, cfg.padded_vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(6))
+    runs = {d: l1.run_trace("gpt_fp8", device=d, params=params,
+                            tokens=tokens, with_fp8_meta=True)
+            for d in ("cuda", "cpu")}
+    (card, card_m), (cpu, cpu_m) = runs["cuda"], runs["cpu"]
+    problems = l1.compare_traces(card, cpu, **FP8_TRACE_TOL)
+    worst = {key: max(abs(a - b) / abs(b) for a, b in zip(card[key],
+                                                            cpu[key]))
+             for key in ("loss", "grad_norm")}
+    scale_rel = max(((card_m[k].cpu() - v).abs() / v.abs()).max().item()
+                    for k, v in cpu_m.items() if k.endswith(".scale"))
+    log(f"train card vs CPU [gpt_fp8, fp32, TF32 off]: worst relative loss "
+        f"{worst['loss']:.3g}, grad norm {worst['grad_norm']:.3g}, final "
+        f"scale {scale_rel:.3g}; card {card}, CPU {cpu}")
+    check(not problems, f"gpt_fp8 card and CPU agree: {problems}")
+    check(scale_rel <= FP8_SCALE_RTOL,
+          f"gpt_fp8: the final scales within {FP8_SCALE_RTOL}: {scale_rel}")
+
+
+def fp8_phase(torch, fa, flash_first_loss, flash_step):
+    """Phase 10: the fp8 GEMM card against plain, GPT-124M's fp8 step, and
+    ``gpt_fp8`` card against CPU; returns the fp8 step's flash launches."""
+    from apex_tpu_torch.amp import fp8
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    table = {}
+    for i, (proj, (d_in, d_out)) in enumerate(LORA_PAIRS.items()):
+        table[proj] = check_fp8_gemm(torch, fp8, timer, proj, FP8_TOKENS,
+                                     d_in, d_out, torch.bfloat16, 40 + i,
+                                     timed=True)
+    for i, (label, n, d_in, d_out, dt) in enumerate(FP8_EDGES):
+        check_fp8_gemm(torch, fp8, timer, label, n, d_in, d_out,
+                       getattr(torch, DTYPES[dt]), 50 + i, timed=False)
+    counts, step = fp8_train(torch, fa, fp8, flash_first_loss, flash_step)
+    fp8_card_vs_cpu(torch)
+    log(json.dumps({"fp8_gemms": table}))
+    log(f"phase 10 (fp8): {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -2445,7 +2743,7 @@ def main():
 
     from apex_tpu_torch import _build
     from apex_tpu_torch import normalization as tn
-    from apex_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     from apex_tpu_torch.ops import pallas_norm as pn
     from apex_tpu_torch.serving import fused_ops as fo
     from apex_tpu_torch.serving import lora as lo
@@ -2586,6 +2884,8 @@ def main():
 
     for k, v in training_completed_phase(torch, fa, flash_losses[0],
                                          flash_step).items():
+        launches[k] += v
+    for k, v in fp8_phase(torch, fa, flash_losses[0], flash_step).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

@@ -7,6 +7,7 @@ by leaf (dtype and value); FusedAdam at 1e-6 in fp32, and within one bf16
 step for bf16 parameters (their fp32 masters at 1e-6).
 """
 
+import copy
 import warnings
 
 import numpy as np
@@ -307,7 +308,7 @@ def test_fused_adam_amp_surface_matches_jax(dtype, master, flat):
                                        atol=1e-6, err_msg=k)
         else:
             assert "master" not in st
-        assert int(st["step"]) == int(jstate.step) == 3
+    assert int(opt.param_groups[0]["step"]) == int(jstate.step) == 3
 
 
 @pytest.mark.parametrize("master", [False, True], ids=["no_master", "master"])
@@ -325,6 +326,7 @@ def test_fused_adam_skip_keeps_everything_bitwise(master):
             p.grad = torch.from_numpy(g).to(torch.bfloat16)
             before = {k: v.clone() if isinstance(v, torch.Tensor) else v
                       for k, v in opt.state[p].items()}
+            step_before = opt.param_groups[0].get("step", 0)
             p_before = p.detach().clone()
             opt.step(skip_update=flag)
             if flag is True:
@@ -332,16 +334,60 @@ def test_fused_adam_skip_keeps_everything_bitwise(master):
                 for k, v in before.items():
                     assert torch.equal(torch.as_tensor(opt.state[p][k]),
                                        torch.as_tensor(v)), k
-        return p.detach(), opt.state[p]
+                assert int(opt.param_groups[0]["step"]) == int(step_before)
+        return p.detach(), opt.state[p], opt.param_groups[0]["step"]
 
-    p_none, st_none = run([None, None, None])
-    p_false, st_false = run([False, False, False])
+    p_none, st_none, step_none = run([None, None, None])
+    p_false, st_false, step_false = run([False, False, False])
     assert torch.equal(p_none, p_false)
     for k in ("exp_avg", "exp_avg_sq"):
         assert torch.equal(st_none[k], st_false[k])
-    assert st_none["step"] == int(st_false["step"]) == 3
-    p_skip, st_skip = run([False, True, False])
-    assert int(st_skip["step"]) == 2
+    assert step_none == int(step_false) == 3
+    p_skip, st_skip, step_skip = run([False, True, False])
+    assert int(step_skip) == 2
+
+
+@pytest.mark.parametrize("skip", [None, False],
+                         ids=["host_count", "device_count"])
+def test_fused_adam_counts_steps_per_group_when_a_gradient_comes_late(skip):
+    """One step count per parameter group, as Apex keeps it: the first
+    parameter has no gradient at step 1, so its state starts at step 2,
+    where it must take the group's bias corrections (t = 2), not restart
+    them.  JAX gets a zero gradient where the port has none (a zero
+    gradient leaves Adam's first update at 0, as ``None`` does).  With a
+    ``skip_update`` flag the count is a device tensor; ``state_dict``
+    carries it, and a loaded optimizer steps on as the first one does."""
+    init = [np.array([1.0, -2.0], np.float32),
+            np.array([0.5, 3.0], np.float32)]
+    schedule = [[None, [0.3, -0.2]], [[0.1, 0.4], [-0.1, 0.2]]]
+    jopt = JaxFusedAdam(lr=0.1)
+    jp = [jnp.asarray(x) for x in init]
+    jstate = jopt.init(jp)
+    ps = [torch.nn.Parameter(torch.from_numpy(x.copy())) for x in init]
+    opt = FusedAdam(ps, lr=0.1)
+    for grads in schedule:
+        jg = [jnp.zeros(2, jnp.float32) if g is None
+              else jnp.asarray(g, jnp.float32) for g in grads]
+        jp, jstate = jopt.step(jg, jstate, jp)
+        for p, g in zip(ps, grads):
+            p.grad = None if g is None else torch.tensor(g)
+        opt.step(skip_update=skip)
+    for p, j, want in zip(ps, jp, [[0.92559, -2.07441], [0.35998, 3.09474]]):
+        np.testing.assert_allclose(p.detach().numpy(), _np(j), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(p.detach().numpy(), want, atol=1e-5)
+    assert int(opt.param_groups[0]["step"]) == int(jstate.step) == 2
+
+    copies = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    loaded = FusedAdam(copies, lr=0.1)
+    loaded.load_state_dict(copy.deepcopy(opt.state_dict()))   # as saved
+    assert int(loaded.param_groups[0]["step"]) == 2
+    for o, params in ((opt, ps), (loaded, copies)):
+        for p, g in zip(params, ([0.2, -0.1], [0.05, 0.3])):
+            p.grad = torch.tensor(g)
+        o.step(skip_update=skip)
+    assert all(torch.equal(a, b) for a, b in zip(ps, copies))
+    assert int(loaded.param_groups[0]["step"]) == 3
 
 
 def test_compare_traces_reports_a_differing_loss_scale():
@@ -438,5 +484,5 @@ def test_amp_train_step_o2_matches_the_jax_composition():
         {k: [got[k][i] for i in keep] for k in got},
         {k: [want[k][i] for i in keep] for k in want},
         loss_rtol=1e-3, grad_rtol=1e-2)
-    step = opt.state[next(model.parameters())]["step"]
+    step = opt.param_groups[0]["step"]
     assert int(step) == jsteps == len(keep)

@@ -18,9 +18,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from apex_tpu_torch.ops import flash_attention as fa
-
-# the module (apex_tpu.ops re-exports a function under the same name)
+# the modules (each ops package re-exports a function under the same name)
+fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 jax_fa = importlib.import_module("apex_tpu.ops.flash_attention")
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -7,6 +7,7 @@ Initial weights come from the JAX model's init and cross over through
 :func:`from_flax_gpt`; other inputs come from numpy seeds.
 """
 
+import importlib
 import json
 from pathlib import Path
 
@@ -17,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from apex_tpu.amp import fp8 as jfp8
 from apex_tpu.normalization.fused_layer_norm import (
     fused_layer_norm_affine as jax_layer_norm,
 )
@@ -25,11 +27,11 @@ from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
 from apex_tpu.testing import l1 as jax_l1
 from apex_tpu.transformer.testing import GPTModel as JaxGPTModel
 from apex_tpu.transformer.testing import TransformerConfig as JaxConfig
+from apex_tpu_torch.amp import fp8
 from apex_tpu_torch.normalization import fused_layer_norm_affine
-from apex_tpu_torch.ops import flash_attention as fa
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.optimizers import FusedAdam
-from apex_tpu_torch.serving.bridge import from_flax_gpt
+from apex_tpu_torch.serving.bridge import from_flax_fp8_meta, from_flax_gpt
 from apex_tpu_torch.testing import l1
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     init_gpt_params,
@@ -38,6 +40,9 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+
+# the module (apex_tpu_torch.ops re-exports the function under its name)
+fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
 VOCAB = 128
 GPT = dict(hidden_size=64, num_layers=2, num_attention_heads=4,
@@ -322,6 +327,195 @@ def test_trace_matches_the_stored_baseline(name, tols):
     with jax.threefry_partitionable(False):
         got = _port_trace(name)
     assert not l1.compare_traces(got, baseline, **tols)
+
+
+# gpt_fp8 against the JAX package.  fp8 rounding makes the trace chaotic
+# in its last bits: an fp32 sum that two implementations take in other
+# orders (the same function to a few ulps) can land a value on the other
+# side of an e4m3 or e5m2 rounding step, which moves that element by a
+# whole fp8 step (6-25%), and the next steps carry it on.  The JAX package
+# against itself, from initial weights each moved by at most one ulp
+# (test_jax_fp8_trace_parts_from_itself_beyond_the_defaults), parts by
+# 2.0e-4 in loss, 8.4e-3 in gradient norm and 3.0e-2 in the final scales
+# over the ten steps; JAX 0.9 is 1.63e-4 / 1.79e-2 from the stored
+# gpt_fp8.json (ISSUE 11's reading).  So no fp32 reimplementation can be
+# held to compare_traces' defaults over ten steps: the traces are held at
+# the stored-baseline limits below, above both spreads, the final scales
+# at 1e-1, and the first step, before such a step can grow, tightly.
+FP8_TRACE_TOL = dict(loss_rtol=5e-4, grad_rtol=5e-2)
+FP8_SCALE_RTOL = 1e-1
+
+
+def _jax_fp8_run():
+    """``run_trace("gpt_fp8")`` with the outputs of each of its jitted
+    steps kept, ``(params, optimizer state, fp8 metas, loss, grads)``,
+    and the jitted step itself."""
+    steps, jitted = [], []
+    real_jit = jax.jit
+
+    def spy(fun, *args, **kwargs):
+        compiled = real_jit(fun, *args, **kwargs)
+        if getattr(fun, "__name__", "") != "step":
+            return compiled
+        jitted.append(compiled)
+
+        def run(*a):
+            out = compiled(*a)
+            steps.append(out)
+            return out
+        return run
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", spy)
+        trace = jax_l1.run_trace("gpt_fp8")
+    assert len(steps) == jax_l1.ITERS and len(jitted) == 1
+    return trace, steps, jitted[0]
+
+
+@pytest.fixture(scope="module")
+def jax_fp8():
+    """The live JAX ``gpt_fp8`` run, once for the module."""
+    return _jax_fp8_run()
+
+
+def _fp8_port_model(params):
+    model = GPTModel(l1.trace_config("gpt_fp8"), device="cpu")
+    model.load_params(from_flax_gpt(jax.tree_util.tree_map(np.asarray,
+                                                           params)))
+    return model
+
+
+def _jax_fp8_init():
+    """``_trace_gpt``'s initial weights and tokens, under the current JAX
+    PRNG mode."""
+    jcfg = JaxConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0,
+                     tensor_axis=None, fp8=True)
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (4, 32), 0, VOCAB)
+    params = JaxGPTModel(jcfg).init(jax.random.PRNGKey(2), tokens)["params"]
+    return params, tokens
+
+
+def _port_fp8_trace():
+    params, tokens = _jax_fp8_init()
+    return l1.run_trace("gpt_fp8", device="cpu", params=from_flax_gpt(
+        jax.tree_util.tree_map(np.asarray, params)),
+        tokens=torch.from_numpy(np.array(tokens)), with_fp8_meta=True)
+
+
+def test_fp8_trace_matches_live_jax(jax_fp8):
+    """Ten FusedAdam steps of ``gpt_fp8`` against a live JAX
+    ``run_trace("gpt_fp8")`` from the same weights: the first step's loss
+    and gradient norm at 1e-6, the trace at the limits above, and the
+    final metas: the same buffers, scales within ``FP8_SCALE_RTOL``."""
+    want, steps, _ = jax_fp8
+    got, metas = _port_fp8_trace()
+    np.testing.assert_allclose(got["loss"][0], want["loss"][0], rtol=1e-6)
+    np.testing.assert_allclose(got["grad_norm"][0], want["grad_norm"][0],
+                               rtol=1e-6)
+    assert not l1.compare_traces(got, want, **FP8_TRACE_TOL)
+    assert want["loss"][0] - want["loss"][-1] > 0.5
+    jmetas = from_flax_fp8_meta(jax.tree_util.tree_map(np.asarray,
+                                                       steps[-1][2]))
+    assert set(metas) == set(jmetas) and len(metas) == 32
+    for k, v in jmetas.items():
+        if k.endswith(".scale"):
+            np.testing.assert_allclose(metas[k].numpy(), v.numpy(),
+                                       rtol=FP8_SCALE_RTOL, err_msg=k)
+
+
+def test_fp8_first_step_matches_jax(jax_fp8):
+    """One step of ``gpt_fp8`` from the JAX run's initial weights and
+    metas: every gradient at 1e-5 of its largest value, the rolled metas
+    at 1e-6 (the amaxes of activations that the two sides compute in
+    other orders), and the quantized weights of the second step (the
+    stepped weights under the rolled scales) bit for bit JAX's."""
+    _, steps, _ = jax_fp8
+    params, tokens = _jax_fp8_init()
+    model = _fp8_port_model(params)
+    opt = FusedAdam(model.parameters(), lr=1e-3)
+    t = torch.from_numpy(np.array(tokens))
+    l1.train_step(model, opt, t)
+    jparams, _, jmeta_tree, _, jgrads = steps[0]
+    jgrads = _flat(jax.tree_util.tree_map(np.asarray, dict(jgrads)))
+    named = dict(model.named_parameters())
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(named[_port_name(k)].grad.numpy(), g,
+                                   rtol=1e-5, atol=1e-5 * np.abs(g).max(),
+                                   err_msg=k)
+    jmetas = from_flax_fp8_meta(jax.tree_util.tree_map(np.asarray,
+                                                       jmeta_tree))
+    metas = model.fp8_meta_state()
+    for k, v in jmetas.items():
+        np.testing.assert_allclose(metas[k].numpy(), v.numpy(), rtol=1e-6,
+                                   err_msg=k)
+    jkernels = _flat(jax.tree_util.tree_map(np.asarray, dict(jparams)))
+    n = 0
+    for name, mod in model.named_modules():
+        if getattr(mod, "fp8_meta", None) is None:
+            continue
+        got = fp8._quantize(mod.kernel.detach(), mod.fp8_meta.w.scale,
+                            fp8.E4M3)
+        flax = name.replace("layers.", "layers_")
+        want = jfp8._quantize(
+            jnp.asarray(jkernels[f"{flax}.kernel"]),
+            jnp.asarray(jmetas[f"{name}.fp8_meta.w.scale"]), jfp8.E4M3)
+        np.testing.assert_array_equal(got.view(torch.uint8).numpy(),
+                                      np.asarray(want).view(np.uint8))
+        n += 1
+    assert n == 8
+
+
+def test_jax_fp8_trace_parts_from_itself_beyond_the_defaults(jax_fp8):
+    """The measurement behind the limits above: JAX's own ``gpt_fp8``
+    step (the live run's, compiled once) from initial weights each moved
+    by at most one ulp (seeded) fails ``compare_traces``' defaults against
+    the live trace, and holds the fp8 limits, final scales included."""
+    want, steps, step = jax_fp8
+    params, tokens = _jax_fp8_init()
+    rng = np.random.default_rng(0)
+
+    def nudge(x):
+        x = np.asarray(x)
+        d = rng.integers(-1, 2, x.shape)
+        up = np.nextafter(x, np.float32(np.inf))
+        down = np.nextafter(x, np.float32(-np.inf))
+        return jnp.asarray(np.where(d > 0, up, np.where(d < 0, down, x)))
+
+    jcfg = JaxConfig(**GPT, hidden_dropout=0.0, attention_dropout=0.0,
+                     tensor_axis=None, fp8=True)
+    metas = dict(JaxGPTModel(jcfg).init(jax.random.PRNGKey(2),
+                                        tokens)["fp8_meta"])
+    p = jax.tree_util.tree_map(nudge, params)
+    state = JaxFusedAdam(lr=1e-3).init(p)
+    got = {"loss": [], "grad_norm": []}
+    for _ in range(jax_l1.ITERS):
+        p, state, metas, loss, grads = step(p, state, metas)
+        got["loss"].append(float(loss))
+        got["grad_norm"].append(jax_l1._global_grad_norm(grads))
+    assert l1.compare_traces(got, want)
+    assert not l1.compare_traces(got, want, **FP8_TRACE_TOL)
+    final = from_flax_fp8_meta(jax.tree_util.tree_map(np.asarray, metas))
+    live = from_flax_fp8_meta(jax.tree_util.tree_map(np.asarray,
+                                                     steps[-1][2]))
+    for k, v in live.items():
+        if k.endswith(".scale"):
+            np.testing.assert_allclose(final[k].numpy(), v.numpy(),
+                                       rtol=FP8_SCALE_RTOL, err_msg=k)
+
+
+def test_fp8_trace_matches_the_stored_baseline():
+    """The port's ``gpt_fp8`` from the baseline's initial weights (drawn
+    under the old threefry mode, as for ``gpt_smoke``) against
+    ``tests/L1/baselines/gpt_fp8.json`` at the limits above; the live JAX
+    trace from the same weights is within them too, so a failure here is
+    the port's and not the stored file's age."""
+    path = Path(__file__).parent / "L1" / "baselines" / "gpt_fp8.json"
+    baseline = json.loads(path.read_text())
+    with jax.threefry_partitionable(False):
+        got, _ = _port_fp8_trace()
+        live = jax_l1.run_trace("gpt_fp8")
+    assert not l1.compare_traces(live, baseline, **FP8_TRACE_TOL)
+    assert not l1.compare_traces(got, baseline, **FP8_TRACE_TOL)
 
 
 def test_dropout_is_seeded_by_the_generator():
