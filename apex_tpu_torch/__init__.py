@@ -27,6 +27,12 @@ Ported so far:
   skip_update=)``;
 - speculative k+1 verify and multi-LoRA serving, with the gathered
   LoRA-delta kernel (``csrc/lora_delta.cu``);
+- tensor, sequence and data parallelism over ``torch.distributed``
+  (:mod:`apex_tpu_torch.parallel`: the rank grid, the collectives,
+  ``DistributedDataParallel``; :mod:`apex_tpu_torch.transformer.
+  tensor_parallel`: the mapping regions, the parallel layers, the
+  vocab-parallel cross entropy), with the standalone GPT holding a
+  rank's shards (NCCL on the card, gloo on the CPU);
 - the normalization API (:mod:`apex_tpu_torch.normalization`: fused
   LayerNorm and RMSNorm, affine or not, mixed-dtype modules, the
   memory-efficient backward) and the row-norm entry points
@@ -41,4 +47,4 @@ runs instead.
 """
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
-           "amp", "testing"]
+           "amp", "parallel", "testing"]

@@ -34,8 +34,11 @@ scales it used; the metas are rolled by *replacing* their tensors, never
 by writing into them, so a backward always sees its own forward's
 scales.
 
-Sharing the amax over a model-parallel group (``axis=``) waits for the
-port's tensor parallelism (ROADMAP.md, section A.2) and raises.
+With ``axis=`` (a tensor-parallel axis name, see
+:mod:`apex_tpu_torch.parallel`) :func:`update_meta` takes the MAX of
+the step's amax over the axis's ranks before it rolls it in, so every
+rank of the group keeps the same scales, as the reference's ``pmax``
+does.
 """
 
 from __future__ import annotations
@@ -62,13 +65,6 @@ _ALIGN = 16
 # since the counts were last set to 0
 FWD_GEMMS = 0
 BWD_GEMMS = 0
-
-
-def _no_axis(axis) -> None:
-    if axis is not None:
-        raise NotImplementedError(
-            "sharing the fp8 amax over a model-parallel axis waits for the "
-            "port's tensor parallelism (ROADMAP.md, section A.2)")
 
 
 class Fp8Meta(NamedTuple):
@@ -116,10 +112,14 @@ def update_meta(meta: Fp8Meta, amax_now, dtype=E4M3,
     """Roll the amax history and refresh the scale: a new :class:`Fp8Meta`
     (the old one is left as it was).  An amax of 0 keeps the old scale, as
     does a NaN one; an infinite amax gives the scale 0, as in the
-    reference."""
-    _no_axis(axis)
+    reference.  With ``axis`` the amax is first all-reduced (MAX) over
+    that axis's ranks."""
     amax_now = torch.as_tensor(amax_now, dtype=torch.float32,
                                device=meta.scale.device).detach().reshape(())
+    if axis is not None:
+        from apex_tpu_torch.parallel.collectives import all_reduce
+
+        amax_now = all_reduce(amax_now, axis, "max")
     hist = torch.cat([amax_now[None], meta.amax_history[:-1]])
     amax = hist.max()
     scale = torch.where(amax > 0, _max_over(dtype, amax * _MARGIN),
@@ -300,10 +300,11 @@ class Fp8MetaState(nn.Module):
         return {"x": self.x.meta, "w": self.w.meta}
 
     @torch.no_grad()
-    def roll(self, x, w) -> None:
-        """Roll both metas with this step's amaxes of ``x`` and ``w``."""
-        self.x.set(update_meta(self.x.meta, _amax(x), E4M3))
-        self.w.set(update_meta(self.w.meta, _amax(w), E4M3))
+    def roll(self, x, w, axis: Optional[str] = None) -> None:
+        """Roll both metas with this step's amaxes of ``x`` and ``w``
+        (their MAX over ``axis`` where given)."""
+        self.x.set(update_meta(self.x.meta, _amax(x), E4M3, axis))
+        self.w.set(update_meta(self.w.meta, _amax(w), E4M3, axis))
 
 
 def _lecun_normal_(t) -> None:
@@ -323,7 +324,8 @@ class Fp8Dense(nn.Module):
     :attr:`fp8_meta` (:class:`Fp8MetaState` buffers, in ``state_dict()``)
     and roll after the GEMM in ``training`` mode only: an ``eval()``
     forward leaves them as they were, as the reference's ``apply`` without
-    a mutable ``"fp8_meta"`` does.  ``device`` defaults to the CUDA
+    a mutable ``"fp8_meta"`` does; with ``axis`` their amaxes are shared
+    (MAX) over that axis's ranks.  ``device`` defaults to the CUDA
     device."""
 
     def __init__(self, in_features: int, features: int, *,
@@ -331,9 +333,9 @@ class Fp8Dense(nn.Module):
                  axis: Optional[str] = None, param_dtype=torch.float32,
                  device=None):
         super().__init__()
-        _no_axis(axis)
         device = resolve_device(device)
         self.features = features
+        self.axis = axis
         self.kernel = nn.Parameter(torch.empty(
             in_features, features, dtype=param_dtype, device=device))
         _lecun_normal_(self.kernel.data)
@@ -347,7 +349,7 @@ class Fp8Dense(nn.Module):
         m = self.fp8_meta.metas()
         y = fp8_matmul_t(x2d, self.kernel.t(), m["x"], m["w"])
         if self.training:
-            self.fp8_meta.roll(x2d, self.kernel)
+            self.fp8_meta.roll(x2d, self.kernel, self.axis)
         y = y.reshape(*x.shape[:-1], self.features)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

@@ -41,8 +41,8 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
 )
 
 __all__ = ["ITERS", "CONFIGS", "trace_config", "trace_gpt", "run_trace",
-           "train_step", "amp_train_step", "apply_policy", "global_grad_norm",
-           "compare_traces"]
+           "train_step", "parallel_train_step", "amp_train_step",
+           "apply_policy", "global_grad_norm", "compare_traces"]
 
 ITERS = 10
 # the JAX package's GPT trace configs (testing/l1.py CONFIGS), by name
@@ -92,6 +92,31 @@ def train_step(model: GPTModel, opt: torch.optim.Optimizer, tokens,
     opt.zero_grad(set_to_none=True)
     loss = model(tokens, labels=tokens, generator=generator).mean()
     loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def parallel_train_step(ddp, opt: torch.optim.Optimizer, tokens,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """:func:`train_step` on a rank of a data-, tensor- and
+    sequence-parallel grid: ``ddp`` (a
+    :class:`~apex_tpu_torch.parallel.DistributedDataParallel` around a
+    :class:`GPTModel` built on the grid) runs this rank's batch slice
+    ``tokens``; after the backward the sequence-parallel parameters'
+    gradients are summed over the tensor axis and every gradient is
+    averaged over the data axes; ``opt`` steps this rank's shards.
+    Returns this rank's loss (on the device)."""
+    from apex_tpu_torch.transformer.layers import (
+        allreduce_sequence_parallel_gradients,
+    )
+
+    opt.zero_grad(set_to_none=True)
+    loss = ddp(tokens, labels=tokens, generator=generator).mean()
+    loss.backward()
+    model = ddp.module
+    allreduce_sequence_parallel_gradients(model, model.config.tensor_axis)
+    ddp.reduce_gradients()
     opt.step()
     return loss.detach()
 

@@ -2,11 +2,14 @@
 :mod:`apex_tpu.transformer.amp.grad_scaler`).
 
 :class:`GradScaler` is :class:`~apex_tpu_torch.amp.DynamicLossScale`
-with ``hysteresis=2`` and an :meth:`GradScaler.all_finite` that the
-reference reduces (MAX of the overflow flag) over the model-parallel
-ranks, so that an overflow on any shard skips the step on all of them.
-The port runs at world size 1, where that agreement is the local flag;
-the cross-rank reduction arrives with the 3D-parallel slice.
+with ``hysteresis=2`` and an :meth:`GradScaler.all_finite` that agrees
+over the model-parallel ranks: with tensor or pipeline parallelism each
+rank checks only its shard's gradients, and an overflow on any shard
+must skip the step on all of them, or the replicas part.  The flag's MIN
+over the model-parallel axes of the grid
+(:func:`apex_tpu_torch.parallel.initialize_model_parallel`) is that
+agreement, as the reference's ``pmin`` is; an axis of one rank, or no
+grid at all, needs none.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from apex_tpu_torch.amp.scaler import DynamicLossScale, all_finite
+from apex_tpu_torch.parallel.collectives import all_reduce, bound_axis_size
+from apex_tpu_torch.parallel.mesh import PIPELINE_AXIS, TENSOR_AXIS
 
 __all__ = ["GradScaler"]
 
@@ -28,15 +33,16 @@ class GradScaler(DynamicLossScale):
     tensor and pipeline axes)."""
 
     hysteresis: int = 2
-    model_parallel_axes: Tuple[str, ...] = ("tp", "pp")
+    model_parallel_axes: Tuple[str, ...] = (TENSOR_AXIS, PIPELINE_AXIS)
 
     def all_finite(self, grads, *, axes: Optional[Sequence[str]] = None):
-        """The local overflow check; at world size 1 it is also the
-        agreement over every model-parallel rank."""
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "the cross-rank overflow agreement is not ported yet "
-                "(ROADMAP.md, section A.3)")
-        return all_finite(grads)
+        """The local overflow check (a 0-d bool tensor), then its MIN over
+        ``axes`` (default ``model_parallel_axes``), those of them with
+        more than one rank."""
+        finite = all_finite(grads)
+        use = self.model_parallel_axes if axes is None else tuple(axes)
+        bound = tuple(ax for ax in use if bound_axis_size(ax) > 1)
+        if bound:
+            flag = all_reduce(finite.to(torch.int32), bound, "min")
+            finite = flag > 0
+        return finite

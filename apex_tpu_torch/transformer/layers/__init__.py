@@ -7,6 +7,7 @@ from apex_tpu_torch.transformer.layers.layer_norm import (
     FusedRMSNorm,
     MixedFusedLayerNorm,
     MixedFusedRMSNorm,
+    allreduce_sequence_parallel_gradients,
     mark_sequence_parallel_params,
 )
 
@@ -16,5 +17,6 @@ __all__ = [
     "FusedRMSNorm",
     "MixedFusedLayerNorm",
     "MixedFusedRMSNorm",
+    "allreduce_sequence_parallel_gradients",
     "mark_sequence_parallel_params",
 ]

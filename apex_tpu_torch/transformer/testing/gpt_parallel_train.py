@@ -8,8 +8,12 @@ initialiser with the same distributions as the Flax init (normal with
 ``init_method_std`` for the embeddings and the input-facing kernels,
 ``std / sqrt(2 * num_layers)`` for the output-facing ones, zero biases,
 unit LayerNorm scales), drawn from a ``torch.Generator`` seeded by the
-caller.  The 3D-parallel training step is not ported yet (the
-single-device step is :func:`apex_tpu_torch.testing.l1.train_step`).
+caller.  The single-device step is
+:func:`apex_tpu_torch.testing.l1.train_step`, the data-, tensor- and
+sequence-parallel one :func:`apex_tpu_torch.testing.l1.
+parallel_train_step` (a rank's shards cut by
+:func:`apex_tpu_torch.transformer.tensor_parallel.shard_params`); the
+pipelined 3D step (``build_gpt_3d``) is not ported yet.
 """
 
 from __future__ import annotations

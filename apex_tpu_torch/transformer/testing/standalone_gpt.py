@@ -6,7 +6,10 @@ returns per-token next-token losses ``[b, s - 1]``.  The loss flattens the
 ``[s, b, v]`` logits in their own s-major order (only the small labels and
 losses are transposed) and feeds half logits to the fused cross entropy
 in their storage dtype, with fp32 losses out (``half_to_float``); the big
-logits tensor is never transposed or upcast as a whole.
+logits tensor is never transposed or upcast as a whole.  At tensor-parallel
+size tp > 1 the logits are this rank's vocabulary shard and the loss is
+:func:`~apex_tpu_torch.transformer.tensor_parallel.vocab_parallel_cross_entropy`
+over the tensor axis.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ from torch import nn
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops.softmax import AttnMaskType
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     GPT3DParams,
     merge_layer_stack,
@@ -28,6 +34,12 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
 )
 
 __all__ = ["GPTModel", "gpt_loss", "gpt_next_token_loss"]
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def _flatten(tree, prefix=""):
@@ -59,7 +71,9 @@ class GPTModel(nn.Module):
     def load_params(self, params: GPT3DParams) -> None:
         """Copy a :class:`GPT3DParams` in (layer stack ``[L, ...]`` or
         ``[vpp, pp, ...]``), cast to each parameter's dtype; the fp8
-        buffers, if any, are left as they are."""
+        buffers, if any, are left as they are.  At tensor-parallel size
+        tp > 1 the leaves are this rank's shards
+        (:func:`~apex_tpu_torch.transformer.tensor_parallel.shard_params`)."""
         n = self.config.num_layers
         state = _flatten(params.embedding, "language_model.embedding.")
         for name, t in _flatten(merge_layer_stack(params.layers, n)).items():
@@ -72,6 +86,31 @@ class GPTModel(nn.Module):
         if missing or unexpected:
             raise RuntimeError(
                 f"load_params: missing {missing}, unexpected {unexpected}")
+
+    def export_params(self, grads: bool = False) -> GPT3DParams:
+        """The inverse of :meth:`load_params`: this rank's parameters (or,
+        with ``grads``, their ``.grad``, ``None`` where there is none) as
+        a :class:`GPT3DParams` with the layers stacked ``[L, ...]``,
+        detached."""
+        n = self.config.num_layers
+        prefix = "language_model."
+        tree = {"embedding": {}, "layers": {}, "final_ln": {}}
+        per_layer = {}
+        for name, p in self.named_parameters():
+            t = p.grad if grads else p
+            t = None if t is None else t.detach()
+            parts = name[len(prefix):].split(".")
+            if parts[0] == "embedding":
+                _put(tree["embedding"], parts[1:], t)
+            elif parts[1] == "final_layernorm":
+                _put(tree["final_ln"], parts[2:], t)
+            else:
+                per_layer.setdefault(".".join(parts[3:]), [None] * n)[
+                    int(parts[2])] = t
+        for name, ts in per_layer.items():
+            _put(tree["layers"], name.split("."),
+                 None if any(t is None for t in ts) else torch.stack(ts))
+        return GPT3DParams(**tree)
 
     def fp8_meta_state(self) -> dict:
         """The fp8 linears' delayed-scaling buffers, by name (empty
@@ -112,10 +151,15 @@ def gpt_next_token_loss(logits, tokens, config: TransformerConfig):
 
 def gpt_loss(logits, labels, config: TransformerConfig):
     """Per-token LM loss ``[b, s]`` from ``[s, b, v]`` logits through the
-    fused cross entropy (no padding label; fp32 losses)."""
+    fused cross entropy (no padding label; fp32 losses), or at tp > 1
+    from this rank's ``[s, b, v/tp]`` through the vocab-parallel one."""
     v = logits.shape[-1]
     flat = logits.reshape(-1, v)                      # [s*b, v], no copy
     labels_sb = labels.t().reshape(-1)                # [b, s] -> [s*b]
-    loss = softmax_cross_entropy_loss(flat, labels_sb, padding_idx=-1,
-                                      half_to_float=True)
+    if config.tp_world > 1:
+        loss = vocab_parallel_cross_entropy(flat, labels_sb,
+                                            axis=config.tensor_axis)
+    else:
+        loss = softmax_cross_entropy_loss(flat, labels_sb, padding_idx=-1,
+                                          half_to_float=True)
     return loss.reshape(logits.shape[0], labels.shape[0]).t()

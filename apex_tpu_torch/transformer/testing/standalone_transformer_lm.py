@@ -1,12 +1,31 @@
 """Standalone Megatron-style transformer language model.
 
-Port of :mod:`apex_tpu.transformer.testing.standalone_transformer_lm` at
-tensor-parallel size 1: the configuration, the MLP, the attention (fused
-group-major QKV, RoPE, grouped-query K/V, and both cores: the default
-fused-softmax one and the flash one), the pre-LN transformer layer and
-stack, the embedding and the tied LM head.
+Port of :mod:`apex_tpu.transformer.testing.standalone_transformer_lm`:
+the configuration, the MLP, the attention (fused group-major QKV, RoPE,
+grouped-query K/V, and both cores: the default fused-softmax one and the
+flash one), the pre-LN transformer layer and stack, the embedding and
+the tied LM head.
 Activations keep the JAX package's ``[s, b, h]`` (sequence-major) layout
 and the modules its parameter names.
+
+Tensor parallelism: with a grid set up
+(:func:`apex_tpu_torch.parallel.initialize_model_parallel`) and
+``config.tensor_axis`` of size tp > 1, the modules are built at their
+local sizes and hold this rank's shards, as the reference's do inside
+``shard_map``: ``heads / tp`` attention heads and ``query_groups / tp``
+K/V groups (the group-major QKV layout hands each rank whole groups),
+``ffn / tp`` MLP columns, ``vocab / tp`` embedding rows.  The attention
+core (flash or default) runs on the local heads.  A size that tp cannot
+divide raises ``ValueError``, as the reference's ``divide`` does.  With
+``sequence_parallel`` the activations between the tensor-parallel
+regions are this rank's ``[s/tp, b, h]`` sequence shard: the embedding
+reduce-scatters onto it, each column linear all-gathers it, each row
+linear reduce-scatters back, and the LM head gathers it; the LayerNorms,
+the row-parallel biases and the position table are then marked
+``sequence_parallel`` for
+:func:`~apex_tpu_torch.transformer.layers.allreduce_sequence_parallel_gradients`.
+Without a grid, or with ``tensor_axis=None``, the model is the
+single-device one and calls no collective.
 
 Parameters are held in ``config.param_dtype`` and cast to the compute
 ``config.dtype`` on every call (as Flax does); the serving model passes
@@ -26,8 +45,8 @@ delayed-scaling metas as buffers; the embedding and the tied LM head stay
 in the compute dtype (the TransformerEngine recipe).
 
 Not ported yet (ROADMAP.md, section A): cross attention and the decoder
-layer, the pooler, mixture of experts, and tensor, sequence and context
-parallelism.
+layer, the pooler, mixture of experts, context parallelism, and the
+ring-overlapped collective matmul (``overlap_comm``, which raises).
 """
 
 from __future__ import annotations
@@ -43,8 +62,11 @@ from torch import nn
 from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.softmax import AttnMaskType, FusedScaleMaskSoftmax
+from apex_tpu_torch.parallel.collectives import axis_index, bound_axis_size
+from apex_tpu_torch.parallel.mesh import TENSOR_AXIS
 from apex_tpu_torch.transformer.enums import AttnType, LayerType
 from apex_tpu_torch.transformer.rope import apply_rotary, rotary_cos_sin
+from apex_tpu_torch.transformer.tensor_parallel import mappings
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -94,6 +116,12 @@ class TransformerConfig:
     # the transformer layers' GEMMs in fp8 with delayed scaling; the
     # metas roll in training mode only
     fp8: bool = False
+    # the tensor-parallel axis of the grid (None = no tensor parallelism),
+    # and Megatron sequence parallelism over it
+    tensor_axis: Optional[str] = TENSOR_AXIS
+    sequence_parallel: bool = False
+    # the ring-overlapped collective matmul; not ported yet, raises
+    overlap_comm: bool = False
 
     def __post_init__(self):
         if self.position_embedding_type not in ("learned", "rope", "none"):
@@ -131,6 +159,28 @@ class TransformerConfig:
         """Rotated leading channels of each head (even, >= 2)."""
         return max(2, int(self.head_dim * self.rotary_percent) // 2 * 2)
 
+    @property
+    def tp_world(self) -> int:
+        """The tensor axis's size on the grid now (1 without one)."""
+        return bound_axis_size(self.tensor_axis)
+
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism in force: asked for, at tp > 1."""
+        return self.sequence_parallel and self.tp_world > 1
+
+    def parallel_kw(self) -> dict:
+        """The parallel linears' tensor-parallel arguments."""
+        return dict(sequence_parallel=self.sequence_parallel,
+                    axis=self.tensor_axis, overlap_comm=self.overlap_comm)
+
+
+def _mark_sequence_parallel(module: nn.Module) -> None:
+    """Mark ``module``'s parameters as whole on every rank under sequence
+    parallelism: their gradients are summed over the tensor axis."""
+    for p in module.parameters():
+        p.sequence_parallel = True
+
 
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
     """Flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
@@ -153,7 +203,7 @@ class ParallelMLP(nn.Module):
         self.config = cfg
         kw = dict(skip_bias_add=True, dtype=cfg.dtype,
                   param_dtype=param_dtype or cfg.param_dtype, fp8=cfg.fp8,
-                  device=device)
+                  device=device, **cfg.parallel_kw())
         self.dense_h_to_4h = ColumnParallelLinear(
             cfg.hidden_size, cfg.ffn_size, **kw)
         if cfg.swiglu:
@@ -264,8 +314,11 @@ class ParallelAttention(nn.Module):
         self.config = cfg
         n, g, d = cfg.num_attention_heads, cfg.query_groups, cfg.head_dim
         self.hpg = divide(n, g)
+        # this rank's heads and K/V groups
+        self.n_local = divide(n, cfg.tp_world)
+        self.g_local = divide(g, cfg.tp_world)
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, fp8=cfg.fp8,
-                  device=device)
+                  device=device, **cfg.parallel_kw())
         self.query_key_value = ColumnParallelLinear(
             cfg.hidden_size, (n + 2 * g) * d, **kw)
         self.core_attention = CoreAttention(cfg, layer_number, attn_mask_type)
@@ -277,8 +330,8 @@ class ParallelAttention(nn.Module):
         d, hpg = cfg.head_dim, self.hpg
         qkv = self.query_key_value(x)
         s, b = qkv.shape[0], qkv.shape[1]
-        qkv = qkv.reshape(s, b, cfg.query_groups, (hpg + 2) * d)
-        q = qkv[..., :hpg * d].reshape(s, b, cfg.num_attention_heads, d)
+        qkv = qkv.reshape(s, b, self.g_local, (hpg + 2) * d)
+        q = qkv[..., :hpg * d].reshape(s, b, self.n_local, d)
         k = qkv[..., hpg * d:(hpg + 1) * d]
         v = qkv[..., (hpg + 1) * d:]
         if cfg.position_embedding_type == "rope":
@@ -318,6 +371,9 @@ class ParallelTransformerLayer(nn.Module):
         self.post_attention_layernorm = FusedLayerNorm(
             cfg.hidden_size, cfg.layernorm_epsilon, **ln)
         self.mlp = ParallelMLP(cfg, device=device)
+        if cfg.sp:
+            _mark_sequence_parallel(self.input_layernorm)
+            _mark_sequence_parallel(self.post_attention_layernorm)
 
     def forward(self, x, mask=None, generator=None, segment_ids=None):
         cfg = self.config
@@ -350,6 +406,8 @@ class ParallelTransformer(nn.Module):
             FusedLayerNorm(cfg.hidden_size, cfg.layernorm_epsilon,
                            param_dtype=cfg.param_dtype, device=device)
             if post_process else None)
+        if cfg.sp and self.final_layernorm is not None:
+            _mark_sequence_parallel(self.final_layernorm)
 
     def forward(self, x, mask=None, generator=None, segment_ids=None):
         for layer in self.layers:
@@ -376,7 +434,7 @@ class _PositionTable(nn.Module):
 class Embedding(nn.Module):
     """Word (+ learned position) embeddings + hidden dropout:
     ``token_ids [b, s]`` -> ``[s, b, h]`` (contiguous), in the compute
-    dtype."""
+    dtype; under sequence parallelism this rank's ``[s/tp, b, h]``."""
 
     def __init__(self, config: TransformerConfig, *, param_dtype=None,
                  device=None):
@@ -387,24 +445,39 @@ class Embedding(nn.Module):
         kw = dict(dtype=cfg.dtype, param_dtype=param_dtype or cfg.param_dtype,
                   device=device)
         self.word_embeddings = VocabParallelEmbedding(
-            cfg.padded_vocab_size, cfg.hidden_size, **kw)
+            cfg.padded_vocab_size, cfg.hidden_size, axis=cfg.tensor_axis,
+            reduce_scatter_embeddings=cfg.sp, **kw)
         if self.learned_positions:
             self.position_embeddings = _PositionTable(
                 cfg.max_position_embeddings, cfg.hidden_size, **kw)
+            if cfg.sp:
+                _mark_sequence_parallel(self.position_embeddings)
 
     def forward(self, token_ids, position_ids=None, generator=None):
         if position_ids is not None and not self.learned_positions:
             raise NotImplementedError(
                 "custom position_ids are only honored with "
                 "position_embedding_type='learned'")
-        words = self.word_embeddings(token_ids)          # [b, s, h]
-        if self.learned_positions:
-            if position_ids is None:
-                position_ids = torch.arange(
-                    token_ids.shape[1], device=token_ids.device)[None, :]
-            words = words + self.position_embeddings(position_ids)
-        x = words.transpose(0, 1).contiguous()           # [s, b, h]
-        return dropout(x, self.config.hidden_dropout, generator)
+        cfg = self.config
+        words = self.word_embeddings(token_ids)   # [b, s, h]; SP [s/tp, b, h]
+        if self.learned_positions and position_ids is None:
+            position_ids = torch.arange(
+                token_ids.shape[1], device=token_ids.device)[None, :]
+        if cfg.sp:
+            x = words
+            if self.learned_positions:
+                # this rank's positions only: the table's gradient is a
+                # partial sum, summed over the tensor axis afterwards
+                n = x.shape[0]
+                start = axis_index(cfg.tensor_axis) * n
+                x = x + self.position_embeddings(
+                    position_ids[:, start:start + n]).transpose(0, 1)
+            x = x.contiguous()
+        else:
+            if self.learned_positions:
+                words = words + self.position_embeddings(position_ids)
+            x = words.transpose(0, 1).contiguous()       # [s, b, h]
+        return dropout(x, cfg.hidden_dropout, generator)
 
 
 class TransformerLanguageModel(nn.Module):
@@ -427,5 +500,15 @@ class TransformerLanguageModel(nn.Module):
 
 def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig):
     """Tied LM head: ``hidden [s, b, h]`` against the embedding table
-    ``[vocab, h]`` -> ``[s, b, vocab]`` in ``hidden``'s dtype."""
+    ``[vocab, h]`` -> ``[s, b, vocab]`` in ``hidden``'s dtype.  At tp > 1
+    the table is this rank's ``[vocab/tp, h]`` shard and so are the
+    logits; ``hidden`` enters the tensor-parallel region first (under
+    sequence parallelism all-gathered from its sequence shards)."""
+    cfg = config
+    if cfg.sp:
+        hidden = mappings.gather_from_sequence_parallel_region(
+            hidden, cfg.tensor_axis, True)
+    elif cfg.tp_world > 1:
+        hidden = mappings.copy_to_tensor_model_parallel_region(
+            hidden, cfg.tensor_axis)
     return torch.matmul(hidden, word_embeddings.to(hidden.dtype).t())

@@ -157,11 +157,31 @@ Phases (any failure exits non-zero; none is caught):
    card and on the CPU from the same weights, within ``FP8_TRACE_TOL``
    and the final scales within ``FP8_SCALE_RTOL`` (fp8 rounding grows
    one-ulp differences of the fp32 sums; the limits come from the JAX
-   package's own spread).
+   package's own spread);
+11. tensor, sequence and data parallelism (``apex_tpu_torch.parallel``,
+   ``transformer.tensor_parallel``) at world size 1 over a real NCCL
+   process group (one card: two NCCL ranks cannot share it; the
+   multi-rank parity runs on gloo CPU ranks in the tests): every function
+   of ``parallel/collectives.py`` and every mapping region, forward and
+   backward, on CUDA tensors, each giving back its input bit for bit with
+   its collectives counted; ``vocab_parallel_cross_entropy`` at
+   GPT-124M's LM-head shape (8192 x 50304 bf16 logits, smoothing 0 and
+   0.1) against ``softmax_cross_entropy_loss`` at the reference's
+   smoothing ``s * V / (V - 1)`` (loss within 1e-5 relative, gradient
+   within 1e-5 of its RMS), with the forward + backward device times of
+   both and of ``F.cross_entropy``; then GPT-124M at phase 5's widths,
+   weights and batch with ``tensor_axis="tp"``, ``sequence_parallel=True``
+   and the flash core through ``DistributedDataParallel`` and FusedAdam
+   (``l1.parallel_train_step``), 2 warm-up and 8 timed steps: F1-F3 12
+   times a step on tc, one DDP all-reduce a step and no other collective,
+   losses finite and falling, the first within 2e-2 of phase 5's, the step
+   time beside phase 5's, and both steps again in alternating blocks
+   (plain, parallel, parallel, plain; four rounds of four steps) for
+   medians on one host clock; one profiled step with NCCL's device time.
 
-The lines before the last hold a ``{"fp8_gemms": {...}}`` and a
-``{"kernels": [...]}`` JSON object and the ``nvidia-smi`` name/power line;
-the last line is the JSON result.
+The lines before the last hold a ``{"fp8_gemms": {...}}``, a
+``{"parallel": {...}}`` and a ``{"kernels": [...]}`` JSON object and the
+``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
 """
@@ -2732,6 +2752,327 @@ def fp8_phase(torch, fa, flash_first_loss, flash_step):
     return counts
 
 
+# ------------------------------ phase 11: parallel at world size 1
+
+PAR_ROWS = TRAIN_BATCH * SEQ        # GPT-124M's LM-head rows
+PAR_VOCAB = 50304
+PAR_XENT_TOL = 1e-5                 # loss (relative); gradient, of its RMS
+# the collectives each mapping region issues: (forward, backward)
+REGION_CALLS = {
+    "copy_to_tensor_model_parallel_region": ({}, {"all_reduce": 1}),
+    "reduce_from_tensor_model_parallel_region": ({"all_reduce": 1}, {}),
+    "scatter_to_tensor_model_parallel_region": ({}, {"all_gather": 1}),
+    "gather_from_tensor_model_parallel_region": ({"all_gather": 1}, {}),
+    "scatter_to_sequence_parallel_region": ({}, {"all_gather": 1}),
+    "gather_from_sequence_parallel_region": (
+        {"all_gather": 1}, {"reduce_scatter": 1}),
+    "reduce_scatter_to_sequence_parallel_region": (
+        {"reduce_scatter": 1}, {"all_gather": 1}),
+}
+
+
+def calls_since(cc, before):
+    return {k: v - before.get(k, 0) for k, v in cc.CALLS.items()
+            if v != before.get(k, 0)}
+
+
+def check_collectives(torch, cc):
+    """Every function of ``parallel/collectives.py`` on CUDA tensors over
+    a one-rank NCCL group: each gives back its input bit for bit, and
+    each kind's counter moves."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1024, HIDDEN, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    tp, dp = "tp", ("dcn", "dp")
+    cc.zero_counts()
+    outs = {
+        "all_reduce sum": (cc.all_reduce(x, tp), x),
+        "all_reduce mean": (cc.all_reduce(x, dp, "mean"), x),
+        "all_reduce max": (cc.all_reduce(x, tp, "max"), x),
+        "all_reduce min": (cc.all_reduce(x.float(), dp, "min"), x.float()),
+        "all_gather tiled": (cc.all_gather(x, tp, concat_axis=1), x),
+        "all_gather stacked": (cc.all_gather(x, dp, tiled=False), x[None]),
+        "reduce_scatter": (cc.reduce_scatter(x, tp, scatter_axis=1), x),
+        "broadcast": (cc.broadcast(x, dp, root=0), x),
+        "ppermute": (cc.ppermute(x, tp, [(0, 0)]), x),
+        "send_recv_next": (cc.send_recv_next(x, tp), x),
+        "send_recv_prev": (cc.send_recv_prev(x, dp), x),
+        "all_to_all": (cc.all_to_all(x, tp, split_axis=0, concat_axis=1), x),
+        "ring_chunks": (cc.ring_chunks(x, tp, dim=0), x[None]),
+    }
+    torch.cuda.synchronize()
+    calls = dict(cc.CALLS)
+    for name, (got, want) in outs.items():
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"collective {name} gives back its input bit for bit at one "
+              f"rank")
+    check(calls == {"all_reduce": 4, "all_gather": 2, "reduce_scatter": 1,
+                    "broadcast": 1, "ppermute": 3, "all_to_all": 1},
+          f"every collective issued, once a call: {calls}")
+    sizes = (cc.axis_index(tp), cc.axis_size(tp), cc.axis_size(dp),
+             cc.bound_axis_size(tp), cc.bound_axis_size(None))
+    check(sizes == (0, 1, 1, 1, 1), f"axis index and sizes: {sizes}")
+    log(f"parallel: {len(outs)} collectives bit for bit over NCCL at one "
+        f"rank; calls {calls}")
+    return calls
+
+
+def check_mappings(torch, cc, tp):
+    """The seven regions forward and backward on CUDA tensors: values and
+    gradients bit for bit, each region's collectives counted."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x0 = torch.randn(SEQ, TRAIN_BATCH, HIDDEN, generator=gen, device="cuda")
+    g = torch.randn(x0.shape, generator=gen, device="cuda")
+    n = 0
+    for name, (fwd_calls, bwd_calls) in REGION_CALLS.items():
+        fn = getattr(tp, name)
+        cases = [((), fwd_calls, bwd_calls)]
+        if name == "gather_from_sequence_parallel_region":
+            cases.append(((False,), fwd_calls, {}))
+        for extra, want_fwd, want_bwd in cases:
+            x = x0.clone().requires_grad_(True)
+            before = dict(cc.CALLS)
+            y = fn(x, "tp", *extra)
+            fwd = calls_since(cc, before)
+            before = dict(cc.CALLS)
+            y.backward(g)
+            bwd = calls_since(cc, before)
+            what = f"{name}{extra}"
+            check(torch.equal(y, x0) and torch.equal(x.grad, g),
+                  f"{what}: value and gradient bit for bit at one rank")
+            check((fwd, bwd) == (want_fwd, want_bwd),
+                  f"{what}: collectives forward {fwd}, backward {bwd}")
+            n += 1
+    log(f"parallel: {n} mapping region calls forward and backward bit for "
+        f"bit, each with its collectives")
+
+
+def check_vocab_parallel_xent(torch, timer, F):
+    """``vocab_parallel_cross_entropy`` at GPT-124M's LM-head shape (bf16
+    logits) over the one-rank tensor axis against
+    ``softmax_cross_entropy_loss`` at the reference's smoothing ``s * V /
+    (V - 1)``; the forward + backward device times of both and of
+    ``F.cross_entropy`` (the same loss, in one library call)."""
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        vocab_parallel_cross_entropy,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    logits = (2 * torch.randn(PAR_ROWS, PAR_VOCAB, generator=gen,
+                              device="cuda")).to(torch.bfloat16)
+    target = torch.randint(0, PAR_VOCAB, (PAR_ROWS,), generator=gen,
+                           device="cuda")
+    rec = {}
+    for s in (0.0, 0.1):
+        s_ref = s * PAR_VOCAB / (PAR_VOCAB - 1)
+        a = logits.clone().requires_grad_(True)
+        b = logits.clone().requires_grad_(True)
+        la = vocab_parallel_cross_entropy(a, target, "tp", s)
+        lb = softmax_cross_entropy_loss(b, target, s_ref, -1, True)
+        la.mean().backward()
+        lb.mean().backward()
+        loss_rel = ((la - lb).abs() / lb.abs()).max().item()
+        rms = b.grad.float().pow(2).mean().sqrt()
+        grad_err = ((a.grad.float() - b.grad.float()).abs().max()
+                    / rms).item()
+        check(loss_rel <= PAR_XENT_TOL and grad_err <= PAR_XENT_TOL,
+              f"vocab-parallel CE (smoothing {s}) against the fused one: "
+              f"loss {loss_rel:.3g} relative, gradient {grad_err:.3g} of "
+              f"its RMS")
+        bitwise = torch.equal(la, lb) and torch.equal(a.grad, b.grad)
+        del a, b, la, lb
+
+        def run(fn, leaf):
+            leaf.grad = None
+            fn(leaf).mean().backward()
+
+        leaf = logits.clone().requires_grad_(True)
+        times = {
+            "vocab_parallel_ms": timer(lambda: run(
+                lambda v: vocab_parallel_cross_entropy(v, target, "tp", s),
+                leaf)),
+            "fused_xentropy_ms": timer(lambda: run(
+                lambda v: softmax_cross_entropy_loss(v, target, s_ref, -1,
+                                                     True), leaf)),
+            "F.cross_entropy_ms": timer(lambda: run(
+                lambda v: F.cross_entropy(v, target, reduction="none",
+                                          label_smoothing=s), leaf)),
+        }
+        del leaf
+        rec[f"smoothing {s}"] = dict(loss_rel=loss_rel, grad_err=grad_err,
+                                     bitwise=bitwise, **times)
+        log(f"parallel: vocab-parallel CE [{PAR_ROWS} x {PAR_VOCAB} bf16, "
+            f"smoothing {s}, forward + backward]: {json.dumps(rec[f'smoothing {s}'])}")
+    return rec
+
+
+def parallel_train(torch, fa, cc, flash_first_loss, flash_step):
+    """GPT-124M at phase 5's widths, weights and batch with
+    ``tensor_axis="tp"``, ``sequence_parallel=True`` and the flash core,
+    through ``DistributedDataParallel`` and FusedAdam on the one-rank
+    grid; returns the flash launches and the step time (s)."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.testing.l1 import parallel_train_step
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+    from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+
+    cfg = dataclasses.replace(gpt124m_train(torch, torch.bfloat16),
+                              tensor_axis="tp", sequence_parallel=True)
+    model = GPTModel(cfg, device="cuda")
+    model.load_params(init_gpt_params(cfg, 0, device="cuda"))
+    ddp = parallel.DistributedDataParallel(model)
+    opt = FusedAdam(model.parameters(), lr=1e-4)
+    batch = parallel.dp_shard_batch(train_tokens(torch))
+    check(batch.shape == (TRAIN_BATCH, SEQ), "one rank's batch is all of it")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    losses = [parallel_train_step(ddp, opt, batch)
+              for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [parallel_train_step(ddp, opt, batch)
+               for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / TIMED_STEPS
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counts, calls = flash_counts(fa), dict(cc.CALLS)
+    L = cfg.num_layers
+    check(all(c == L * steps for c in counts.values())
+          and flash_route_counts(fa) == {"tc": (L * steps,) * 3,
+                                         "simt": (0, 0, 0)},
+          f"parallel: F1/F2/F3 launched {L} times per step, all on the tc "
+          f"route: {counts}, {flash_route_counts(fa)}")
+    check(calls == {**{k: 0 for k in cc.CALLS}, "all_reduce": steps},
+          f"parallel: one DDP all-reduce (the fp32 gradients' bucket) per "
+          f"step and no other collective at one rank: {calls}")
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) < 1e4 for x in losses)
+          and losses[-1] < losses[0],
+          f"parallel: the losses are finite and fall: {losses}")
+    rel = abs(losses[0] - flash_first_loss) / abs(flash_first_loss)
+    check(rel <= 2e-2, f"parallel: the first loss {losses[0]:.6f} within 2e-2 "
+          f"of phase 5's {flash_first_loss:.6f} (relative {rel:.2e})")
+    log(f"train[GPT-124M tp+sp at one rank, DDP, flash core, batch "
+        f"{TRAIN_BATCH} x {SEQ}, bf16 compute]: step {step * 1e3:.3f} ms = "
+        f"{TRAIN_BATCH * SEQ / step:.1f} tokens/s over {TIMED_STEPS} timed "
+        f"steps (phase 5's step {flash_step * 1e3:.3f} ms, "
+        f"{(step / flash_step - 1) * 100:+.1f}%); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first loss "
+        f"{losses[0]:.6f} (phase 5 {flash_first_loss:.6f}, relative "
+        f"{rel:.2e}); losses {losses}; launches {counts}; collectives "
+        f"{calls}")
+    ab = step_ab(torch, ddp, opt, batch)
+    prof = profile_parallel(torch, ddp, opt, batch)
+    return counts, step, dict(prof, ab=ab)
+
+
+AB_ROUNDS, AB_STEPS = 4, 4
+
+
+def step_ab(torch, ddp, opt, batch):
+    """Phase 5's step and the parallel step in alternating blocks of
+    ``AB_STEPS`` (plain, parallel, parallel, plain per round), so the
+    host clock's drift falls on both: the blocks' ms a step and the
+    medians."""
+    from apex_tpu_torch.testing.l1 import parallel_train_step, train_step
+
+    model, plain_opt = trainer(torch, gpt124m_train(torch, torch.bfloat16),
+                               seed=0)
+
+    def block(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AB_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / AB_STEPS * 1e3
+
+    plain = lambda: train_step(model, plain_opt, batch)  # noqa: E731
+    par = lambda: parallel_train_step(ddp, opt, batch)   # noqa: E731
+    block(plain)
+    times = {"plain": [], "parallel": []}
+    for _ in range(AB_ROUNDS):
+        for name, fn in (("plain", plain), ("parallel", par),
+                         ("parallel", par), ("plain", plain)):
+            times[name].append(block(fn))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"step A/B [phase 5's step, the parallel step; {AB_ROUNDS} rounds "
+        f"of plain, parallel, parallel, plain blocks of {AB_STEPS} steps]: "
+        f"medians {med['plain']:.3f} / {med['parallel']:.3f} ms "
+        f"({(med['parallel'] / med['plain'] - 1) * 100:+.1f}%); blocks "
+        f"{json.dumps(times)}")
+    del model, plain_opt
+    return {"median_ms": med, "blocks_ms": times}
+
+
+def profile_parallel(torch, ddp, opt, batch):
+    """One profiled parallel step: the device time of NCCL's kernels and
+    of the gradient bucket's copies beside the step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.testing.l1 import parallel_train_step
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        parallel_train_step(ddp, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, busy_us = device_rows(torch, prof)
+    check(busy_us > 0, "the profiler saw device time")
+    nccl = [r for r in rows if "nccl" in r[2].lower()]
+    nccl_us = sum(r[0] for r in nccl)
+    log(f"profile[GPT-124M tp+sp step at one rank]: wall {wall * 1e3:.1f} "
+        f"ms, device busy {busy_us / 1e3:.1f} ms = "
+        f"{busy_us / (wall * 1e6):.3f} of the wall; NCCL kernels "
+        f"{nccl_us / 1e3:.3f} ms over {sum(r[1] for r in nccl)} launches")
+    for us, count, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    for us, count, key in nccl:
+        log(f"  nccl {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "nccl_ms": nccl_us / 1e3}
+
+
+def parallel_phase(torch, fa, F, flash_first_loss, flash_step):
+    """Phase 11: ``apex_tpu_torch.parallel`` at world size 1 over a real
+    NCCL process group; returns the GPT step's flash launches."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import collectives as cc
+    from apex_tpu_torch.parallel import launch
+    from apex_tpu_torch.transformer import tensor_parallel as tp
+
+    t0 = time.perf_counter()
+    launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                  backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", "an NCCL process group")
+        parallel.initialize_model_parallel(1, 1)
+        calls = check_collectives(torch, cc)
+        check_mappings(torch, cc, tp)
+        xent = check_vocab_parallel_xent(torch, Timer(torch), F)
+        counts, step, prof = parallel_train(torch, fa, cc, flash_first_loss,
+                                            flash_step)
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
+    log(json.dumps({"parallel": {
+        "collectives": calls, "vocab_parallel_xent": xent,
+        "step_ms": step * 1e3, "phase5_step_ms": flash_step * 1e3,
+        "profile": prof}}))
+    log(f"phase 11 (parallel at world size 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -2886,6 +3227,9 @@ def main():
                                          flash_step).items():
         launches[k] += v
     for k, v in fp8_phase(torch, fa, flash_losses[0], flash_step).items():
+        launches[k] += v
+    for k, v in parallel_phase(torch, fa, F, flash_losses[0],
+                               flash_step).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

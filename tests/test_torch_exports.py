@@ -1,9 +1,10 @@
 """The port's packages export what the JAX package's do.
 
-For every public name of ``apex_tpu.ops``, ``apex_tpu.serving`` and
-``apex_tpu.amp`` (its ``__all__``, or else every name without a leading
-underscore), the port's package of the same place holds an object of the
-same kind: a function stays a function, a class a class, a module a
+For every public name of ``apex_tpu.ops``, ``apex_tpu.serving``,
+``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer`` and
+``apex_tpu.transformer.tensor_parallel`` (its ``__all__``, or else every
+name without a leading underscore), the port's package of the same place
+holds an object of the same kind: a function stays a function, a class a class, a module a
 module, a dtype a dtype.  Names whose modules are still queued in
 ``ROADMAP.md`` section A are left out, each with its item; each of them
 must still be missing, so the list can only shrink.
@@ -16,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-PAIRS = ["ops", "serving", "amp"]
+PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
+         "transformer.tensor_parallel"]
 
 # name -> the ROADMAP.md section A item that ports its module
 QUEUED = {
@@ -42,6 +44,22 @@ QUEUED = {
         "paged_prefill_attention_unfused": "A.3",
     },
     "amp": {},
+    "parallel": {
+        # parallel/sync_batchnorm.py, the ZeRO pair of distributed.py and
+        # optimizers/larc.py
+        "SyncBatchNorm": "A.4", "sync_batch_norm_stats": "A.4",
+        "sync_batchnorm": "A.4", "zero_init": "A.4",
+        "zero_data_parallel_train_step": "A.4", "LARC": "A.4",
+    },
+    "transformer": {
+        # the pipeline and context parallelism
+        "pipeline_parallel": "A.2", "get_forward_backward_func": "A.2",
+        "context_parallel": "A.2",
+    },
+    "transformer.tensor_parallel": {
+        # tensor_parallel/overlap.py, the ring-overlapped collective matmul
+        "gather_matmul": "A.2", "matmul_scatter": "A.2",
+    },
 }
 
 

@@ -352,23 +352,31 @@ def test_from_flax_fp8_meta_round_trips_a_gpt_init():
                                   "linear axis", "sequence_parallel",
                                   "overlap_comm"])
 def test_model_parallel_options_raise(call):
-    """Sharing the amax over a tensor axis, and the linears' sequence
-    parallelism and overlapped collectives, wait for the port's tensor
-    parallelism (ROADMAP.md A.2)."""
+    """The model-parallel options raise where they cannot run: sharing
+    the amax over a tensor axis, or a sequence-parallel gather, with no
+    rank grid set up; sequence parallelism with no tensor axis (as the
+    reference); and the overlapped collectives, which come with the next
+    slice (ROADMAP.md A.2).  With a grid they run: the gloo tests of
+    ``test_torch_tensor_parallel.py`` hold them against JAX."""
     x, w = torch.ones(2, 4), torch.ones(3, 4)
     calls = {
-        "update_meta": lambda: fp8.update_meta(
+        "update_meta": (lambda: fp8.update_meta(
             fp8.Fp8Meta.init(device="cpu"), 1.0, axis="tp"),
-        "Fp8Dense": lambda: fp8.Fp8Dense(4, 3, axis="tp", device="cpu"),
-        "linear axis": lambda: linear_with_grad_accumulation(x, w,
-                                                             axis="tp"),
-        "sequence_parallel": lambda: linear_with_grad_accumulation(
-            x, w, sequence_parallel=True),
-        "overlap_comm": lambda: linear_with_grad_accumulation(
-            x, w, overlap_comm=True),
+            RuntimeError, "not initialized"),
+        "Fp8Dense": (lambda: fp8.Fp8Dense(4, 3, axis="tp", device="cpu")(x),
+                     RuntimeError, "not initialized"),
+        "linear axis": (lambda: linear_with_grad_accumulation(
+            x, w, sequence_parallel=True, axis="tp"),
+            RuntimeError, "not initialized"),
+        "sequence_parallel": (lambda: linear_with_grad_accumulation(
+            x, w, sequence_parallel=True, axis=None),
+            ValueError, "requires a tensor axis"),
+        "overlap_comm": (lambda: linear_with_grad_accumulation(
+            x, w, overlap_comm=True), NotImplementedError, "next slice"),
     }
-    with pytest.raises(NotImplementedError, match="A.2"):
-        calls[call]()
+    fn, error, match = calls[call]
+    with pytest.raises(error, match=match):
+        fn()
 
 
 def test_serving_config_serves_an_fp8_checkpoint_unchanged():
