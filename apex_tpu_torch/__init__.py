@@ -31,8 +31,16 @@ Ported so far:
   (:mod:`apex_tpu_torch.parallel`: the rank grid, the collectives,
   ``DistributedDataParallel``; :mod:`apex_tpu_torch.transformer.
   tensor_parallel`: the mapping regions, the parallel layers, the
-  vocab-parallel cross entropy), with the standalone GPT holding a
-  rank's shards (NCCL on the card, gloo on the CPU);
+  vocab-parallel cross entropy, the ring-overlapped collective matmul),
+  with the standalone GPT holding a rank's shards (NCCL on the card, gloo
+  on the CPU);
+- pipeline parallelism (:mod:`apex_tpu_torch.transformer.
+  pipeline_parallel`: the rotation schedule with interleaved chunks, the
+  1F1B and interleaved entry points, the p2p transfers, the microbatch
+  calculators) and the 3D-parallel GPT step that composes it all
+  (``transformer.testing.gpt_parallel_train.build_gpt_3d``), with the
+  non-finite sentinel (:mod:`apex_tpu_torch.resilience`) and the packed
+  loss mask (:mod:`apex_tpu_torch.data`);
 - the normalization API (:mod:`apex_tpu_torch.normalization`: fused
   LayerNorm and RMSNorm, affine or not, mixed-dtype modules, the
   memory-efficient backward) and the row-norm entry points
@@ -47,4 +55,4 @@ runs instead.
 """
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
-           "amp", "parallel", "testing"]
+           "amp", "parallel", "resilience", "data", "testing"]

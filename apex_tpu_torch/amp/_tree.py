@@ -8,9 +8,12 @@ order: dict keys sorted, sequences and NamedTuple fields in order.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_map_with_path", "tree_map", "tree_leaves"]
+import torch
+
+__all__ = ["tree_map_with_path", "tree_map", "tree_leaves", "tree_flatten",
+           "tree_l2_norm"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -50,3 +53,27 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
+    """``(leaves, unflatten)``: the leaves in :func:`tree_map`'s visiting
+    order (dict keys as inserted), and the function that puts a list of
+    new leaves back into ``tree``'s structure in that order."""
+    leaves: List[Any] = []
+    tree_map(leaves.append, tree)
+
+    def unflatten(new: List[Any]):
+        it = iter(new)
+        return tree_map(lambda _: next(it), tree)
+
+    return leaves, unflatten
+
+
+def tree_l2_norm(tree) -> torch.Tensor:
+    """The global L2 norm of a tree's tensors in fp32 (0-d), as the JAX
+    package's ``utils.tree.tree_l2_norm``; 0 for a tree without one."""
+    leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    if not leaves:
+        return torch.tensor(0.0)
+    return torch.sqrt(torch.stack(
+        [x.detach().float().square().sum() for x in leaves]).sum())

@@ -47,6 +47,8 @@ __all__ = [
     "all_gather",
     "reduce_scatter",
     "ppermute",
+    "ppermute_many",
+    "ppermute_start",
     "ring_chunks",
     "all_to_all",
     "broadcast",
@@ -155,25 +157,50 @@ def ppermute(x: torch.Tensor, axis: AxisName,
     ranks; a rank no pair sends to gets zeros.  ``perm`` must be a partial
     permutation (each rank at most once as a source and once as a
     destination); every rank of the group passes the same ``perm``."""
+    return ppermute_many([x], axis, perm)[0]
+
+
+def ppermute_many(xs: Sequence[torch.Tensor], axis: AxisName,
+                  perm: Sequence[Tuple[int, int]]):
+    """:func:`ppermute` of several tensors in one ``batch_isend_irecv``
+    (one call counted): each tensor travels the same pairs, tagged by its
+    place in ``xs``."""
+    outs, wait = ppermute_start(xs, axis, perm)
+    wait()
+    return outs
+
+
+def ppermute_start(xs: Sequence[torch.Tensor], axis: AxisName,
+                   perm: Sequence[Tuple[int, int]]):
+    """:func:`ppermute_many` issued without waiting: ``(outs, wait)``;
+    ``outs`` hold what arrives only after ``wait()``, and ``xs`` must not
+    change before it (work that does not read ``outs`` runs meanwhile)."""
     ranks = mesh_lib.group_ranks(axis)
     me = ranks.index(dist.get_rank())
-    x = x.detach().contiguous()
-    out = torch.zeros_like(x)
+    xs = [x.detach().contiguous() for x in xs]
+    outs = [torch.zeros_like(x) for x in xs]
     sends = [d for s, d in perm if s == me]
     recvs = [s for s, d in perm if d == me]
     if len(sends) > 1 or len(recvs) > 1:
         raise ValueError(f"perm {perm} is not a partial permutation")
     ops = []
     if sends and sends[0] == me and recvs == [me]:
-        out.copy_(x)
+        for out, x in zip(outs, xs):
+            out.copy_(x)
     else:
-        ops += [dist.P2POp(dist.isend, x, ranks[d]) for d in sends]
-        ops += [dist.P2POp(dist.irecv, out, ranks[s]) for s in recvs]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        for tag, (x, out) in enumerate(zip(xs, outs)):
+            ops += [dist.P2POp(dist.isend, x, ranks[d], tag=tag)
+                    for d in sends]
+            ops += [dist.P2POp(dist.irecv, out, ranks[s], tag=tag)
+                    for s in recvs]
+    reqs = dist.batch_isend_irecv(ops) if ops else []
     CALLS["ppermute"] += 1
-    return out
+
+    def wait():
+        for req in reqs:
+            req.wait()
+
+    return outs, wait
 
 
 def ring_chunks(x: torch.Tensor, axis, dim: int = 0):

@@ -11,6 +11,9 @@
   that runs JAX or CUDA has threads), joins them to one group, and
   returns what each rank's call returned.  Every wait has a deadline;
   when it passes, the children are killed and it raises.
+  :func:`start_multiprocess` starts the same ranks and returns at once,
+  so the caller can work while they run; its :meth:`RankJob.join` is the
+  rest of :func:`run_multiprocess`.
 
 Arguments not given come from the environment: ``COORDINATOR_ADDRESS``
 (``host:port``; else ``MASTER_ADDR``/``MASTER_PORT``), ``NUM_PROCESSES``
@@ -32,7 +35,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["initialize_distributed", "run_multiprocess", "free_port"]
+__all__ = ["initialize_distributed", "run_multiprocess",
+           "start_multiprocess", "RankJob", "free_port"]
 
 
 def free_port() -> int:
@@ -111,6 +115,79 @@ def _child(fn, rank, world_size, address, backend, num_threads, args,
         results.put((rank, False, traceback.format_exc()))
 
 
+class RankJob:
+    """Spawned ranks running (:func:`start_multiprocess`); :meth:`join`
+    waits for their results, and kills them when the deadline passes."""
+
+    def __init__(self, procs, results, world_size: int, timeout: float):
+        self._procs, self._results = procs, results
+        self._world_size, self._timeout = world_size, timeout
+        self._deadline = time.monotonic() + timeout
+
+    def join(self) -> List[Any]:
+        """Every rank's result in rank order.  If a rank raises, or the
+        deadline passes before every rank has answered, every child still
+        running is killed and ``RuntimeError`` is raised with what the
+        ranks reported."""
+        procs, results, world_size = (self._procs, self._results,
+                                      self._world_size)
+        deadline = self._deadline
+        outputs, failures = {}, {}
+        try:
+            while len(outputs) + len(failures) < world_size \
+                    and not failures:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    rank, ok, payload = results.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    for rank, p in enumerate(procs):
+                        if (p.exitcode not in (None, 0)
+                                and rank not in outputs
+                                and rank not in failures):
+                            failures[rank] = f"exited with code {p.exitcode}"
+                    continue
+                (outputs if ok else failures)[rank] = payload
+        finally:
+            for p in procs:
+                p.join(timeout=max(0.0, min(5.0,
+                                            deadline - time.monotonic())))
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=5.0)
+            results.close()
+        missing = [r for r in range(world_size)
+                   if r not in outputs and r not in failures]
+        if failures or missing:
+            msgs = "\n".join(f"rank {r}: {m}"
+                             for r, m in sorted(failures.items()))
+            if missing:
+                msgs += (f"\nranks {missing} did not answer within "
+                         f"{self._timeout} s and were killed")
+            raise RuntimeError(f"multiprocess run failed:\n{msgs}")
+        return [outputs[r] for r in range(world_size)]
+
+
+def start_multiprocess(fn: Callable, world_size: int, *,
+                       args: Sequence[Any] = (), backend: str = "gloo",
+                       timeout: float = 120.0,
+                       num_threads: Optional[int] = None) -> RankJob:
+    """Start ``fn(*args)`` on ``world_size`` spawned ranks of one process
+    group and return at once (:func:`run_multiprocess`'s arguments; the
+    deadline runs from now)."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    address = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_child, daemon=True,
+                         args=(fn, rank, world_size, address, backend,
+                               num_threads, tuple(args), results))
+             for rank in range(world_size)]
+    for p in procs:
+        p.start()
+    return RankJob(procs, results, world_size, timeout)
+
+
 def run_multiprocess(fn: Callable, world_size: int, *,
                      args: Sequence[Any] = (), backend: str = "gloo",
                      timeout: float = 120.0,
@@ -125,44 +202,6 @@ def run_multiprocess(fn: Callable, world_size: int, *,
     or ``timeout`` seconds pass before every rank has answered, every
     child still running is killed and ``RuntimeError`` is raised with
     what the ranks reported."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    address = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_child, daemon=True,
-                         args=(fn, rank, world_size, address, backend,
-                               num_threads, tuple(args), results))
-             for rank in range(world_size)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    outputs, failures = {}, {}
-    try:
-        while len(outputs) + len(failures) < world_size and not failures:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                break
-            try:
-                rank, ok, payload = results.get(timeout=min(left, 1.0))
-            except queue.Empty:
-                for rank, p in enumerate(procs):
-                    if (p.exitcode not in (None, 0) and rank not in outputs
-                            and rank not in failures):
-                        failures[rank] = f"exited with code {p.exitcode}"
-                continue
-            (outputs if ok else failures)[rank] = payload
-    finally:
-        for p in procs:
-            p.join(timeout=max(0.0, min(5.0, deadline - time.monotonic())))
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=5.0)
-        results.close()
-    missing = [r for r in range(world_size)
-               if r not in outputs and r not in failures]
-    if failures or missing:
-        msgs = "\n".join(f"rank {r}: {m}" for r, m in sorted(failures.items()))
-        if missing:
-            msgs += (f"\nranks {missing} did not answer within {timeout} s "
-                     "and were killed")
-        raise RuntimeError(f"multiprocess run failed:\n{msgs}")
-    return [outputs[r] for r in range(world_size)]
+    return start_multiprocess(fn, world_size, args=args, backend=backend,
+                              timeout=timeout,
+                              num_threads=num_threads).join()

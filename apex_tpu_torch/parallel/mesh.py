@@ -16,8 +16,9 @@ named axes, as ``jax.lax.axis_index`` counts a tuple of axes.
 The accessors keep the reference's names.  :func:`get_mesh` gives a
 :class:`RankMesh`, the grid of global ranks with the axes' names and
 sizes, where the reference gives its ``jax.sharding.Mesh``.  The
-pipeline groups exist but carry no schedule yet; the virtual-pipeline
-rank is host bookkeeping, as in the reference.
+pipeline groups carry the rotation schedule's transfers
+(:mod:`apex_tpu_torch.transformer.pipeline_parallel`); the
+virtual-pipeline rank is host bookkeeping, as in the reference.
 
 :func:`initialize_model_parallel` needs ``torch.distributed``
 initialised (:func:`apex_tpu_torch.parallel.launch.initialize_distributed`)

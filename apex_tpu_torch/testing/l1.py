@@ -18,6 +18,17 @@ traces agree to :func:`compare_traces`' tolerances.
 overflow check, FusedAdam's skip and the scaler's update), as the JAX
 ``_trace_rn50`` composes it; :func:`apply_policy` casts a module's
 parameters by an amp policy.
+
+:func:`trace_gpt_3d` is the JAX ``_trace_gpt_3d``: the 3D-parallel GPT
+(dp2 x pp2(vpp2) x tp2 with sequence parallelism, hidden 32, 4 layers, 4
+heads, vocabulary 64, 16 positions) trained ten FusedAdam steps through
+:func:`~apex_tpu_torch.transformer.testing.gpt_parallel_train.
+build_gpt_3d`'s train step, on each of eight ranks of a
+``torch.distributed`` job; ``run_trace("gpt_3d")`` runs it.  Its weights
+can be the JAX run's (the global ``GPT3DParams``, which ``init_fn``
+carries to each rank's shard through
+:func:`apex_tpu_torch.serving.bridge.from_jax_params` and
+:func:`~apex_tpu_torch.transformer.tensor_parallel.shard_params`).
 """
 
 from __future__ import annotations
@@ -40,9 +51,10 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
 
-__all__ = ["ITERS", "CONFIGS", "trace_config", "trace_gpt", "run_trace",
-           "train_step", "parallel_train_step", "amp_train_step",
-           "apply_policy", "global_grad_norm", "compare_traces"]
+__all__ = ["ITERS", "CONFIGS", "GPT_3D", "GPT_3D_GRID", "trace_config",
+           "trace_gpt", "trace_gpt_3d", "run_trace", "train_step",
+           "parallel_train_step", "amp_train_step", "apply_policy",
+           "global_grad_norm", "compare_traces"]
 
 ITERS = 10
 # the JAX package's GPT trace configs (testing/l1.py CONFIGS), by name
@@ -54,6 +66,16 @@ CONFIGS = {
                    "swiglu": True},
     "gpt_fp8": {"fp8": True},
 }
+
+# the JAX package's _trace_gpt_3d: its model, grid, chunks and microbatches
+GPT_3D = dict(hidden_size=32, num_layers=4, num_attention_heads=4,
+              padded_vocab_size=64, max_position_embeddings=16,
+              hidden_dropout=0.0, attention_dropout=0.0, tensor_axis="tp",
+              sequence_parallel=True)
+GPT_3D_GRID = dict(tensor_model_parallel_size=2,
+                   pipeline_model_parallel_size=2,
+                   virtual_pipeline_model_parallel_size=2)
+GPT_3D_CHUNKS, GPT_3D_MICROBATCHES, GPT_3D_BATCH = 2, 2, (8, 16)
 
 
 def trace_config(name: str) -> TransformerConfig:
@@ -172,8 +194,58 @@ def trace_gpt(name: str, *, params: Optional[GPT3DParams] = None,
     return out
 
 
+def trace_gpt_3d(params=None, tokens=None, *, seed: int = 0, device=None,
+                 with_grads: bool = False):
+    """``{"loss": [...], "grad_norm": []}`` over ``ITERS`` steps of the 3D
+    GPT (``GPT_3D`` on the ``GPT_3D_GRID`` grid: eight ranks, every one of
+    which calls this; it sets the grid up and takes it down).  The loss of
+    a step is the global one, the same on every rank; the gradient norms
+    stay inside the sharded step, as in the JAX trace.
+
+    ``params``: the global weights (the JAX ``GPT3DParams`` with numpy
+    leaves, or the port's), default :func:`init_gpt_params` from
+    ``seed``; ``tokens``: the global ``[8, 16]`` batch, default drawn from
+    ``seed + 1``.  With ``with_grads`` the result is ``(trace, grads)``,
+    ``grads`` this rank's shard of the first step's gradients (the
+    ``GPT3DParams`` of ``init_fn``'s layout)."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.amp._tree import tree_leaves, tree_map
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        build_gpt_3d,
+    )
+
+    device = resolve_device(device)
+    cfg = TransformerConfig(**GPT_3D)
+    parallel.initialize_model_parallel(**GPT_3D_GRID)
+    try:
+        init_fn, _, make_train_step = build_gpt_3d(
+            cfg, num_chunks=GPT_3D_CHUNKS,
+            num_microbatches=GPT_3D_MICROBATCHES, device=device)
+        local, specs = init_fn(seed, params=params)
+        if tokens is None:
+            gen = torch.Generator().manual_seed(seed + 1)
+            tokens = torch.randint(0, cfg.padded_vocab_size, GPT_3D_BATCH,
+                                   generator=gen)
+        batch = parallel.dp_shard_batch(
+            torch.as_tensor(tokens).to(device), axis="dp")
+        opt = FusedAdam(tree_leaves(local), lr=1e-3)
+        step = make_train_step(opt, specs)
+        out: Dict[str, List[float]] = {"loss": [], "grad_norm": []}
+        grads = None
+        for i in range(ITERS):
+            out["loss"].append(float(step(local, batch)))
+            if i == 0 and with_grads:
+                grads = tree_map(lambda p: p.grad.detach().clone(), local)
+    finally:
+        parallel.destroy_model_parallel()
+    return (out, grads) if with_grads else out
+
+
 def run_trace(name: str, **kw) -> Dict[str, List[float]]:
-    """The trace of config ``name`` (:func:`trace_gpt`'s keywords)."""
+    """The trace of config ``name``: :func:`trace_gpt`'s keywords, or for
+    ``"gpt_3d"`` :func:`trace_gpt_3d`'s."""
+    if name == "gpt_3d":
+        return trace_gpt_3d(**kw)
     return trace_gpt(name, **kw)
 
 

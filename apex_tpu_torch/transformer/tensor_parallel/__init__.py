@@ -1,10 +1,6 @@
 """Tensor and sequence parallelism (counterpart of
-:mod:`apex_tpu.transformer.tensor_parallel`).
-
-Not ported yet: ``gather_matmul`` and ``matmul_scatter``, the
-ring-overlapped collective matmul of ``overlap.py`` (ROADMAP.md,
-section A.2).
-"""
+:mod:`apex_tpu.transformer.tensor_parallel`), with the ring-overlapped
+collective matmul (``gather_matmul``, ``matmul_scatter``)."""
 
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -25,6 +21,10 @@ from apex_tpu_torch.transformer.tensor_parallel.mappings import (
     reduce_scatter_to_sequence_parallel_region,
     scatter_to_sequence_parallel_region,
     scatter_to_tensor_model_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.overlap import (
+    gather_matmul,
+    matmul_scatter,
 )
 from apex_tpu_torch.transformer.tensor_parallel.partition import (
     DEFAULT_RULES,
@@ -50,6 +50,8 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import (
 
 __all__ = [
     "vocab_parallel_cross_entropy",
+    "gather_matmul",
+    "matmul_scatter",
     "DEFAULT_RULES",
     "PartitionSpec",
     "infer_param_specs",

@@ -40,9 +40,13 @@ through :func:`apex_tpu_torch.amp.fp8.fp8_matmul_t` and its ``{"x",
 sequence all-gather) and weight shard, their MAX taken over the axis so
 every rank keeps the same scales.
 
-``overlap_comm`` (the ring-overlapped collective matmul of
-``tensor_parallel/overlap.py``) comes with the pipeline in the next
-slice (ROADMAP.md, section A.2) and raises.
+``overlap_comm`` replaces, under ``sequence_parallel`` at tp > 1, the
+column linear's all-gather + GEMM by
+:func:`~apex_tpu_torch.transformer.tensor_parallel.overlap.gather_matmul`
+and the row linear's GEMM + reduce-scatter by
+:func:`~apex_tpu_torch.transformer.tensor_parallel.overlap.matmul_scatter`,
+the rings whose hops travel under partial GEMMs; it changes nothing
+elsewhere, as in the reference.
 """
 
 from __future__ import annotations
@@ -57,6 +61,10 @@ from apex_tpu_torch.amp.fp8 import Fp8MetaState, fp8_matmul_t
 from apex_tpu_torch.parallel.collectives import axis_index, bound_axis_size
 from apex_tpu_torch.parallel.mesh import TENSOR_AXIS
 from apex_tpu_torch.transformer.tensor_parallel import mappings
+from apex_tpu_torch.transformer.tensor_parallel.overlap import (
+    gather_matmul,
+    matmul_scatter,
+)
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     get_rng_states_tracker,
 )
@@ -92,14 +100,6 @@ def _param(shape, dtype, device):
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _no_overlap(overlap_comm: bool) -> None:
-    if overlap_comm:
-        raise NotImplementedError(
-            "overlap_comm (the ring-overlapped collective matmul) comes "
-            "with the pipeline in the next slice of the port (ROADMAP.md, "
-            "section A.2)")
-
-
 def linear_with_grad_accumulation(x, weight, bias=None, *,
                                   sequence_parallel: bool = False,
                                   axis: Optional[str] = TENSOR_AXIS,
@@ -109,11 +109,15 @@ def linear_with_grad_accumulation(x, weight, bias=None, *,
     its gradient reduce-scattered.  ``fp8_metas`` (``{"x": Fp8Meta, "w":
     Fp8Meta}``) routes the GEMM through
     :func:`~apex_tpu_torch.amp.fp8.fp8_matmul_t`; the caller rolls the
-    metas."""
-    _no_overlap(overlap_comm)
+    metas.  ``overlap_comm`` (with ``sequence_parallel``) runs the gather
+    and the GEMM as the :func:`~apex_tpu_torch.transformer.
+    tensor_parallel.overlap.gather_matmul` ring."""
     if sequence_parallel:
         if axis is None:
             raise ValueError("sequence_parallel requires a tensor axis")
+        if overlap_comm:
+            y = gather_matmul(x, weight, axis, fp8_metas=fp8_metas)
+            return y if bias is None else y + bias
         x = mappings.gather_from_sequence_parallel_region(x, axis, True)
     if fp8_metas is None:
         return F.linear(x, weight, bias)
@@ -167,8 +171,8 @@ class _Linear(nn.Module):
                  skip_bias_add, sequence_parallel, axis, dtype, param_dtype,
                  fp8, overlap_comm, device):
         super().__init__()
-        _no_overlap(overlap_comm)
         self.world = world
+        self.overlap_comm = overlap_comm
         self.skip_bias_add = skip_bias_add
         self.dtype = dtype
         self.axis = axis
@@ -179,15 +183,22 @@ class _Linear(nn.Module):
                      if use_bias else None)
         self.fp8_meta = Fp8MetaState(device=device) if fp8 else None
 
-    def _gemm(self, x, sequence_parallel):
+    def _gemm(self, x, sequence_parallel, scatter=False):
+        """The GEMM (after the sequence gather, or as its ring), or with
+        ``scatter`` the GEMM + reduce-scatter ring; the fp8 metas roll
+        after it.  Returns ``(y, bias)``."""
         weight = self.kernel.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(self.dtype)
         fp8 = self.fp8_meta
-        y = linear_with_grad_accumulation(
-            x, weight, bias if self._bias_in_gemm else None,
-            sequence_parallel=sequence_parallel,
-            axis=self.axis if self.world > 1 else None,
-            fp8_metas=None if fp8 is None else fp8.metas())
+        metas = None if fp8 is None else fp8.metas()
+        if scatter:
+            y = matmul_scatter(x, weight, self.axis, fp8_metas=metas)
+        else:
+            y = linear_with_grad_accumulation(
+                x, weight, bias if self._bias_in_gemm else None,
+                sequence_parallel=sequence_parallel,
+                axis=self.axis if self.world > 1 else None,
+                fp8_metas=metas, overlap_comm=self.overlap_comm)
         if fp8 is not None and self.training:
             fp8.roll(x, weight, axis=self.axis if self.world > 1 else None)
         return y, bias
@@ -254,12 +265,13 @@ class RowParallelLinear(_Linear):
     def forward(self, x):
         if self.world > 1 and not self.input_is_parallel:
             x = mappings.scatter_to_tensor_model_parallel_region(x, self.axis)
-        y, bias = self._gemm(x, False)
+        ring = self.sequence_parallel and self.overlap_comm
+        y, bias = self._gemm(x, False, scatter=ring)
         if self.world > 1:
-            if self.sequence_parallel:
+            if self.sequence_parallel and not ring:
                 y = mappings.reduce_scatter_to_sequence_parallel_region(
                     y, self.axis)
-            else:
+            elif not self.sequence_parallel:
                 y = mappings.reduce_from_tensor_model_parallel_region(
                     y, self.axis)
             if bias is not None and not self.skip_bias_add:

@@ -18,22 +18,30 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp._tree import tree_map
 from apex_tpu_torch.ops.softmax import AttnMaskType
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.partition import (
+    infer_param_specs,
+    shard_params,
+)
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     GPT3DParams,
+    init_gpt_params,
     merge_layer_stack,
 )
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+    ParallelTransformerLayer,
     TransformerConfig,
     TransformerLanguageModel,
     parallel_lm_logits,
 )
 
-__all__ = ["GPTModel", "gpt_loss", "gpt_next_token_loss"]
+__all__ = ["GPTModel", "gpt_loss", "gpt_next_token_loss",
+           "init_gpt_layer_stack", "functional_layer"]
 
 
 def _put(tree: dict, path, value) -> None:
@@ -163,3 +171,52 @@ def gpt_loss(logits, labels, config: TransformerConfig):
         loss = softmax_cross_entropy_loss(flat, labels_sb, padding_idx=-1,
                                           half_to_float=True)
     return loss.reshape(logits.shape[0], labels.shape[0]).t()
+
+
+def functional_layer(module: nn.Module, params: dict, *args):
+    """``module(*args)`` with its parameters taken from the nested dict
+    ``params`` (the JAX package's names: ``{"self_attention":
+    {"dense": {"kernel": ...}}}``); the module's own parameters are not
+    used, and gradients flow to the tensors of ``params``."""
+    return torch.func.functional_call(module, _flatten(params, ""), args)
+
+
+def init_gpt_layer_stack(seed: int, config: TransformerConfig,
+                         sample_hidden=None, sample_mask=None, *,
+                         device=None):
+    """Per-layer parameters for the pipelined GPT and the stage function
+    the rotation schedule takes.
+
+    Returns ``(make_stage_fn, per_layer_params)``: the ``num_layers``
+    transformer layers' parameters (nested dicts, drawn from ``seed`` as
+    :func:`init_gpt_params` draws them; at tensor-parallel size tp > 1
+    this rank's shards), and ``make_stage_fn(mask=None, generator=None,
+    segment_ids=None)``, which gives ``stage_fn(layer_params, x)``, one
+    :class:`ParallelTransformerLayer` (causal) applied with those
+    parameters.  Mask and dropout are bound per call of
+    ``make_stage_fn``, not at init (``generator=None`` is
+    deterministic).  The embedding and the loss head run outside the
+    pipeline, on every pipeline rank.  ``sample_hidden`` and
+    ``sample_mask`` are accepted for the JAX package's signature (its
+    init traces them); the shapes come from ``config``."""
+    del sample_hidden, sample_mask
+    cfg = config
+    device = resolve_device(device)
+    layers = init_gpt_params(cfg, seed, device=device).layers
+    if cfg.tp_world > 1:
+        from apex_tpu_torch.parallel.collectives import axis_index
+
+        layers = shard_params(layers, infer_param_specs(layers),
+                              axis_index(cfg.tensor_axis), cfg.tp_world)
+    per_layer = [tree_map(lambda l, i=i: l[i].clone(), layers)
+                 for i in range(cfg.num_layers)]
+    layer = ParallelTransformerLayer(
+        cfg, self_attn_mask_type=AttnMaskType.causal, device=device)
+
+    def make_stage_fn(mask=None, generator=None, segment_ids=None):
+        def stage_fn(layer_params, x):
+            return functional_layer(layer, layer_params, x, mask, generator,
+                                    segment_ids)
+        return stage_fn
+
+    return make_stage_fn, per_layer

@@ -44,9 +44,12 @@ output, and the MLP's two or, with SwiGLU, three) through
 delayed-scaling metas as buffers; the embedding and the tied LM head stay
 in the compute dtype (the TransformerEngine recipe).
 
+``overlap_comm`` runs the sequence-parallel linears' collectives as the
+rings of :mod:`~apex_tpu_torch.transformer.tensor_parallel.overlap`.
+
 Not ported yet (ROADMAP.md, section A): cross attention and the decoder
-layer, the pooler, mixture of experts, context parallelism, and the
-ring-overlapped collective matmul (``overlap_comm``, which raises).
+layer, the pooler, mixture of experts (``num_experts`` raises), and
+context parallelism.
 """
 
 from __future__ import annotations
@@ -120,8 +123,11 @@ class TransformerConfig:
     # and Megatron sequence parallelism over it
     tensor_axis: Optional[str] = TENSOR_AXIS
     sequence_parallel: bool = False
-    # the ring-overlapped collective matmul; not ported yet, raises
+    # the sequence-parallel collectives as rings under partial GEMMs
     overlap_comm: bool = False
+    # mixture of experts; not ported yet (ROADMAP.md, section A.2), a set
+    # value raises where the MLP is built
+    num_experts: Optional[int] = None
 
     def __post_init__(self):
         if self.position_embedding_type not in ("learned", "rope", "none"):
@@ -200,6 +206,10 @@ class ParallelMLP(nn.Module):
                  device=None):
         super().__init__()
         cfg = config
+        if cfg.num_experts is not None:
+            raise NotImplementedError(
+                "mixture of experts (num_experts) is not ported yet "
+                "(ROADMAP.md, section A.2, item 2)")
         self.config = cfg
         kw = dict(skip_bias_add=True, dtype=cfg.dtype,
                   param_dtype=param_dtype or cfg.param_dtype, fp8=cfg.fp8,

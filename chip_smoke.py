@@ -177,11 +177,28 @@ Phases (any failure exits non-zero; none is caught):
    losses finite and falling, the first within 2e-2 of phase 5's, the step
    time beside phase 5's, and both steps again in alternating blocks
    (plain, parallel, parallel, plain; four rounds of four steps) for
-   medians on one host clock; one profiled step with NCCL's device time.
+   medians on one host clock; one profiled step with NCCL's device time;
+12. the pipeline (``transformer.pipeline_parallel``, through
+   ``gpt_parallel_train.build_gpt_3d``) at world size 1 over NCCL: GPT-124M
+   at phase 5's widths, weights and batch with pp = 1, the 12 layers as 12
+   virtual chunks and 4 microbatches of 2 x 1024, each tick's stage
+   recomputed in the backward; 2 warm-up and 8 timed steps: F1 96 and F2,
+   F3 48 times a step (12 x 4 ticks, F1 again in each recomputation), all
+   on tc, no collective (pp, tp and dp of one rank skip the rotation, the
+   regions and the reductions), losses finite and falling, the first
+   within 1e-3 of phase 5's (the difference printed); one profiled
+   pipelined step and one of phase 5's (device busy ms, resident and peak
+   GiB); both steps in alternating blocks as in phase 11; one
+   ``remat_ticks=True`` step (F1 144 times: each group recomputed, then
+   each tick in it; its loss within 1e-6 of the pipelined first loss) and
+   one ``packed_inputs`` + ``block_diagonal`` step with full-coverage
+   segments (every F1, F2 and F3 call with the segment ids, its loss
+   within 1e-3), each with one more step's peak memory.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
-``{"parallel": {...}}`` and a ``{"kernels": [...]}`` JSON object and the
-``nvidia-smi`` name/power line; the last line is the JSON result.
+``{"parallel": {...}}``, a ``{"pipeline": {...}}`` and a
+``{"kernels": [...]}`` JSON object and the ``nvidia-smi`` name/power
+line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
 """
@@ -2967,7 +2984,8 @@ def parallel_train(torch, fa, cc, flash_first_loss, flash_step):
         f"{losses[0]:.6f} (phase 5 {flash_first_loss:.6f}, relative "
         f"{rel:.2e}); losses {losses}; launches {counts}; collectives "
         f"{calls}")
-    ab = step_ab(torch, ddp, opt, batch)
+    ab = step_ab(torch, "parallel",
+                 lambda: parallel_train_step(ddp, opt, batch), batch)
     prof = profile_parallel(torch, ddp, opt, batch)
     return counts, step, dict(prof, ab=ab)
 
@@ -2975,12 +2993,12 @@ def parallel_train(torch, fa, cc, flash_first_loss, flash_step):
 AB_ROUNDS, AB_STEPS = 4, 4
 
 
-def step_ab(torch, ddp, opt, batch):
-    """Phase 5's step and the parallel step in alternating blocks of
-    ``AB_STEPS`` (plain, parallel, parallel, plain per round), so the
-    host clock's drift falls on both: the blocks' ms a step and the
-    medians."""
-    from apex_tpu_torch.testing.l1 import parallel_train_step, train_step
+def step_ab(torch, name, step, batch):
+    """Phase 5's step and ``step`` (one step of the path ``name``) in
+    alternating blocks of ``AB_STEPS`` (plain, ``name``, ``name``, plain
+    per round), so the host clock's drift falls on both: the blocks' ms a
+    step and the medians."""
+    from apex_tpu_torch.testing.l1 import train_step
 
     model, plain_opt = trainer(torch, gpt124m_train(torch, torch.bfloat16),
                                seed=0)
@@ -2994,18 +3012,18 @@ def step_ab(torch, ddp, opt, batch):
         return (time.perf_counter() - t0) / AB_STEPS * 1e3
 
     plain = lambda: train_step(model, plain_opt, batch)  # noqa: E731
-    par = lambda: parallel_train_step(ddp, opt, batch)   # noqa: E731
     block(plain)
-    times = {"plain": [], "parallel": []}
+    block(step)
+    times = {"plain": [], name: []}
     for _ in range(AB_ROUNDS):
-        for name, fn in (("plain", plain), ("parallel", par),
-                         ("parallel", par), ("plain", plain)):
-            times[name].append(block(fn))
+        for key, fn in (("plain", plain), (name, step), (name, step),
+                        ("plain", plain)):
+            times[key].append(block(fn))
     med = {k: statistics.median(v) for k, v in times.items()}
-    log(f"step A/B [phase 5's step, the parallel step; {AB_ROUNDS} rounds "
-        f"of plain, parallel, parallel, plain blocks of {AB_STEPS} steps]: "
-        f"medians {med['plain']:.3f} / {med['parallel']:.3f} ms "
-        f"({(med['parallel'] / med['plain'] - 1) * 100:+.1f}%); blocks "
+    log(f"step A/B [phase 5's step, the {name} step; {AB_ROUNDS} rounds "
+        f"of plain, {name}, {name}, plain blocks of {AB_STEPS} steps]: "
+        f"medians {med['plain']:.3f} / {med[name]:.3f} ms "
+        f"({(med[name] / med['plain'] - 1) * 100:+.1f}%); blocks "
         f"{json.dumps(times)}")
     del model, plain_opt
     return {"median_ms": med, "blocks_ms": times}
@@ -3071,6 +3089,228 @@ def parallel_phase(torch, fa, F, flash_first_loss, flash_step):
     log(f"phase 11 (parallel at world size 1): "
         f"{time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# ------------------------------ phase 12: the pipeline at world size 1
+
+PIPE_CHUNKS, PIPE_MICROBATCHES = 12, 4   # pp = 1: each layer a chunk
+PIPE_LOSS_TOL = 1e-3                     # first loss against phase 5's
+
+
+def pipeline_build(torch, **kw):
+    """``build_gpt_3d`` at phase 5's widths (bf16 compute, the flash core)
+    on the one-rank grid: its parameters are ``init_fn(0)``, phase 5's
+    weights; FusedAdam at phase 5's rate.  Returns ``(params, step)``."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        build_gpt_3d,
+    )
+
+    init_fn, _, make_train_step = build_gpt_3d(
+        gpt124m_train(torch, torch.bfloat16), num_chunks=PIPE_CHUNKS,
+        num_microbatches=PIPE_MICROBATCHES, **kw)
+    params, specs = init_fn(0)
+    opt = FusedAdam(tree_leaves(params), lr=1e-4)
+    return params, make_train_step(opt, specs)
+
+
+def pipeline_launches(steps, forwards=2):
+    """F1-F3 launches of ``steps`` pipelined steps: each tick (a layer on
+    a microbatch; pp = 1 has no bubble) runs F1 in its forward and again
+    in each recomputation (``forwards``: 2 with remat, 3 when the tick's
+    group is recomputed too), F2 and F3 once in the backward."""
+    per = PIPE_CHUNKS * PIPE_MICROBATCHES * steps
+    return {"flash_fwd": forwards * per, "flash_dq": per, "flash_dkv": per}
+
+
+def check_pipeline_launches(fa, want, what):
+    counts = flash_counts(fa)
+    check(counts == want and flash_route_counts(fa) == {
+        "tc": tuple(want.values()), "simt": (0, 0, 0)},
+        f"pipeline: {what}: F1/F2/F3 launched {counts} (want {want}), all "
+        f"on the tc route ({flash_route_counts(fa)})")
+    return counts
+
+
+def profile_step(torch, label, step):
+    """One step under ``torch.profiler`` after ``reset_peak_memory_stats``:
+    wall and device busy ms, the resident and peak GiB, the top rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rows, busy_us = device_rows(torch, prof)
+    check(busy_us > 0, "the profiler saw device time")
+    rec = {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+           "resident_gib": resident / 2**30, "peak_gib": peak / 2**30,
+           "step_peak_gib": (peak - resident) / 2**30}
+    log(f"profile[{label}]: {json.dumps(rec)}")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    return rec
+
+
+def pipeline_train(torch, fa, cc, flash_first_loss):
+    """The main path: 2 + 8 pipelined steps; returns the F1-F3 launches,
+    the step time (s), the losses and the trainer."""
+    params, step = pipeline_build(torch)
+    tokens = train_tokens(torch)
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    losses = [step(params, tokens) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(params, tokens) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    counts = check_pipeline_launches(
+        fa, pipeline_launches(WARMUP_STEPS + TIMED_STEPS),
+        f"{WARMUP_STEPS + TIMED_STEPS} steps of {PIPE_MICROBATCHES} "
+        f"microbatches x {PIPE_CHUNKS} chunks, remat")
+    calls = dict(cc.CALLS)
+    check(not any(calls.values()),
+          f"pipeline: no collective at world size 1 (pp, tp and dp of one "
+          f"rank skip the rotation, the regions and the reductions): "
+          f"{calls}")
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) < 1e4 for x in losses)
+          and losses[-1] < losses[0],
+          f"pipeline: the losses are finite and fall: {losses}")
+    diff = losses[0] - flash_first_loss
+    rel = abs(diff) / abs(flash_first_loss)
+    check(rel <= PIPE_LOSS_TOL,
+          f"pipeline: the first loss {losses[0]:.6f} within "
+          f"{PIPE_LOSS_TOL} of phase 5's {flash_first_loss:.6f} (difference "
+          f"{diff:+.3e}, relative {rel:.3e})")
+    log(f"train[GPT-124M pipelined, pp 1, {PIPE_CHUNKS} chunks, "
+        f"{PIPE_MICROBATCHES} microbatches, batch {TRAIN_BATCH} x {SEQ}, "
+        f"bf16 compute]: step {step_s * 1e3:.3f} ms = "
+        f"{TRAIN_BATCH * SEQ / step_s:.1f} tokens/s over {TIMED_STEPS} timed "
+        f"steps; first loss {losses[0]:.6f} (phase 5 {flash_first_loss:.6f}, "
+        f"difference {diff:+.3e}, relative {rel:.3e}); losses {losses}; "
+        f"launches {counts}")
+    return counts, step_s, losses, rel, (params, step, tokens)
+
+
+def pipeline_variant(torch, fa, label, first_loss, tokens, tol, forwards,
+                     batch=None, **kw):
+    """One step of a pipeline variant from phase 5's weights: its loss
+    against the plain pipelined first loss, its launches, then one more
+    step's peak above the resident state."""
+    params, step = pipeline_build(torch, **kw)
+    batch = tokens if batch is None else batch
+    zero_flash_counts(fa)
+    loss = float(step(params, batch))
+    counts = check_pipeline_launches(fa, pipeline_launches(1, forwards),
+                                     f"one {label} step")
+    rel = abs(loss - first_loss) / abs(first_loss)
+    check(rel <= tol, f"pipeline: the {label} step's loss {loss:.6f} within "
+          f"{tol} of the pipelined step's {first_loss:.6f} (relative "
+          f"{rel:.3e})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step(params, batch)
+    torch.cuda.synchronize()
+    rec = {"loss": loss, "rel": rel,
+           "step_peak_gib": (torch.cuda.max_memory_allocated() - resident)
+           / 2**30}
+    log(f"pipeline[{label}]: {json.dumps(rec)}; launches {counts}")
+    return counts, rec
+
+
+def pipeline_phase(torch, fa, flash_first_loss, flash_step):
+    """Phase 12: ``build_gpt_3d``'s pipelined step at world size 1 over a
+    real NCCL process group; returns its flash launches."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import collectives as cc
+    from apex_tpu_torch.parallel import launch
+    from apex_tpu_torch.testing.l1 import train_step
+
+    t0 = time.perf_counter()
+    launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                  backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", "an NCCL process group")
+        parallel.initialize_model_parallel(1, 1)
+        counts, step_s, losses, rel, (params, step, tokens) = \
+            pipeline_train(torch, fa, cc, flash_first_loss)
+        launches = dict(counts)
+        pipe_prof = profile_step(torch, "GPT-124M pipelined step",
+                                 lambda: step(params, tokens))
+        ab = step_ab(torch, "pipelined", lambda: step(params, tokens),
+                     tokens)
+        del params, step
+        model, opt = trainer(torch, gpt124m_train(torch, torch.bfloat16),
+                             seed=0)
+        for _ in range(WARMUP_STEPS):
+            train_step(model, opt, tokens)
+        plain_prof = profile_step(torch, "phase 5's step",
+                                  lambda: train_step(model, opt, tokens))
+        del model, opt
+
+        seg = {"fwd": 0, "bwd": 0, "calls": 0}
+
+        def spy(name, key, index):
+            orig = getattr(fa, name)
+
+            def call(*a, **k):
+                seg["calls"] += key == "fwd"
+                seg[key] += a[index] is not None
+                return orig(*a, **k)
+            return orig, call
+
+        variants = {}
+        for label, tol, forwards, kw in (
+                ("remat_ticks", 1e-6, 3, dict(remat_ticks=True)),
+                ("packed block-diagonal", PIPE_LOSS_TOL, 2,
+                 dict(packed_inputs=True, block_diagonal=True))):
+            batch = None
+            spies = {}
+            if kw.get("block_diagonal"):
+                # full-coverage segments: one document a row
+                batch = (tokens, torch.ones_like(tokens, dtype=torch.int32))
+                for name, key, index in (("_fwd", "fwd", 3),
+                                         ("_dq", "bwd", 6),
+                                         ("_dkv", "bwd", 6)):
+                    spies[name], call = spy(name, key, index)
+                    setattr(fa, name, call)
+            try:
+                c, variants[label] = pipeline_variant(
+                    torch, fa, label, losses[0], tokens, tol, forwards,
+                    batch=batch, **kw)
+            finally:
+                for name, orig in spies.items():
+                    setattr(fa, name, orig)
+            for k, v in c.items():
+                launches[k] += v
+        per = PIPE_CHUNKS * PIPE_MICROBATCHES * 2        # two steps
+        check(seg == {"fwd": 2 * per, "bwd": 2 * per, "calls": 2 * per},
+              f"pipeline: every flash call of the packed steps took the "
+              f"segment ids ({seg})")
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
+    rec = {"step_ms": step_s * 1e3, "phase5_step_ms": flash_step * 1e3,
+           "first_loss_rel": rel, "launches_per_step": pipeline_launches(1),
+           "profile": pipe_prof, "phase5_profile": plain_prof, "ab": ab,
+           **variants}
+    log(json.dumps({"pipeline": rec}))
+    log(f"phase 12 (pipeline at world size 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main():
@@ -3229,6 +3469,9 @@ def main():
     for k, v in fp8_phase(torch, fa, flash_losses[0], flash_step).items():
         launches[k] += v
     for k, v in parallel_phase(torch, fa, F, flash_losses[0],
+                               flash_step).items():
+        launches[k] += v
+    for k, v in pipeline_phase(torch, fa, flash_losses[0],
                                flash_step).items():
         launches[k] += v
 

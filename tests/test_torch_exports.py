@@ -52,14 +52,10 @@ QUEUED = {
         "zero_data_parallel_train_step": "A.4", "LARC": "A.4",
     },
     "transformer": {
-        # the pipeline and context parallelism
-        "pipeline_parallel": "A.2", "get_forward_backward_func": "A.2",
+        # context parallelism
         "context_parallel": "A.2",
     },
-    "transformer.tensor_parallel": {
-        # tensor_parallel/overlap.py, the ring-overlapped collective matmul
-        "gather_matmul": "A.2", "matmul_scatter": "A.2",
-    },
+    "transformer.tensor_parallel": {},
 }
 
 

@@ -355,9 +355,11 @@ def test_model_parallel_options_raise(call):
     """The model-parallel options raise where they cannot run: sharing
     the amax over a tensor axis, or a sequence-parallel gather, with no
     rank grid set up; sequence parallelism with no tensor axis (as the
-    reference); and the overlapped collectives, which come with the next
-    slice (ROADMAP.md A.2).  With a grid they run: the gloo tests of
-    ``test_torch_tensor_parallel.py`` hold them against JAX."""
+    reference), with the overlapped collectives too (they are ported, and
+    with no grid they are the one local GEMM, as the reference's are
+    unbound).  With a grid they run: the gloo tests of
+    ``test_torch_tensor_parallel.py`` and ``test_torch_pipeline.py`` hold
+    them against JAX."""
     x, w = torch.ones(2, 4), torch.ones(3, 4)
     calls = {
         "update_meta": (lambda: fp8.update_meta(
@@ -372,7 +374,8 @@ def test_model_parallel_options_raise(call):
             x, w, sequence_parallel=True, axis=None),
             ValueError, "requires a tensor axis"),
         "overlap_comm": (lambda: linear_with_grad_accumulation(
-            x, w, overlap_comm=True), NotImplementedError, "next slice"),
+            x, w, sequence_parallel=True, axis=None, overlap_comm=True),
+            ValueError, "requires a tensor axis"),
     }
     fn, error, match = calls[call]
     with pytest.raises(error, match=match):

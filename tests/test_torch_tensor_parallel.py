@@ -721,16 +721,39 @@ def test_checkpoint_recomputes_with_the_same_dropout():
 
 
 def test_overlap_comm_raises_and_names_the_next_slice():
+    """``overlap_comm`` was queued for the pipeline's slice, which ported
+    it (``tensor_parallel/overlap.py``; its rings at tp > 1 are held
+    against JAX in ``test_torch_pipeline.py``): it no longer raises, and
+    without a grid the linears and the GPT are their one-rank forms, bit
+    for bit those built without it."""
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
     from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
     from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
         TransformerConfig,
     )
 
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tp.ColumnParallelLinear(4, 8, overlap_comm=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        GPTModel(TransformerConfig(hidden_size=32, num_attention_heads=4,
-                                   overlap_comm=True), device="cpu")
+    x = torch.randn(3, 2, 4, generator=torch.Generator().manual_seed(0))
+    ys = []
+    for overlap in (True, False):
+        col = tp.ColumnParallelLinear(4, 8, overlap_comm=overlap,
+                                      sequence_parallel=True)
+        with torch.no_grad():
+            col.kernel.copy_(torch.arange(32.0).reshape(8, 4) / 32)
+        ys.append(col(x))
+    assert torch.equal(*ys)
+    tokens = torch.randint(0, 64, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    losses = []
+    for overlap in (True, False):
+        cfg = TransformerConfig(hidden_size=32, num_attention_heads=4,
+                                padded_vocab_size=64, num_layers=1,
+                                overlap_comm=overlap, sequence_parallel=True)
+        model = GPTModel(cfg, device="cpu")
+        model.load_params(init_gpt_params(cfg, 0, device="cpu"))
+        losses.append(model(tokens, labels=tokens))
+    assert torch.equal(*losses)
 
 
 def test_launcher_kills_ranks_that_outlive_the_deadline():
