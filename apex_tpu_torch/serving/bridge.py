@@ -21,6 +21,17 @@ stacking its ``layers_<i>`` subtrees into the ``[L, ...]`` layer stack,
 for :meth:`apex_tpu_torch.transformer.testing.standalone_gpt.GPTModel.
 load_params` (or the serving engine).
 
+:func:`from_flax_gpt_cp` takes the tree of the JAX package's
+context-parallel harness (``build_gpt_cp``'s ``{"embedding", "layer_<i>",
+"final_ln"}``) into the port's tree of the same keys, for
+:func:`apex_tpu_torch.transformer.testing.gpt_cp_train.build_gpt_cp`'s
+``init_fn(params=...)``.
+
+Mixture-of-experts layers carry their ``mlp/{router, w1, b1, w2, b2}``
+leaves at the reference's layout (``router [h, E]``, ``w1 [E, h, ffn]``,
+``w2 [E, ffn, h]``), which :class:`~apex_tpu_torch.transformer.moe.
+SwitchMLP` keeps, so they pass through every function here as they are.
+
 :func:`from_flax_norm` turns a Flax norm module's parameters (``scale``
 and, for LayerNorm, ``bias``) into the state dict of the port's module
 of the same name (:mod:`apex_tpu_torch.normalization`).
@@ -45,8 +56,8 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     merge_layer_stack,
 )
 
-__all__ = ["from_jax_params", "from_flax_gpt", "from_flax_norm",
-           "from_flax_fp8_meta"]
+__all__ = ["from_jax_params", "from_flax_gpt", "from_flax_gpt_cp",
+           "from_flax_norm", "from_flax_fp8_meta"]
 
 
 def _tree(tree) -> dict:
@@ -91,6 +102,16 @@ def from_flax_gpt(params: Any) -> GPT3DParams:
     return GPT3DParams(embedding=_tree(_part(lm, "embedding")),
                        layers=stack(per_layer),
                        final_ln=encoder["final_layernorm"])
+
+
+def from_flax_gpt_cp(params: Any) -> dict:
+    """The port's context-parallel parameters from the JAX harness's
+    ``{"embedding", "layer_<i>", "final_ln"}`` tree (numpy leaves, or
+    anything ``numpy.asarray`` reads)."""
+    if not isinstance(params, Mapping) or "embedding" not in params:
+        raise ValueError("expected build_gpt_cp's {'embedding', "
+                         "'layer_<i>', 'final_ln'} tree")
+    return _tree(params)
 
 
 def from_flax_norm(params: Any) -> dict:

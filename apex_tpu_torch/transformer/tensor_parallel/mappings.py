@@ -19,6 +19,11 @@ region                                         forward              backward
 ``reduce_scatter_to_sequence_parallel_region`` reduce-scatter       all-gather, first
 =============================================  ===================  ====================
 
+``all_to_all_region`` (context and expert parallelism: Ulysses'
+head/sequence swap, the expert dispatch) splits one dim over the ranks
+and concatenates what arrives along another; its backward is the
+reverse all-to-all.
+
 ``gather_from_sequence_parallel_region``'s backward reduce-scatters when
 ``tensor_parallel_output_grad`` (the gradient arriving is a partial sum,
 as behind a column-parallel GEMM) and splits otherwise (it is already
@@ -45,6 +50,7 @@ __all__ = [
     "scatter_to_sequence_parallel_region",
     "gather_from_sequence_parallel_region",
     "reduce_scatter_to_sequence_parallel_region",
+    "all_to_all_region",
 ]
 
 
@@ -116,6 +122,19 @@ class _ReduceScatter(torch.autograd.Function):
         return cc.all_gather(g, ctx.axis, concat_axis=0), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.axis, ctx.split, ctx.concat = axis, split_axis, concat_axis
+        return cc.all_to_all(x, axis, split_axis=split_axis,
+                             concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return cc.all_to_all(g, ctx.axis, split_axis=ctx.concat,
+                             concat_axis=ctx.split), None, None, None
+
+
 def copy_to_tensor_model_parallel_region(x, axis=TENSOR_AXIS):
     """Enter the tensor-parallel region: identity; the gradient is summed
     over ``axis``."""
@@ -155,3 +174,12 @@ def reduce_scatter_to_sequence_parallel_region(x, axis=TENSOR_AXIS):
     """The partial outputs summed over ``axis``, this rank keeping its
     chunk of the sequence dim; the gradient is all-gathered."""
     return _ReduceScatter.apply(x, axis)
+
+
+def all_to_all_region(x, axis, split_axis: int, concat_axis: int):
+    """``split_axis`` cut into one chunk per rank of ``axis``, chunk ``i``
+    sent to rank ``i``, and what arrives concatenated along
+    ``concat_axis`` in rank order (JAX's tiled ``all_to_all``); the
+    gradient takes the reverse all-to-all.  One ``CALLS["all_to_all"]``
+    each way."""
+    return _AllToAll.apply(x, axis, split_axis, concat_axis)

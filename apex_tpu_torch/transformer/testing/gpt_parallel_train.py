@@ -8,7 +8,9 @@ GPT parameter tree (port of
 (normal with ``init_method_std`` for the embeddings and the input-facing
 kernels, ``std / sqrt(2 * num_layers)`` for the output-facing ones, zero
 biases, unit LayerNorm scales) from a ``torch.Generator`` seeded by the
-caller.
+caller; with ``num_experts`` the MLP's leaves are the Switch MLP's
+(``router [L, h, E]`` in fp32, the expert stacks ``w1 [L, E, h, ffn]``,
+``b1``, ``w2 [L, E, ffn, h]``, ``b2``, at the reference's layout).
 
 :func:`build_gpt_3d` is the runtime's integration point, as in the
 reference: the vocab-parallel embedding, the transformer layers through
@@ -98,9 +100,17 @@ def init_gpt_params(config: TransformerConfig, seed: int, *,
                 "bias": zeros((L, h))}
 
     qkv_out = (cfg.num_attention_heads + 2 * cfg.query_groups) * cfg.head_dim
-    mlp = {"dense_h_to_4h": linear(f, h, std),
-           "dense_4h_to_h": linear(h, f, out_std)}
-    if cfg.swiglu:
+    if cfg.num_experts is not None:
+        E = cfg.num_experts
+        mlp = {"router": torch.randn((L, h, E), generator=gen, device=device,
+                                     dtype=torch.float32).mul_(0.02),
+               "w1": normal((L, E, h, f), 0.02), "b1": zeros((L, E, f)),
+               "w2": normal((L, E, f, h), 0.02 / math.sqrt(2 * E)),
+               "b2": zeros((L, E, h))}
+    else:
+        mlp = {"dense_h_to_4h": linear(f, h, std),
+               "dense_4h_to_h": linear(h, f, out_std)}
+    if cfg.swiglu and cfg.num_experts is None:
         mlp["dense_h_to_4h_gate"] = linear(f, h, std)
     layers = {
         "input_layernorm": norm(),
@@ -149,12 +159,14 @@ class _Loss:
     make its gradients whole; see :func:`build_gpt_3d`."""
 
     def __init__(self, local_loss, param_specs, cfg, dp_axis, tp_axis,
-                 packed_inputs):
+                 packed_inputs, moe_aux_coeff):
         self._local_loss = local_loss
         self._specs = param_specs
         self._sp = cfg.sp
         self._dp_axis, self._tp_axis = dp_axis, tp_axis
         self._packed = packed_inputs
+        self._aux_coeff = (moe_aux_coeff if cfg.num_experts is not None
+                           else None)
 
     def __call__(self, params, batch):
         """The loss over the whole global batch (every rank holds the
@@ -169,27 +181,35 @@ class _Loss:
                 vec, self._dp_axis) / dp
         if self._packed:
             # mean of sums over mean of counts: the exact masked mean,
-            # however unevenly the padding falls on the shards
-            return vec[0] / vec[1]
+            # however unevenly the padding falls on the shards; the MoE
+            # aux term rides as a third element, added after the division
+            loss = vec[0] / vec[1]
+            if self._aux_coeff is not None:
+                loss = loss + self._aux_coeff * vec[2]
+            return loss
         return vec[0]
+
+    def _not_split_over(self, params, axis):
+        """The leaves of ``params`` whose spec does not name ``axis``."""
+        # (a spec is a tuple: walk the params' structure, not its)
+        whole = tree_leaves(tree_map(lambda p, spec: axis not in spec,
+                                     params, self._specs))
+        return [p for p, w in zip(tree_leaves(params), whole) if w]
 
     @torch.no_grad()
     def reduce_gradients(self, params) -> None:
         """After the loss's backward: the gradients of the leaves that
         are whole on every tensor-parallel rank but met only its sequence
         shard (under sequence parallelism) summed over ``tp``, then every
-        gradient summed over ``dp``; in place.  A group of one rank is
-        skipped."""
-        leaves = tree_leaves(params)
+        gradient summed over ``dp`` but those of leaves split over it (the
+        expert stacks under ``expert_axis="dp"``, whole on their owner);
+        in place.  A group of one rank is skipped."""
         jobs = []
         if self._sp:
-            # (a spec is a tuple: walk the params' structure, not its)
-            whole = tree_leaves(tree_map(
-                lambda p, spec: self._tp_axis not in spec, params,
-                self._specs))
             jobs.append((self._tp_axis,
-                         [p for p, w in zip(leaves, whole) if w]))
-        jobs.append((self._dp_axis, leaves))
+                         self._not_split_over(params, self._tp_axis)))
+        jobs.append((self._dp_axis,
+                     self._not_split_over(params, self._dp_axis)))
         for axis, ps in jobs:
             grads = [p.grad for p in ps if p.grad is not None]
             if not grads or cc.bound_axis_size(axis) == 1:
@@ -259,10 +279,21 @@ def build_gpt_3d(
     beside the activations and reach the flash kernels' segment masking,
     so attention is block-diagonal causal.
 
-    Not ported (ROADMAP.md): ``config.num_experts`` (mixture of experts,
-    section A.2 item 2) raises here, and ``collect_stats`` (the
-    observability stats, section A.3) in ``make_train_step``;
-    ``moe_aux_coeff`` is accepted for the reference's signature.
+    ``config.num_experts``: each layer's MLP is a Switch MLP
+    (:class:`~apex_tpu_torch.transformer.moe.SwitchMLP`), its expert
+    stacks split over ``config.expert_axis`` (``infer_param_specs(...,
+    ep_axis=)``, each rank holding its experts; their gradients are not
+    summed over that axis).  A ``(1,)`` aux slot per microbatch rides the
+    pipeline beside the activations, each stage adding its layer's
+    load-balancing loss (:func:`~apex_tpu_torch.transformer.moe.
+    collect_moe_aux`); the loss adds ``moe_aux_coeff`` times the
+    microbatches' mean aux, averaged over ``tp`` under sequence
+    parallelism (each tensor rank routes its own sequence shard; without
+    it the value is the same on every tensor rank), and under
+    ``packed_inputs`` after the masked division.
+
+    Not ported (ROADMAP.md): ``collect_stats`` (the observability stats,
+    section A.3) in ``make_train_step`` raises.
     """
     from apex_tpu_torch.data.sequence import segment_loss_mask
     from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
@@ -271,6 +302,7 @@ def build_gpt_3d(
         pipeline_apply,
         split_into_microbatches,
     )
+    from apex_tpu_torch.transformer.moe import collect_moe_aux
     from apex_tpu_torch.transformer.tensor_parallel.partition import (
         infer_param_specs,
         shard_params,
@@ -285,12 +317,8 @@ def build_gpt_3d(
         parallel_lm_logits,
     )
 
-    del moe_aux_coeff
     cfg = config
-    if cfg.num_experts is not None:
-        raise NotImplementedError(
-            "build_gpt_3d with num_experts: mixture of experts is not "
-            "ported yet (ROADMAP.md, section A.2, item 2)")
+    moe = cfg.num_experts is not None
     if block_diagonal:
         if not packed_inputs:
             raise ValueError(
@@ -331,20 +359,37 @@ def build_gpt_3d(
             layers)
         local = GPT3DParams(embedding=params.embedding, layers=layers,
                             final_ln=params.final_ln)
-        specs = infer_param_specs(local, axis=tp_axis)
+        ep_axis = cfg.expert_axis
+        specs = infer_param_specs(local, axis=tp_axis, ep_axis=ep_axis)
         if cfg.tp_world > 1:
             local = shard_params(local, specs, cc.axis_index(tp_axis),
                                  cfg.tp_world, axis=tp_axis)
-        local = tree_map(
-            lambda t: t.detach().to(device=device, dtype=cfg.param_dtype,
-                                    copy=True).requires_grad_(True), local)
-        return local, specs
+        ep = cc.bound_axis_size(ep_axis) if moe else 1
+        if ep > 1 and ep_axis != tp_axis:
+            local = shard_params(local, specs, cc.axis_index(ep_axis), ep,
+                                 axis=ep_axis)
+        router = local.layers["mlp"]["router"] if moe else None
+        local = tree_map(lambda t: t.detach().to(
+            device=device, dtype=cfg.param_dtype, copy=True), local)
+        if moe:
+            # fp32 whatever param_dtype, as the reference's SwitchMLP holds it
+            local.layers["mlp"]["router"] = router.detach().to(
+                device=device, dtype=torch.float32, copy=True)
+        return tree_map(lambda t: t.requires_grad_(True), local), specs
 
-    def stage_fn(lp, x):
+    def stage_fn(lp, xa):
+        """One layer on a microbatch's activation tuple: ``x``, then the
+        MoE aux slot (with ``num_experts``), then the segment ids (with
+        ``block_diagonal``)."""
+        x, *rest = xa
+        aux = rest.pop(0) if moe else None
+        seg = rest.pop(0) if block_diagonal else None
+        out = [functional_layer(layer, lp, x, None, None, seg)]
+        if moe:
+            out.append(aux + collect_moe_aux(layer))
         if block_diagonal:
-            x, seg = x
-            return functional_layer(layer, lp, x, None, None, seg), seg
-        return functional_layer(layer, lp, x)
+            out.append(seg)
+        return tuple(out)
 
     def local_loss(p: GPT3DParams, batch):
         """This dp shard's loss as a ``(1,)`` vector (packed: ``[masked
@@ -357,14 +402,28 @@ def build_gpt_3d(
         h = functional_layer(embed, p.embedding, tokens)  # [s(/tp), b, hid]
         h = h.reshape(h.shape[0], m, -1, h.shape[-1]).transpose(0, 1) \
             .contiguous()                                 # [m, s, b/m, hid]
-        inputs = h
+        inputs = [h]
+        if moe:
+            # the per-microbatch (1,) aux slot; bubble ticks never reach
+            # an exit, so they add nothing
+            inputs.append(torch.zeros((m, 1), dtype=torch.float32,
+                                      device=h.device))
         if block_diagonal:
-            inputs = (h, split_into_microbatches(segments, m))
-        out = pipeline_apply(stage_fn, p.layers, inputs, axis=pp_axis,
-                             num_chunks=vpp, params_already_local=True,
-                             remat_ticks=remat_ticks)
-        if block_diagonal:
-            out = out[0]
+            inputs.append(split_into_microbatches(segments, m))
+        outs = pipeline_apply(stage_fn, p.layers, tuple(inputs),
+                              axis=pp_axis, num_chunks=vpp,
+                              params_already_local=True,
+                              remat_ticks=remat_ticks)
+        out = outs[0]
+        aux_term = None
+        if moe:
+            aux_term = outs[1].mean().reshape(1)
+            if cfg.sp:
+                # each tensor rank routed its own sequence shard: the
+                # mean over tp, its gradient each rank's share (the
+                # router's and experts' gradients are then summed over tp)
+                aux_term = mappings.reduce_from_tensor_model_parallel_region(
+                    aux_term, tp_axis) / cfg.tp_world
 
         def logits_of(hid):
             hid = functional_layer(final_ln, p.final_ln, hid)
@@ -379,17 +438,21 @@ def build_gpt_3d(
                 mask = segment_loss_mask(seg_mbs[i])
                 sums.append((per_tok * mask).sum())
                 counts.append(mask.sum())
-            return torch.stack([torch.stack(sums).sum(),
-                                torch.clamp(torch.stack(counts).sum(),
-                                            min=1.0)])
+            parts = [torch.stack(sums).sum().reshape(1),
+                     torch.clamp(torch.stack(counts).sum(), min=1.0)
+                     .reshape(1)]
+            if moe:
+                parts.append(aux_term)
+            return torch.cat(parts)
         losses = torch.stack([
             gpt_next_token_loss(logits_of(out[i]), mbs[i], cfg).mean()
             for i in range(m)])
-        return losses.mean().reshape(1)
+        ce = losses.mean().reshape(1)
+        return ce if aux_term is None else ce + moe_aux_coeff * aux_term
 
     def make_loss_fn(param_specs):
         return _Loss(local_loss, param_specs, cfg, dp_axis, tp_axis,
-                     packed_inputs)
+                     packed_inputs, moe_aux_coeff)
 
     def make_train_step(opt, param_specs, scaler=None, grad_tap=None,
                         collect_stats: bool = False):

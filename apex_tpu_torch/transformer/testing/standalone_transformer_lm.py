@@ -47,9 +47,23 @@ in the compute dtype (the TransformerEngine recipe).
 ``overlap_comm`` runs the sequence-parallel linears' collectives as the
 rings of :mod:`~apex_tpu_torch.transformer.tensor_parallel.overlap`.
 
+Context parallelism (``context_axis``): the activations are this rank's
+``[s/cp, b, h]`` sequence shard, and the causal core runs
+:func:`~apex_tpu_torch.transformer.context_parallel.ring_attention` or
+:func:`~apex_tpu_torch.transformer.context_parallel.ulysses_attention`
+(``context_impl``) whatever ``use_flash_attention`` says; RoPE rotates
+with the shard's global positions, and grouped K/V reach the core
+compact (the broadcast over their query heads happens per kernel call
+there).  :mod:`~apex_tpu_torch.transformer.testing.gpt_cp_train` is the
+harness.
+
+Mixture of experts (``num_experts``): the MLP position holds a
+:class:`~apex_tpu_torch.transformer.moe.SwitchMLP` (experts sharded over
+``expert_axis``), whose load-balancing loss the caller adds through
+:func:`~apex_tpu_torch.transformer.moe.collect_moe_aux`.
+
 Not ported yet (ROADMAP.md, section A): cross attention and the decoder
-layer, the pooler, mixture of experts (``num_experts`` raises), and
-context parallelism.
+layer, and the pooler.
 """
 
 from __future__ import annotations
@@ -125,11 +139,29 @@ class TransformerConfig:
     sequence_parallel: bool = False
     # the sequence-parallel collectives as rings under partial GEMMs
     overlap_comm: bool = False
-    # mixture of experts; not ported yet (ROADMAP.md, section A.2), a set
-    # value raises where the MLP is built
+    # context parallelism: the activations hold this rank's sequence
+    # shard over this axis of the grid, and the causal core runs "ring"
+    # (K/V chunks rotate) or "ulysses" (all-to-all head<->sequence swap)
+    context_axis: Optional[str] = None
+    context_impl: str = "ring"
+    # mixture of experts: a Switch MLP of this many experts in the MLP
+    # position, each expert's queue cut at capacity_factor * T / E tokens,
+    # the experts sharded over expert_axis (None: all local)
     num_experts: Optional[int] = None
+    expert_capacity_factor: float = 1.25
+    expert_axis: Optional[str] = None
 
     def __post_init__(self):
+        if self.context_axis is not None and self.sequence_parallel:
+            raise ValueError(
+                "context_axis and sequence_parallel are mutually exclusive:"
+                " both reinterpret the sequence dimension as sharded (over"
+                " cp and tp respectively) and composing them would compute"
+                " attention over a misread shard layout")
+        if self.context_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"context_impl must be 'ring' or 'ulysses', got "
+                f"{self.context_impl!r}")
         if self.position_embedding_type not in ("learned", "rope", "none"):
             raise ValueError(
                 f"position_embedding_type must be 'learned', 'rope' or "
@@ -206,10 +238,6 @@ class ParallelMLP(nn.Module):
                  device=None):
         super().__init__()
         cfg = config
-        if cfg.num_experts is not None:
-            raise NotImplementedError(
-                "mixture of experts (num_experts) is not ported yet "
-                "(ROADMAP.md, section A.2, item 2)")
         self.config = cfg
         kw = dict(skip_bias_add=True, dtype=cfg.dtype,
                   param_dtype=param_dtype or cfg.param_dtype, fp8=cfg.fp8,
@@ -246,7 +274,12 @@ class CoreAttention(nn.Module):
     ``mask`` ``[b, 1, sq, sk]``, True = masked out), attention dropout,
     and BMM2.  With ``apply_query_key_layer_scaling`` the scores are
     divided by ``sqrt(d) * coeff``, ``coeff = max(1, layer_number)``, and
-    the softmax multiplies them by ``coeff`` again in fp32."""
+    the softmax multiplies them by ``coeff`` again in fp32.
+
+    With ``context_axis`` q/k/v are this rank's sequence shard and the
+    core is :mod:`~apex_tpu_torch.transformer.context_parallel`'s
+    (causal only; ring attention takes no attention dropout, Ulysses draws
+    its seed from ``generator``); K/V may hold fewer (grouped) heads."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  attn_mask_type: AttnMaskType = AttnMaskType.padding):
@@ -258,6 +291,15 @@ class CoreAttention(nn.Module):
     def forward(self, q, k, v, mask=None, generator=None, segment_ids=None):
         cfg = self.config
         causal = self.attn_mask_type == AttnMaskType.causal
+        if cfg.context_axis is not None:
+            if not causal:
+                # the default core would attend within the local shard only
+                raise NotImplementedError(
+                    "context_axis supports causal self-attention only; "
+                    "non-causal attention over a cp-sharded sequence needs "
+                    "ulysses_attention (context_parallel.py) wired "
+                    "explicitly")
+            return self._context_parallel(q, k, v, generator)
         if cfg.use_flash_attention and (causal or segment_ids is not None):
             return self._flash(q, k, v, causal, generator, segment_ids)
         sq, b, n, d = q.shape
@@ -290,6 +332,31 @@ class CoreAttention(nn.Module):
         return ctx.reshape(b, n, sq, d).permute(2, 0, 1, 3).reshape(
             sq, b, n * d)
 
+    def _context_parallel(self, q, k, v, generator):
+        from apex_tpu_torch.transformer import context_parallel as cp_lib
+
+        cfg = self.config
+        sq, b, n, d = q.shape
+        kw = {}
+        if cfg.attention_dropout > 0.0 and generator is not None:
+            if cfg.context_impl == "ring":
+                # the kernels are re-driven per visiting chunk, and the ring
+                # backward has no dropout plumbing: refuse, never skip
+                raise NotImplementedError(
+                    "attention_dropout under ring context parallelism is "
+                    "not supported; use context_impl='ulysses' or set "
+                    "attention_dropout=0.0")
+            kw = dict(dropout_rate=cfg.attention_dropout,
+                      dropout_seed=torch.randint(
+                          0, 2 ** 31 - 1, (1,), generator=generator,
+                          device=q.device, dtype=torch.int32))
+        attn = (cp_lib.ring_attention if cfg.context_impl == "ring"
+                else cp_lib.ulysses_attention)
+        ctx = attn(q.permute(1, 2, 0, 3), k.permute(1, 2, 0, 3),
+                   v.permute(1, 2, 0, 3), axis=cfg.context_axis, causal=True,
+                   **kw)                                # [b, n, sq, d]
+        return ctx.permute(2, 0, 1, 3).reshape(sq, b, n * d)
+
     def _flash(self, q, k, v, causal, generator, segment_ids):
         cfg = self.config
         sq, b, n, d = q.shape
@@ -310,7 +377,12 @@ class ParallelAttention(nn.Module):
     """Self-attention: fused QKV column linear in group-major layout (per
     K/V group its query heads, then one K and one V head), RoPE on q/k,
     grouped K/V repeated over their query heads, the core, and the
-    row-linear output projection.  Returns ``(out, bias)``."""
+    row-linear output projection.  Returns ``(out, bias)``.
+
+    With ``context_axis`` the RoPE positions are the shard's global ones
+    (``axis_index(cp) * s_local + arange(s_local)``) and grouped K/V pass
+    to the core compact: the context-parallel core sends the ``g``-head
+    K/V between ranks and broadcasts it locally."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  attention_type: AttnType = AttnType.self_attn,
@@ -345,11 +417,14 @@ class ParallelAttention(nn.Module):
         k = qkv[..., hpg * d:(hpg + 1) * d]
         v = qkv[..., (hpg + 1) * d:]
         if cfg.position_embedding_type == "rope":
-            cos, sin = rotary_cos_sin(torch.arange(s, device=x.device),
-                                      cfg.rotary_dim, cfg.rotary_base,
-                                      q.dtype)
+            positions = torch.arange(s, device=x.device)
+            if cfg.context_axis is not None \
+                    and bound_axis_size(cfg.context_axis) > 1:
+                positions = positions + axis_index(cfg.context_axis) * s
+            cos, sin = rotary_cos_sin(positions, cfg.rotary_dim,
+                                      cfg.rotary_base, q.dtype)
             q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        if hpg > 1:
+        if hpg > 1 and cfg.context_axis is None:
             k = k.repeat_interleave(hpg, dim=2)
             v = v.repeat_interleave(hpg, dim=2)
         ctx = self.core_attention(q, k, v, mask, generator, segment_ids)
@@ -359,7 +434,10 @@ class ParallelAttention(nn.Module):
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> bias-dropout-residual -> LN ->
     MLP -> bias-dropout-residual (optionally with the post-LN residual
-    source).  Encoder (self-attention) layers only."""
+    source).  Encoder (self-attention) layers only.  With ``num_experts``
+    the MLP is a :class:`~apex_tpu_torch.transformer.moe.SwitchMLP` with
+    a zero bias of shape ``(1,)``; its load-balancing loss is recorded on
+    it (:func:`~apex_tpu_torch.transformer.moe.collect_moe_aux`)."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  layer_type: LayerType = LayerType.encoder,
@@ -380,7 +458,21 @@ class ParallelTransformerLayer(nn.Module):
             device=device)
         self.post_attention_layernorm = FusedLayerNorm(
             cfg.hidden_size, cfg.layernorm_epsilon, **ln)
-        self.mlp = ParallelMLP(cfg, device=device)
+        if cfg.num_experts is not None:
+            from apex_tpu_torch.transformer.moe import SwitchMLP
+
+            self.mlp = SwitchMLP(
+                cfg.hidden_size, cfg.ffn_size, cfg.num_experts,
+                capacity_factor=cfg.expert_capacity_factor,
+                expert_axis=cfg.expert_axis, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, seed=layer_number,
+                device=device)
+            if cfg.sp and cfg.expert_axis != cfg.tensor_axis:
+                # whole on every tensor rank, each rank routing its own
+                # sequence shard: the gradients are partial sums over tp
+                _mark_sequence_parallel(self.mlp)
+        else:
+            self.mlp = ParallelMLP(cfg, device=device)
         if cfg.sp:
             _mark_sequence_parallel(self.input_layernorm)
             _mark_sequence_parallel(self.post_attention_layernorm)
@@ -394,7 +486,11 @@ class ParallelTransformerLayer(nn.Module):
         h = (ln1 if post else x) + dropout(attn_out + attn_bias,
                                            cfg.hidden_dropout, generator)
         ln2 = self.post_attention_layernorm(h)
-        mlp_out, mlp_bias = self.mlp(ln2)
+        if cfg.num_experts is not None:
+            mlp_out, _ = self.mlp(ln2)
+            mlp_bias = torch.zeros((1,), dtype=cfg.dtype, device=x.device)
+        else:
+            mlp_out, mlp_bias = self.mlp(ln2)
         return (ln2 if post else h) + dropout(mlp_out + mlp_bias,
                                               cfg.hidden_dropout, generator)
 

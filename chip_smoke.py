@@ -193,12 +193,32 @@ Phases (any failure exits non-zero; none is caught):
    each tick in it; its loss within 1e-6 of the pipelined first loss) and
    one ``packed_inputs`` + ``block_diagonal`` step with full-coverage
    segments (every F1, F2 and F3 call with the segment ids, its loss
-   within 1e-3), each with one more step's peak memory.
+   within 1e-3), each with one more step's peak memory;
+13. context parallelism and the Switch mixture of experts at world size
+   1 over NCCL, GPT-124M at phase 5's widths, weights and batch: the cp
+   axis's one-rank permute and all-to-all (identities, their NCCL device
+   time printed); (a) ``gpt_cp_train.build_gpt_cp`` with ring attention,
+   2 warm-up and 8 timed steps: F1, F2 and F3 12 times a step on tc
+   through the ring's calls (the diagonal case at cp = 1), no collective,
+   losses finite and falling, the first within 1e-5 of the serial twin's
+   (the same modules without ``context_axis`` on the same weights and
+   objective; the difference printed), the step in alternating blocks
+   against phase 5's and one profiled step; (b) the same with Ulysses and
+   ``attention_dropout=0.1``, 2 + 4 steps, every F1-F3 call with a
+   dropout seed, the first loss within 2e-2 of (a)'s; (c) phase 5's
+   ``GPTModel`` (flash core) with ``num_experts=8`` and capacity factor
+   1.25, 2 + 8 steps on ``loss + 1e-2 * collect_moe_aux``: losses finite
+   and falling, aux >= 1, F1-F3 12 a step, the tokens each layer dropped,
+   one profiled step (device busy ms, top rows, peak GiB) and the
+   dispatch/combine einsums' forward + backward device time at the step's
+   shapes; (d) one ``build_gpt_3d`` step with those experts
+   (``expert_axis="dp"``) at pp = 1, 12 chunks and 4 microbatches: F1 96
+   and F2, F3 48, its loss finite.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
-``{"parallel": {...}}``, a ``{"pipeline": {...}}`` and a
-``{"kernels": [...]}`` JSON object and the ``nvidia-smi`` name/power
-line; the last line is the JSON result.
+``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
+``{"context_moe": {...}}`` and a ``{"kernels": [...]}`` JSON object and
+the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
 """
@@ -3313,6 +3333,419 @@ def pipeline_phase(torch, fa, flash_first_loss, flash_step):
     return launches
 
 
+# -------------- phase 13: context parallelism and MoE at world size 1
+
+CP_LOSS_TOL = 1e-5            # the ring step's first loss against its twin
+ULYSSES_LOSS_TOL = 2e-2       # the Ulysses step with dropout against (a)
+CP_DROPOUT = 0.1
+ULYSSES_STEPS = 4             # timed Ulysses steps, after WARMUP_STEPS
+MOE_EXPERTS, MOE_CAPACITY, MOE_AUX_COEFF = 8, 1.25, 1e-2
+
+
+def cp_config(torch, impl, **kw):
+    """Phase 5's model with ``context_axis="cp"`` (no tensor axis)."""
+    return dataclasses.replace(gpt124m_train(torch, torch.bfloat16),
+                               tensor_axis=None, context_axis="cp",
+                               context_impl=impl, **kw)
+
+
+def moe_config(torch, **kw):
+    return dataclasses.replace(gpt124m_train(torch, torch.bfloat16),
+                               num_experts=MOE_EXPERTS,
+                               expert_capacity_factor=MOE_CAPACITY, **kw)
+
+
+def check_cp_identities(torch, cc):
+    """The cp axis's rotation (a self-permutation) and all-to-all at one
+    rank: each gives its input back; the kernels of one profiled call
+    (an empty list where the profiler recorded no device activity) and
+    the CUDA-event time of a call, over 10.  (``context_parallel`` skips
+    both at cp = 1.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(TRAIN_BATCH, N_HEADS, SEQ, HEAD_DIM, device="cuda",
+                    dtype=torch.bfloat16)
+    rec = {}
+    for name, fn in (
+            ("ppermute_many", lambda: cc.ppermute_many([x], "cp",
+                                                       [(0, 0)])[0]),
+            ("all_to_all", lambda: cc.all_to_all(x, "cp", split_axis=1,
+                                                 concat_axis=2))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            y = fn()
+            torch.cuda.synchronize()
+        check(torch.equal(y, x), f"cp at one rank: {name} gives its input "
+              f"back")
+        rows, busy = device_rows(torch, prof)
+        nccl = [r for r in rows if "nccl" in r[2].lower()]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        end.synchronize()
+        rec[name] = {"device_us": busy, "nccl_launches": sum(
+            r[1] for r in nccl), "kernels": [r[2][:60] for r in rows],
+            "event_us": start.elapsed_time(end) * 100}
+    log(f"cp at one rank: {json.dumps(rec)}")
+    return rec
+
+
+def seed_spy(fa, seen):
+    """Wrap F1-F3's wrappers to count the calls made with and without a
+    dropout seed; returns the originals to put back."""
+    origs = {}
+    for name, index in (("_fwd", 5), ("_dq", 8), ("_dkv", 8)):
+        orig = getattr(fa, name)
+
+        def call(*a, _orig=orig, _name=name, _i=index, **k):
+            seen[_name, a[_i] is not None] = \
+                seen.get((_name, a[_i] is not None), 0) + 1
+            return _orig(*a, **k)
+        origs[name] = orig
+        setattr(fa, name, call)
+    return origs
+
+
+def ring_spy(cpl, seen):
+    """Wrap the flash entry points that ``context_parallel`` calls to count
+    each with its causal flag (the ring's case: ``True`` is the diagonal
+    chunk); returns the originals to put back."""
+    origs = {}
+    for name in ("flash_attention_with_lse", "dq_chunk", "dkv_chunk"):
+        orig = getattr(cpl, name)
+
+        def call(*a, _orig=orig, _name=name, **k):
+            causal = k["causal"] if "causal" in k else a[3]
+            seen[_name, causal] = seen.get((_name, causal), 0) + 1
+            return _orig(*a, **k)
+        origs[name] = orig
+        setattr(cpl, name, call)
+    return origs
+
+
+def serial_twin_loss(torch, cfg, tokens):
+    """The serial model's loss on phase 5's weights: the same modules
+    without ``context_axis``, the whole sequence, the next-token mean."""
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+    from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+
+    serial = dataclasses.replace(cfg, context_axis=None)
+    model = GPTModel(serial, device="cuda")
+    model.load_params(init_gpt_params(serial, 0, device="cuda"))
+    with torch.no_grad():
+        loss = float(model(tokens, labels=tokens).mean())
+    del model
+    return loss
+
+
+def cp_train(torch, fa, cc, impl, steps, generator=None, **kw):
+    """``build_gpt_cp`` from phase 5's weights: ``WARMUP_STEPS + steps``
+    steps; returns the losses, the step time (s), the flash launches and
+    the collectives, and the step."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing.gpt_cp_train import build_gpt_cp
+
+    init_fn, _, make_train_step = build_gpt_cp(cp_config(torch, impl, **kw))
+    params, specs = init_fn(0)
+    step = make_train_step(FusedAdam(tree_leaves(params), lr=1e-4), specs)
+    tokens = train_tokens(torch)
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    losses = [step(params, tokens, generator) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(params, tokens, generator) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    n = WARMUP_STEPS + steps
+    counts = flash_counts(fa)
+    L = 12
+    check(counts == {k: L * n for k in counts}
+          and flash_route_counts(fa) == {"tc": (L * n,) * 3,
+                                         "simt": (0, 0, 0)},
+          f"cp[{impl}]: F1/F2/F3 launched {L} times a step, all on tc: "
+          f"{counts}, {flash_route_counts(fa)}")
+    calls = dict(cc.CALLS)
+    check(not any(calls.values()),
+          f"cp[{impl}]: no collective at cp = dp = 1: {calls}")
+    losses = [float(x) for x in losses]
+    check(all(x == x and abs(x) < 1e4 for x in losses)
+          and losses[-1] < losses[0],
+          f"cp[{impl}]: the losses are finite and fall: {losses}")
+    return losses, step_s, counts, (lambda: step(params, tokens, generator))
+
+
+def moe_dropped(torch, model, tokens):
+    """Tokens each Switch layer dropped in one forward (its routing
+    recomputed from the layer's input, so the step itself is untouched)."""
+    from apex_tpu_torch.transformer.moe import SwitchMLP, switch_route
+
+    dropped, hooks = [], []
+
+    def hook(m, inputs, _out):
+        x = inputs[0].reshape(-1, m.hidden_size)
+        d, _, _ = switch_route(x.float() @ m.router.float(),
+                               m.capacity(x.shape[0]))
+        dropped.append(x.shape[0] - int(d.sum()))
+
+    for m in model.modules():
+        if isinstance(m, SwitchMLP):
+            hooks.append(m.register_forward_hook(hook))
+    with torch.no_grad():
+        model(tokens)
+    for h in hooks:
+        h.remove()
+    return dropped
+
+
+def moe_einsum_ms(torch, timer):
+    """Forward + backward device ms of one layer's dispatch and combine
+    (``moe.dispatch_tokens``/``combine_tokens``, the reference's one-hot
+    einsums) at the MoE step's shapes (the ``[T, E*C]`` bf16 mask)."""
+    from apex_tpu_torch.transformer import moe
+
+    T = TRAIN_BATCH * SEQ
+    m = moe.SwitchMLP(HIDDEN, 4 * HIDDEN, MOE_EXPERTS,
+                      capacity_factor=MOE_CAPACITY, device="cuda")
+    C = m.capacity(T)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    idx = torch.randint(0, MOE_EXPERTS * C, (T,), generator=gen,
+                        device="cuda")
+    dd = torch.nn.functional.one_hot(idx, MOE_EXPERTS * C).to(
+        torch.bfloat16)
+    flat = torch.randn(T, HIDDEN, device="cuda", dtype=torch.bfloat16,
+                       requires_grad=True)
+    out = torch.randn(MOE_EXPERTS * C, HIDDEN, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(T, HIDDEN, device="cuda", dtype=torch.bfloat16)
+
+    def both():
+        e_in = moe.dispatch_tokens(dd, flat)
+        y = moe.combine_tokens(dd, out)
+        torch.autograd.backward([e_in, y], [e_in.detach(), g])
+
+    ms = timer(both)
+    # two products forward and one each backward (the mask takes none)
+    flops = 4 * 2 * T * MOE_EXPERTS * C * HIDDEN
+    bound_ms, by = bound(0, flops, "bf16")
+    return {"ms": ms, "capacity": C, "gflop": flops / 1e9,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def moe_train(torch, fa, cc, timer):
+    """(c): the MoE GPT, 2 + 8 steps on ``loss + 1e-2 * aux``."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.moe import SwitchMLP, collect_moe_aux
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+    from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+
+    cfg = moe_config(torch, tensor_axis=None)
+    model = GPTModel(cfg, device="cuda")
+    model.load_params(init_gpt_params(cfg, 0, device="cuda"))
+    opt = FusedAdam(model.parameters(), lr=1e-4)
+    tokens = train_tokens(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        ce = model(tokens, labels=tokens).mean()
+        aux = collect_moe_aux(model)
+        (ce + MOE_AUX_COEFF * aux).backward()
+        opt.step()
+        return (ce + MOE_AUX_COEFF * aux).detach(), aux.detach()
+
+    dropped0 = moe_dropped(torch, model, tokens)
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    out = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [step() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    n = WARMUP_STEPS + TIMED_STEPS
+    counts = flash_counts(fa)
+    check(counts == {k: 12 * n for k in counts}
+          and flash_route_counts(fa)["simt"] == (0, 0, 0),
+          f"moe: F1/F2/F3 launched 12 times a step, all on tc: {counts}")
+    calls = dict(cc.CALLS)
+    check(not any(calls.values()), f"moe: no collective: {calls}")
+    losses = [float(x) for x, _ in out]
+    auxes = [float(a) for _, a in out]
+    check(all(x == x and abs(x) < 1e4 for x in losses)
+          and losses[-1] < losses[0],
+          f"moe: the losses are finite and fall: {losses}")
+    per_layer = [float(m.last_aux.detach()) for m in model.modules()
+                 if isinstance(m, SwitchMLP)]
+    check(len(per_layer) == 12 and all(a >= 1.0 - 1e-5 for a in per_layer),
+          f"moe: each layer's aux loss is at least 1 (the 12 summed: "
+          f"{auxes}); last step's per layer {per_layer}")
+    dropped = moe_dropped(torch, model, tokens)
+    prof = profile_step(torch, "GPT-124M MoE step", step)
+    einsum = moe_einsum_ms(torch, timer)
+    rec = {"parameters": n_params, "step_ms": step_s * 1e3,
+           "losses": losses, "aux": auxes, "aux_per_layer": per_layer,
+           "dropped_first": dropped0,
+           "dropped_last": dropped, "profile": prof,
+           "dispatch_combine": dict(
+               einsum, step_ms=einsum["ms"] * 12,
+               busy_share=einsum["ms"] * 12 / max(prof["busy_ms"], 1e-9))}
+    log(f"train[GPT-124M MoE, {MOE_EXPERTS} experts, capacity factor "
+        f"{MOE_CAPACITY}, {n_params} parameters, batch {TRAIN_BATCH} x "
+        f"{SEQ}, bf16 compute]: step {step_s * 1e3:.3f} ms = "
+        f"{TRAIN_BATCH * SEQ / step_s:.1f} tokens/s; {json.dumps(rec)}; "
+        f"launches {counts}")
+    del model, opt
+    return counts, rec
+
+
+def moe_3d_step(torch, fa, cc):
+    """(d): one ``build_gpt_3d`` step with the experts at pp = 1."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        build_gpt_3d,
+    )
+
+    init_fn, _, make_train_step = build_gpt_3d(
+        moe_config(torch, expert_axis="dp"), num_chunks=PIPE_CHUNKS,
+        num_microbatches=PIPE_MICROBATCHES)
+    params, specs = init_fn(0)
+    step = make_train_step(FusedAdam(tree_leaves(params), lr=1e-4), specs)
+    tokens = train_tokens(torch)
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    t0 = time.perf_counter()
+    loss = float(step(params, tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_pipeline_launches(fa, pipeline_launches(1),
+                                     "one MoE 3D step")
+    calls = dict(cc.CALLS)
+    check(loss == loss and abs(loss) < 1e4 and not any(calls.values()),
+          f"moe 3D: the loss {loss} is finite, no collective ({calls})")
+    rec = {"loss": loss, "first_step_ms": wall * 1e3}
+    log(f"train[GPT-124M MoE through build_gpt_3d, pp 1, {PIPE_CHUNKS} "
+        f"chunks, {PIPE_MICROBATCHES} microbatches]: {json.dumps(rec)}; "
+        f"launches {counts}")
+    return counts, rec
+
+
+def context_moe_phase(torch, fa, flash_step):
+    """Phase 13: context parallelism and MoE at world size 1 over NCCL;
+    returns the phase's flash launches."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import collectives as cc
+    from apex_tpu_torch.parallel import launch
+    from apex_tpu_torch.transformer import context_parallel as cpl
+
+    t0 = time.perf_counter()
+    launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                  backend="nccl")
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    try:
+        check(dist.get_backend() == "nccl", "an NCCL process group")
+        parallel.initialize_model_parallel(context_parallel_size=1)
+        identities = check_cp_identities(torch, cc)
+        tokens = train_tokens(torch)
+
+        # (a) ring attention
+        twin = serial_twin_loss(torch, cp_config(torch, "ring"), tokens)
+        seen = {}
+        origs = ring_spy(cpl, seen)
+        try:
+            losses, step_s, counts, step = cp_train(torch, fa, cc, "ring",
+                                                    TIMED_STEPS)
+        finally:
+            for name, orig in origs.items():
+                setattr(cpl, name, orig)
+        add(counts)
+        n = 12 * (WARMUP_STEPS + TIMED_STEPS)
+        check(seen == {("flash_attention_with_lse", True): n,
+                       ("dq_chunk", True): n, ("dkv_chunk", True): n},
+              f"cp[ring]: every F1, F2 and F3 launch came through the ring's "
+              f"calls, the diagonal chunk's (causal): {seen}")
+        diff = losses[0] - twin
+        rel = abs(diff) / abs(twin)
+        check(rel <= CP_LOSS_TOL,
+              f"cp[ring]: the first loss {losses[0]:.6f} within "
+              f"{CP_LOSS_TOL} of the serial twin's {twin:.6f} (difference "
+              f"{diff:+.3e}, relative {rel:.3e})")
+        ring = {"step_ms": step_s * 1e3, "phase5_step_ms": flash_step * 1e3,
+                "losses": losses, "twin_loss": twin, "first_loss_rel": rel,
+                "ab": step_ab(torch, "cp ring", step, tokens),
+                "profile": profile_step(torch, "GPT-124M cp ring step",
+                                        step)}
+        log(f"train[GPT-124M cp ring at cp 1, batch {TRAIN_BATCH} x {SEQ}]: "
+            f"step {step_s * 1e3:.3f} ms; first loss {losses[0]:.6f} (serial "
+            f"twin {twin:.6f}, difference {diff:+.3e}); losses {losses}; "
+            f"launches {counts}")
+        del step
+
+        # (b) Ulysses with attention dropout
+        seen = {}
+        origs = seed_spy(fa, seen)
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            u_losses, u_step, counts, step = cp_train(
+                torch, fa, cc, "ulysses", ULYSSES_STEPS, generator=gen,
+                attention_dropout=CP_DROPOUT)
+        finally:
+            for name, orig in origs.items():
+                setattr(fa, name, orig)
+        add(counts)
+        n = 12 * (WARMUP_STEPS + ULYSSES_STEPS)
+        check(seen == {("_fwd", True): n, ("_dq", True): n,
+                       ("_dkv", True): n},
+              f"cp[ulysses]: every F1, F2 and F3 call carried a dropout "
+              f"seed: {seen}")
+        u_rel = abs(u_losses[0] - losses[0]) / abs(losses[0])
+        check(u_rel <= ULYSSES_LOSS_TOL,
+              f"cp[ulysses]: the first loss {u_losses[0]:.6f} with dropout "
+              f"{CP_DROPOUT} within {ULYSSES_LOSS_TOL} of the ring's "
+              f"{losses[0]:.6f} (relative {u_rel:.3e})")
+        ulysses = {"step_ms": u_step * 1e3, "losses": u_losses,
+                   "first_loss_rel_to_ring": u_rel}
+        log(f"train[GPT-124M cp Ulysses at cp 1, attention dropout "
+            f"{CP_DROPOUT}]: {json.dumps(ulysses)}; launches {counts}")
+        del step
+
+        # (c) the MoE GPT, (d) the MoE 3D step
+        counts, moe = moe_train(torch, fa, cc, Timer(torch))
+        add(counts)
+        counts, moe_3d = moe_3d_step(torch, fa, cc)
+        add(counts)
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
+    log(json.dumps({"context_moe": {
+        "identities": identities, "ring": ring, "ulysses": ulysses,
+        "moe": moe, "moe_3d": moe_3d, "launches": launches}}))
+    log(f"phase 13 (context parallelism and MoE at world size 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -3473,6 +3906,8 @@ def main():
         launches[k] += v
     for k, v in pipeline_phase(torch, fa, flash_losses[0],
                                flash_step).items():
+        launches[k] += v
+    for k, v in context_moe_phase(torch, fa, flash_step).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

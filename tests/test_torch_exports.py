@@ -1,8 +1,10 @@
 """The port's packages export what the JAX package's do.
 
 For every public name of ``apex_tpu.ops``, ``apex_tpu.serving``,
-``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer`` and
-``apex_tpu.transformer.tensor_parallel`` (its ``__all__``, or else every
+``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer``,
+``apex_tpu.transformer.tensor_parallel``,
+``apex_tpu.transformer.context_parallel``, ``apex_tpu.transformer.moe``
+and ``apex_tpu.transformer.testing`` (its ``__all__``, or else every
 name without a leading underscore), the port's package of the same place
 holds an object of the same kind: a function stays a function, a class a class, a module a
 module, a dtype a dtype.  Names whose modules are still queued in
@@ -18,7 +20,8 @@ import pytest
 import torch
 
 PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
-         "transformer.tensor_parallel"]
+         "transformer.tensor_parallel", "transformer.context_parallel",
+         "transformer.moe", "transformer.testing"]
 
 # name -> the ROADMAP.md section A item that ports its module
 QUEUED = {
@@ -51,11 +54,15 @@ QUEUED = {
         "sync_batchnorm": "A.4", "zero_init": "A.4",
         "zero_data_parallel_train_step": "A.4", "LARC": "A.4",
     },
-    "transformer": {
-        # context parallelism
-        "context_parallel": "A.2",
-    },
+    "transformer": {},
     "transformer.tensor_parallel": {},
+    "transformer.context_parallel": {},
+    "transformer.moe": {},
+    "transformer.testing": {
+        # standalone_transformer_lm.py's pooler and standalone_bert.py
+        "Pooler": "A.4", "BertModel": "A.4",
+        "bert_extended_attention_mask": "A.4",
+    },
 }
 
 

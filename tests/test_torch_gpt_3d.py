@@ -10,13 +10,16 @@ old mode by 1.25e-7).  One module-scoped fixture starts eight gloo CPU
 ranks (``torch_pipeline_ranks.gpt_3d_cases``) and computes the JAX side
 while they run: the serial loss and its ``jax.grad`` over the same global
 parameters (``tests/test_gpt_3d.py::serial_loss``'s pattern) and the
-serial packed loss with block-diagonal flash attention.  The file takes
-about 55 s on one worker.
+serial packed loss with block-diagonal flash attention.  The same spawn
+runs the Switch-MoE step (``num_experts=4, expert_axis="dp"``, JAX's
+jitted ``init_fn`` weights of that config), held against ``jax.grad`` of
+JAX's own ``build_gpt_3d`` loss and three of its FusedAdam steps.  The
+file takes about 70 s on one worker.
 
 Limits: the ten losses at ``compare_traces``' ``loss_rtol=1e-4`` against
 the stored baseline; the first step's gathered gradients within rtol
 2e-4 / atol 1e-5 of JAX's; the first loss and the packed losses within
-1e-5 of JAX's serial ones.
+1e-5 of JAX's serial ones; the MoE step's three losses within 1e-5.
 """
 
 import json
@@ -30,6 +33,7 @@ import torch
 
 import torch_pipeline_ranks as ranks
 from apex_tpu import parallel as jparallel
+from apex_tpu.optimizers import FusedAdam as JaxAdam
 from apex_tpu.data.sequence import segment_loss_mask as j_segment_loss_mask
 from apex_tpu.ops.softmax import AttnMaskType
 from apex_tpu.transformer.layers.layer_norm import FusedLayerNorm as JaxLN
@@ -67,6 +71,8 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
 )
 
 WORLD, DP, PP, TP, VPP, M = 8, 2, 2, 2, 2, 2
+MOE = {"num_experts": 4, "expert_axis": "dp"}
+MOE_STEPS = 3
 BASELINE = pathlib.Path(__file__).parent / "L1" / "baselines" / "gpt_3d.json"
 
 
@@ -136,21 +142,63 @@ def run():
                 jax.random.PRNGKey(0), tokens)
         finally:
             jparallel.destroy_model_parallel()
+        moe_params, moe_want = _jax_moe(tokens)
     params = jax.tree_util.tree_map(np.asarray, params)
     tokens = np.asarray(tokens).astype(np.int64)
     segments = _segments()
     job = start_multiprocess(
         ranks.gpt_3d_cases, WORLD,
-        args=(dict(params._asdict()), tokens, segments), timeout=240.0,
-        num_threads=1)
+        args=(dict(params._asdict()), tokens, segments,
+              {"config": MOE, "params": dict(moe_params._asdict())}),
+        timeout=240.0, num_threads=1)
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: _serial_losses(cfg, p, tokens)))(params)
     flash = JaxConfig(**dict(l1.GPT_3D, use_flash_attention=True))
     packed = jax.jit(lambda p, s: _serial_losses(flash, p, tokens, s))(
         params, segments["docs"])
     want = {"loss": float(loss), "packed/docs": float(packed),
-            "grads": jax.tree_util.tree_map(np.asarray, grads)}
+            "grads": jax.tree_util.tree_map(np.asarray, grads),
+            "moe": moe_want()}
     return params, job.join(), want
+
+
+def _jax_moe(tokens):
+    """JAX's MoE ``build_gpt_3d`` on the same grid: its jitted ``init_fn``
+    weights (numpy), and a function computing, while the ranks run, the
+    first step's loss and gradients (``jax.grad`` of its ``make_loss_fn``)
+    and three FusedAdam steps' losses."""
+    mesh = jparallel.initialize_model_parallel(**l1.GPT_3D_GRID)
+    init_fn, make_loss_fn, _ = j_build_gpt_3d(
+        JaxConfig(**dict(l1.GPT_3D, **MOE)), num_chunks=VPP,
+        num_microbatches=M, mesh=mesh)
+    held = {}
+
+    def init(k, t):
+        p, held["specs"] = init_fn(k, t)
+        return p
+
+    params = jax.jit(init)(jax.random.PRNGKey(0), tokens)
+
+    def steps():
+        jparallel.initialize_model_parallel(**l1.GPT_3D_GRID)
+        try:
+            value_and_grad = jax.jit(jax.value_and_grad(
+                make_loss_fn(held["specs"])))
+            opt = JaxAdam(lr=1e-3)
+            p, state = params, opt.init(params)
+            update = jax.jit(opt.step)
+            losses, first = [], None
+            for _ in range(MOE_STEPS):
+                loss, g = value_and_grad(p, tokens)
+                losses.append(float(loss))
+                first = first or jax.tree_util.tree_map(np.asarray, g)
+                p, state = update(g, state, p)
+        finally:
+            jparallel.destroy_model_parallel()
+        return {"losses": losses, "grads": first}
+
+    jparallel.destroy_model_parallel()
+    return jax.tree_util.tree_map(np.asarray, params), steps
 
 
 def _rank(d, s, t):
@@ -276,11 +324,88 @@ def _small(**kw):
                                     sequence_parallel=False, **kw))
 
 
+def test_moe_3d_step_matches_jax(run):
+    """The MoE step's first loss, and the next two after FusedAdam, within
+    1e-5 of JAX's on every rank; the experts split over dp (two of four a
+    rank), the router kept in fp32."""
+    _, results, want = run
+    for res in results:
+        np.testing.assert_allclose(res["moe"]["losses"],
+                                   want["moe"]["losses"], rtol=1e-5)
+        assert res["moe"]["w1"] == (VPP, 1, 2, 32, 128)
+        assert res["moe"]["router_dtype"] == "torch.float32"
+    assert want["moe"]["losses"][-1] < want["moe"]["losses"][0]
+
+
+def test_moe_3d_gradients_match_jax_grad(run):
+    """The first step's gradients, gathered over tp and pp and the expert
+    stacks joined over dp, leaf by leaf against ``jax.grad`` of JAX's MoE
+    ``build_gpt_3d`` loss (whose aux term is the tp mean of each rank's
+    routing loss): the experts' gradients whole on their owner (not
+    summed over dp), the router's and experts' summed over tp."""
+    _, results, want = run
+    per_dp = []
+    for d in range(DP):
+        moe = [dict(r, grads=r["moe"]["grads"]) for r in results]
+        per_dp.append(_gathered(moe, d)[1])
+    experts = ("w1", "b1", "w2", "b2")
+    n = 0
+    for field in ("embedding", "layers", "final_ln"):
+        for path, w in _leaves_with_path(getattr(want["moe"]["grads"],
+                                                 field)):
+            keys = [k.key for k in path]
+
+            def at(tree):
+                t = getattr(tree, field)
+                for k in keys:
+                    t = t[k]
+                return np.asarray(t)
+
+            if field == "layers" and keys[-1] in experts:
+                got = np.concatenate([at(g) for g in per_dp], axis=2)
+            else:
+                got = at(per_dp[0])
+                np.testing.assert_array_equal(got, at(per_dp[1]))
+            np.testing.assert_allclose(got, w, rtol=2e-4, atol=1e-5,
+                                       err_msg=f"{field}/{keys}")
+            n += 1
+    assert n >= 16
+
+
+def test_moe_3d_collectives(run):
+    """Every rank issues the same collectives in one step, among them the
+    expert all-to-alls: 4 layers x 2 microbatches, one each way forward
+    (and again in each tick's recomputation), one each way backward."""
+    _, results, _ = run
+    calls = {str(r["moe"]["calls"]) for r in results}
+    assert len(calls) == 1, calls
+    assert results[0]["moe"]["calls"]["all_to_all"] > 0
+
+
 @pytest.mark.parametrize("what", ["num_experts", "collect_stats"])
 def test_unported_options_raise_naming_the_roadmap_item(what):
+    """``collect_stats`` still raises, naming its item.  ``num_experts``
+    is ported: without a grid the MoE step is the serial MoE model's mean
+    over the microbatches of ``loss + 1e-2 * aux``."""
     if what == "num_experts":
-        with pytest.raises(NotImplementedError, match="A.2, item 2"):
-            build_gpt_3d(_small(num_experts=4), num_chunks=4, device="cpu")
+        from apex_tpu_torch.transformer.moe import collect_moe_aux
+
+        cfg = _small(num_experts=4)
+        tokens = torch.randint(0, 64, (8, 16),
+                               generator=torch.Generator().manual_seed(2))
+        init_fn, make_loss_fn, _ = build_gpt_3d(cfg, num_chunks=4,
+                                                num_microbatches=M,
+                                                device="cpu")
+        params, specs = init_fn(3)
+        loss = make_loss_fn(specs)(params, tokens)
+        model = GPTModel(cfg, device="cpu")
+        model.load_params(init_gpt_params(cfg, 3, device="cpu"))
+        ce, aux = [], []
+        for t in tokens.chunk(M):
+            ce.append(model(t, labels=t).mean())
+            aux.append(collect_moe_aux(model))
+        ref = torch.stack(ce).mean() + 1e-2 * torch.stack(aux).mean()
+        torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
         return
     init_fn, _, make_train_step = build_gpt_3d(_small(), num_chunks=4,
                                                device="cpu")
@@ -306,6 +431,26 @@ def test_without_a_grid_the_step_is_the_serial_model():
         ref = torch.stack([model(t, labels=t).mean()
                            for t in tokens.chunk(M)]).mean()
         torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
+
+
+def test_moe_aux_rides_the_packed_block_diagonal_pipeline():
+    """With the experts, ``packed_inputs`` and ``block_diagonal`` the aux
+    slot rides beside the activations and the segment ids, and its term is
+    added after the masked division: with one document a row the loss is
+    the plain MoE step's (the masked mean of equal microbatches is the mean
+    of their means)."""
+    cfg = _small(num_experts=4, use_flash_attention=True)
+    tokens = torch.randint(0, 64, (8, 16),
+                           generator=torch.Generator().manual_seed(4))
+    kw = dict(num_chunks=4, num_microbatches=M, device="cpu")
+    init_fn, make_loss_fn, _ = build_gpt_3d(cfg, **kw)
+    params, specs = init_fn(5)
+    plain = make_loss_fn(specs)(params, tokens)
+    init_fn, make_loss_fn, _ = build_gpt_3d(
+        cfg, packed_inputs=True, block_diagonal=True, **kw)
+    params, specs = init_fn(5)
+    packed = make_loss_fn(specs)(params, (tokens, torch.ones_like(tokens)))
+    torch.testing.assert_close(packed, plain, rtol=1e-6, atol=0)
 
 
 def test_segment_loss_mask_matches_jax():

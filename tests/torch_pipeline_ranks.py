@@ -220,9 +220,11 @@ def _overlap_layers(c, d, t):
 # ------------------------------------------------------------- the 3D GPT
 
 
-def gpt_3d_cases(params, tokens, packed):
+def gpt_3d_cases(params, tokens, packed, moe):
     """The ``gpt_3d`` trace with the first step's gradients; one guarded
-    step with an injected overflow; the block-diagonal packed loss."""
+    step with an injected overflow; the block-diagonal packed loss; and
+    the MoE step (``moe``: its config's changes and JAX's weights) with
+    its first gradients and three losses."""
     from apex_tpu_torch.amp.scaler import DynamicLossScale
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.resilience.sentinel import sentinel_init
@@ -285,5 +287,19 @@ def gpt_3d_cases(params, tokens, packed):
     init_fn, make_loss_fn, _ = build_gpt_3d(flash, **kw)
     local, specs = init_fn(params=params)
     out["flash_plain"] = float(make_loss_fn(specs)(local, batch).detach())
+
+    # Switch MoE, the experts split over dp
+    init_fn, _, make_train_step = build_gpt_3d(
+        TransformerConfig(**dict(l1.GPT_3D, **moe["config"])), **kw)
+    local, specs = init_fn(params=moe["params"])
+    step = make_train_step(FusedAdam(tree_leaves(local), lr=1e-3), specs)
+    cc.zero_counts()
+    losses = [float(step(local, batch))]
+    grads = tree_map(lambda p: p.grad.detach().clone(), local)
+    calls = dict(cc.CALLS)
+    losses += [float(step(local, batch)) for _ in range(2)]
+    out["moe"] = {"losses": losses, "grads": _np(grads), "calls": calls,
+                  "w1": tuple(local.layers["mlp"]["w1"].shape),
+                  "router_dtype": str(local.layers["mlp"]["router"].dtype)}
     parallel.destroy_model_parallel()
     return out
