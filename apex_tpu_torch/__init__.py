@@ -41,6 +41,13 @@ Ported so far:
   (``transformer.testing.gpt_parallel_train.build_gpt_3d``), with the
   non-finite sentinel (:mod:`apex_tpu_torch.resilience`) and the packed
   loss mask (:mod:`apex_tpu_torch.data`);
+- the rest of the serving engine: tensor-parallel serving (one engine
+  per rank of a tp group, holding its heads, weight shards and adapter
+  shards), worst-case ``"reserve"`` admission, the unfused paged
+  attention A/B, KV export and import between engines, live knobs, the
+  metrics registry, MFU, the flight recorder's timeline
+  (:mod:`apex_tpu_torch.observability`) and the drain on a
+  :class:`~apex_tpu_torch.resilience.PreemptionGuard`;
 - the normalization API (:mod:`apex_tpu_torch.normalization`: fused
   LayerNorm and RMSNorm, affine or not, mixed-dtype modules, the
   memory-efficient backward) and the row-norm entry points
@@ -55,4 +62,5 @@ runs instead.
 """
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
-           "amp", "parallel", "resilience", "data", "testing"]
+           "amp", "parallel", "resilience", "data", "testing",
+           "observability"]

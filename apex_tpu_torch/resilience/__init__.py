@@ -1,7 +1,9 @@
 """Resilience (counterpart of :mod:`apex_tpu.resilience`): the unified
-non-finite sentinel.  The rest of the package (the preemption manager and
-resharding) is not ported yet (ROADMAP.md, sections A.3 and A.4)."""
+non-finite sentinel and the SIGTERM preemption guard.  The rest of the
+package (the checkpoint manager and resharding) is not ported yet
+(ROADMAP.md, sections A.3 and A.4)."""
 
+from apex_tpu_torch.resilience.preemption import PreemptionGuard
 from apex_tpu_torch.resilience.sentinel import (  # noqa: F401
     SentinelState,
     guarded_optimizer_step,
@@ -10,5 +12,6 @@ from apex_tpu_torch.resilience.sentinel import (  # noqa: F401
     sentinel_update,
 )
 
-__all__ = ["SentinelState", "sentinel_init", "sentinel_update",
-           "sentinel_guarded_apply", "guarded_optimizer_step"]
+__all__ = ["PreemptionGuard", "SentinelState", "sentinel_init",
+           "sentinel_update", "sentinel_guarded_apply",
+           "guarded_optimizer_step"]

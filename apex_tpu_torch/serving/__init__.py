@@ -1,8 +1,10 @@
 """Serving runtime of the port (counterpart of :mod:`apex_tpu.serving`):
-paged KV cache, the paged-attention, fused-epilogue and LoRA-delta
-kernels, sampling, the decode model, the continuous-batching scheduler,
-n-gram speculative drafting, the multi-LoRA adapter arena and the
-engine."""
+paged KV cache with its export ledger, the paged-attention (and its
+unfused A/B lowering), fused-epilogue and LoRA-delta kernels, sampling,
+the decode model, the continuous-batching scheduler, n-gram speculative
+drafting, the multi-LoRA adapter arena and the engine, at any
+tensor-parallel size.  Not ported yet: the checkpoint restores and the
+fleet (ROADMAP.md, section A.3)."""
 
 from apex_tpu_torch.serving.engine import ServingConfig, ServingEngine
 from apex_tpu_torch.serving.kv_cache import (
@@ -20,7 +22,9 @@ from apex_tpu_torch.serving.lora import (
 )
 from apex_tpu_torch.serving.paged_attention import (
     paged_attention_decode,
+    paged_attention_decode_unfused,
     paged_prefill_attention,
+    paged_prefill_attention_unfused,
 )
 from apex_tpu_torch.serving.model import DecodeModel
 from apex_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -52,6 +56,8 @@ __all__ = [
     "init_kv_arena",
     "ngram_propose",
     "paged_attention_decode",
+    "paged_attention_decode_unfused",
     "paged_prefill_attention",
+    "paged_prefill_attention_unfused",
     "sample_tokens",
 ]

@@ -1,6 +1,6 @@
 """Batched multi-LoRA serving: the adapter arena and the gathered delta.
 
-Port of :mod:`apex_tpu.serving.lora` for one card.  One base checkpoint,
+Port of :mod:`apex_tpu.serving.lora`.  One base checkpoint,
 many tenants: each tenant's fine-tune is a low-rank update
 ``W + B @ A * alpha / rank`` on the four projections of every layer
 (fused QKV, attention dense, MLP fc1, MLP fc2).
@@ -26,9 +26,16 @@ once per row tile by a thread-block cluster) for ranks 4, 8 and 16 over
 rest.  CPU tensors run :func:`lora_delta_plain`, the ``index_select``
 twin of the JAX package's ``lora_delta_unfused``.
 
+Under tensor parallelism (:func:`adapter_partition_specs`) each rank
+holds its shard of the arena: the column-parallel projections' B (qkv,
+fc1) split on their output dim, so the delta lands split like the base
+output; the row-parallel projections' A (dense, fc2) split on their input
+dim, so each rank's delta is a partial sum that the model all-reduces.
+:func:`init_adapter_arena` allocates the rank's shard and
+:func:`shard_adapter_values` cuts a full adapter to it.
+
 Not ported yet: ``restore_adapter_for_serving`` (the adapter checkpoint
-restore, with the checkpoint module) and ``adapter_partition_specs``
-(tensor parallelism).
+restore, with the checkpoint module; ROADMAP.md, section A.3).
 """
 
 from __future__ import annotations
@@ -42,7 +49,16 @@ import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.serving.kv_cache import BlockAllocator, OutOfBlocksError
+from apex_tpu_torch.parallel.mesh import TENSOR_AXIS
+from apex_tpu_torch.serving.kv_cache import (
+    BlockAllocator,
+    OutOfBlocksError,
+    local_shape,
+    tp_world,
+)
+from apex_tpu_torch.transformer.tensor_parallel.partition import (
+    PartitionSpec,
+)
 
 __all__ = [
     "ADAPTER_REGISTRY",
@@ -50,6 +66,7 @@ __all__ = [
     "AdapterArena",
     "LoRAConfig",
     "OutOfAdapterSlotsError",
+    "adapter_partition_specs",
     "adapter_shapes",
     "init_adapter_arena",
     "init_adapter_weights",
@@ -57,6 +74,7 @@ __all__ = [
     "lora_delta_plain",
     "lora_route",
     "pack_adapter_values",
+    "shard_adapter_values",
 ]
 
 #: Owner under which the arena itself holds every resident adapter's slot
@@ -116,17 +134,51 @@ def adapter_shapes(config, lora: LoRAConfig
     }
 
 
-def init_adapter_arena(config, lora: LoRAConfig, device=None
+def adapter_partition_specs(tp_axis: Optional[str]
+                            ) -> Tuple[PartitionSpec, ...]:
+    """Splits of the eight arena tensors ``[L, n_slots, *shape]`` in
+    arena order ``(qkv_a, qkv_b, dense_a, dense_b, fc1_a, fc1_b, fc2_a,
+    fc2_b)``: the column-parallel projections (qkv, fc1) split B on its
+    output dim (dim 3), the row-parallel ones (dense, fc2) A on its input
+    dim (dim 2); the rest whole on every rank."""
+    rep = PartitionSpec(None, None, None, None)
+    col_b = PartitionSpec(None, None, None, tp_axis)
+    row_a = PartitionSpec(None, None, tp_axis, None)
+    return (rep, col_b, row_a, rep, rep, col_b, row_a, rep)
+
+
+def init_adapter_arena(config, lora: LoRAConfig, device=None, *, mesh=None,
+                       tp_axis: Optional[str] = TENSOR_AXIS
                        ) -> Tuple[torch.Tensor, ...]:
     """Eight zero tensors ``[L, n_slots, *shape]`` in arena order, in
-    ``config.param_dtype`` on ``device`` (default: the CUDA device).  A
+    ``config.param_dtype`` on ``device`` (default: the CUDA device); with
+    a ``mesh``, this rank's shards (:func:`adapter_partition_specs`).  A
     fresh arena is inert: every slot is the zero adapter."""
     device = resolve_device(device)
+    tp = tp_world(mesh, tp_axis)
     shapes = adapter_shapes(config, lora)
     lead = (config.num_layers, lora.n_slots)
-    return tuple(torch.zeros(lead + shape, dtype=config.param_dtype,
-                             device=device)
-                 for proj in PROJECTIONS for shape in shapes[proj])
+    full = [lead + shape for proj in PROJECTIONS for shape in shapes[proj]]
+    return tuple(torch.zeros(local_shape(shape, spec, tp_axis, tp),
+                             dtype=config.param_dtype, device=device)
+                 for shape, spec in zip(full,
+                                        adapter_partition_specs(tp_axis)))
+
+
+def shard_adapter_values(vals, tp_rank: int, tp: int,
+                         tp_axis: Optional[str] = TENSOR_AXIS):
+    """This rank's slices of one adapter's eight per-slot values ``[L,
+    *shape]`` (from :func:`pack_adapter_values`), the arena's split
+    without its slot dim; the values themselves at ``tp == 1``."""
+    if tp == 1:
+        return tuple(vals)
+    out = []
+    for val, spec in zip(vals, adapter_partition_specs(tp_axis)):
+        # the per-slot value lacks the arena's slot dim (dim 1)
+        out.append(val if tp_axis not in spec else
+                   val.chunk(tp, dim=spec.index(tp_axis) - 1)[tp_rank]
+                   .contiguous())
+    return tuple(out)
 
 
 def init_adapter_weights(config, lora: LoRAConfig, *, seed: int = 0

@@ -1,9 +1,9 @@
 """Prefill/decode forward of a GPT over the paged KV cache.
 
-Port of :mod:`apex_tpu.serving.model` at tensor-parallel size 1.  The
-layers are the training stack's (column/row-parallel linears, the MLP,
-the fused LayerNorm, the embedding and tied LM head) under the JAX
-package's parameter names, driven through two inference entry points:
+Port of :mod:`apex_tpu.serving.model`.  The layers are the training
+stack's (column/row-parallel linears, the MLP, the fused LayerNorm, the
+embedding and tied LM head) under the JAX package's parameter names,
+driven through two inference entry points:
 
 - :meth:`DecodeModel.prefill`: one ``[max_batch, chunk]`` slice of
   prompts, scattered into the cache at host-computed ``(block, offset)``
@@ -37,6 +37,25 @@ also take ``adapters`` (the eight ``[L, n_slots, ...]`` arena tensors) and
 layer adds the gathered rank-r delta (L1) to its four projections.  The
 adapter path repeats the bare path's operations in the same order, so the
 zero adapter's exact-zero delta leaves every value bit for bit as it was.
+
+**Tensor parallelism.**  With ``config.tensor_axis`` naming an axis of
+size tp > 1 on the grid (:func:`~apex_tpu_torch.parallel.
+initialize_model_parallel`), each rank holds its shard of the weights
+(:meth:`DecodeModel.load_params` takes the full tree and keeps the
+rank's) and of the cache: ``n/tp`` query heads and ``g/tp`` K/V groups,
+whose rows K1 and K2 read; the row-parallel projections' outputs are
+summed over tp inside the parallel linears, the row-parallel adapter
+deltas by :meth:`DecodeModel._lora_psum`, and the LM head's vocabulary
+shards are all-gathered (:meth:`DecodeModel._head`), so every rank
+samples the same token from the full vocabulary.  K3 runs on the full
+hidden row after the reduction, L1 on the rank's column split.
+
+``fused_attention=False`` attends through the reference's separate-ops
+lowering (:func:`~apex_tpu_torch.serving.paged_attention.
+paged_attention_decode_unfused` and
+:func:`~apex_tpu_torch.serving.paged_attention.
+paged_prefill_attention_unfused`) instead of K1 and K2, the A/B switch
+of the two kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.parallel import collectives as cc
 from apex_tpu_torch.serving.fused_ops import (
     fused_residual_norm,
     residual_norm_unfused,
@@ -57,7 +77,9 @@ from apex_tpu_torch.serving.kv_cache import KVCacheConfig
 from apex_tpu_torch.serving.lora import LoRAConfig, lora_delta
 from apex_tpu_torch.serving.paged_attention import (
     paged_attention_decode,
+    paged_attention_decode_unfused,
     paged_prefill_attention,
+    paged_prefill_attention_unfused,
 )
 from apex_tpu_torch.serving.sampling import sample_tokens
 from apex_tpu_torch.transformer.layers.layer_norm import FusedLayerNorm
@@ -69,6 +91,10 @@ from apex_tpu_torch.transformer.rope import (
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
+)
+from apex_tpu_torch.transformer.tensor_parallel.partition import (
+    infer_param_specs,
+    shard_params,
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
@@ -88,15 +114,21 @@ __all__ = ["DecodeModel", "serving_config"]
 def serving_config(config: TransformerConfig) -> TransformerConfig:
     """The inference view of a training config: fp8 off (the
     delayed-scaling state is training-side, and the parameters are the
-    same, so a checkpoint trained in fp8 serves unchanged).  The decode
-    path takes no dropout generator, so dropout is off as the JAX
-    function sets it; the port's config has no sequence parallelism to
-    turn off."""
+    same, so a checkpoint trained in fp8 serves unchanged), and sequence
+    parallelism, its rings and context parallelism off (a decode step
+    has no sequence dim to split; the parameters are the same).  The
+    decode path takes no dropout generator, so dropout is off as the JAX
+    function sets it."""
     if config.apply_residual_connection_post_layernorm:
         raise NotImplementedError(
             "serving decode assumes the standard pre-LN residual; "
             "apply_residual_connection_post_layernorm is not wired")
-    return dataclasses.replace(config, fp8=False)
+    if config.num_experts is not None:
+        raise NotImplementedError(
+            "MoE serving is not wired (the reference serves no experts "
+            "either)")
+    return dataclasses.replace(config, fp8=False, sequence_parallel=False,
+                               overlap_comm=False, context_axis=None)
 
 
 def _quantize_rows(x):
@@ -124,11 +156,13 @@ class _Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         n, g, d = cfg.num_attention_heads, cfg.query_groups, cfg.head_dim
+        axis = cfg.tensor_axis
         self.query_key_value = ColumnParallelLinear(
-            cfg.hidden_size, (n + 2 * g) * d, dtype=cfg.dtype, device=device)
-        self.dense = RowParallelLinear(
-            n * d, cfg.hidden_size, skip_bias_add=True, dtype=cfg.dtype,
+            cfg.hidden_size, (n + 2 * g) * d, axis=axis, dtype=cfg.dtype,
             device=device)
+        self.dense = RowParallelLinear(
+            n * d, cfg.hidden_size, skip_bias_add=True, axis=axis,
+            dtype=cfg.dtype, device=device)
 
 
 class _Layer(nn.Module):
@@ -153,22 +187,29 @@ class DecodeModel(nn.Module):
     the bias/residual/LayerNorm epilogue through the K3 kernel; ``False``
     is the reference's separate-ops lowering
     (:func:`~apex_tpu_torch.serving.fused_ops.residual_norm_unfused`),
-    chosen by the caller, never as a fallback."""
+    chosen by the caller, never as a fallback; ``fused_attention=False``
+    likewise attends through the unfused paged attention instead of K1
+    and K2.  At tp > 1 (``config.tensor_axis`` on the grid) the module
+    holds this rank's shard (see the module docstring)."""
 
     def __init__(self, config: TransformerConfig, cache: KVCacheConfig, *,
-                 fuse_epilogue: bool = True,
+                 fused_attention: bool = True, fuse_epilogue: bool = True,
                  lora: Optional[LoRAConfig] = None, device=None):
         super().__init__()
         cfg = serving_config(config)
         device = resolve_device(device)
         self.cfg = cfg
         self.cache = cache
+        self.fused_attention = fused_attention
         self.fuse_epilogue = fuse_epilogue
         self.lora = lora
         self.device = device
         d = cfg.head_dim
         n, g = cfg.num_attention_heads, cfg.query_groups
         self.hpg = divide(n, g)
+        self.tp = cfg.tp_world
+        self.n_local = divide(n, self.tp)
+        self.g_local = divide(g, self.tp)
         if cache.kv_heads != g:
             raise ValueError(
                 f"cache kv_heads ({cache.kv_heads}) != model query_groups "
@@ -187,8 +228,18 @@ class DecodeModel(nn.Module):
 
     def load_params(self, params: GPT3DParams) -> None:
         """Copy ``params`` in (layer stack ``[L, ...]`` or
-        ``[vpp, pp, ...]``), cast to each parameter's dtype."""
+        ``[vpp, pp, ...]``), cast to each parameter's dtype.  ``params``
+        is the full tree; at tp > 1 this rank keeps its shard, split as
+        :func:`~apex_tpu_torch.transformer.tensor_parallel.partition.
+        infer_param_specs` says."""
         layers = merge_layer_stack(params.layers, self.cfg.num_layers)
+        params = params._replace(layers=layers)
+        if self.tp > 1:
+            axis = self.cfg.tensor_axis
+            params = shard_params(
+                params, infer_param_specs(params, axis=axis),
+                cc.axis_index(axis), self.tp, axis=axis)
+            layers = params.layers
         state = {}
         state.update(_flatten(params.embedding, "embedding."))
         for name, t in _flatten(layers).items():
@@ -200,13 +251,12 @@ class DecodeModel(nn.Module):
     # ----------------------------------------------------------------- util
 
     def _split_qkv(self, qkv):
-        """Group-major fused-QKV split: per K/V group its hpg query heads,
-        then its one K and one V head."""
-        cfg = self.cfg
-        d = cfg.head_dim
+        """Group-major fused-QKV split of this rank's groups: per K/V
+        group its hpg query heads, then its one K and one V head."""
+        d = self.cfg.head_dim
         s, b = qkv.shape[0], qkv.shape[1]
-        qkv = qkv.reshape(s, b, cfg.query_groups, (self.hpg + 2) * d)
-        q = qkv[..., :self.hpg * d].reshape(s, b, cfg.num_attention_heads, d)
+        qkv = qkv.reshape(s, b, self.g_local, (self.hpg + 2) * d)
+        q = qkv[..., :self.hpg * d].reshape(s, b, self.n_local, d)
         k = qkv[..., self.hpg * d:(self.hpg + 1) * d]
         v = qkv[..., (self.hpg + 1) * d:]
         return q, k, v
@@ -240,11 +290,21 @@ class DecodeModel(nn.Module):
                                             v_scales=vs_layer)
         return layer_arenas, {}
 
+    def _lora_psum(self, d):
+        """Sum a row-parallel projection's partial deltas over tp (its A
+        is split on the input dim, so each rank holds a partial sum): the
+        one collective the adapter path adds, none at tp = 1."""
+        if self.tp > 1:
+            return cc.all_reduce(d, self.cfg.tensor_axis)
+        return d
+
     def _mlp_with_adapter(self, mlp, x, fc1_a, fc1_b, fc2_a, fc2_b, slots):
         """``ParallelMLP`` replayed op for op with the gathered deltas
-        added: fc1's after its bias and before the activation, fc2's to
-        its output (the bias stays apart, skip-bias-add).  A zero-slot
-        gather adds exact zeros, so the bare stream stays bitwise."""
+        added: fc1's (column-parallel, split like the base output) after
+        its bias and before the activation, fc2's (row-parallel, summed
+        over tp) to its output (the bias stays apart, skip-bias-add).  A
+        zero-slot gather adds exact zeros, so the bare stream stays
+        bitwise."""
         cfg = self.cfg
         h, bias = mlp.dense_h_to_4h(x)
         h = h + bias + lora_delta(x, fc1_a, fc1_b, slots)
@@ -255,7 +315,7 @@ class DecodeModel(nn.Module):
             h = F.gelu(h, approximate="tanh" if cfg.bias_gelu_fusion
                        else "none")
         out, out_bias = mlp.dense_4h_to_h(h)
-        out = out + lora_delta(h, fc2_a, fc2_b, slots)
+        out = out + self._lora_psum(lora_delta(h, fc2_a, fc2_b, slots))
         return out, out_bias
 
     def _layer_stack(self, x, arenas, attn_core, adapters=None,
@@ -276,7 +336,8 @@ class DecodeModel(nn.Module):
             ctx = attn_core(q, k, v, layer_arenas)
             y, y_bias = layer.self_attention.dense(ctx)
             if adapters is not None:
-                y = y + lora_delta(ctx, dense_a, dense_b, adapter_slots)
+                y = y + self._lora_psum(
+                    lora_delta(ctx, dense_a, dense_b, adapter_slots))
             ln2 = layer.post_attention_layernorm
             epilogue = (fused_residual_norm if self.fuse_epilogue
                         else residual_norm_unfused)
@@ -298,10 +359,16 @@ class DecodeModel(nn.Module):
             raise ValueError("adapters given to a model built without lora")
 
     def _head(self, x):
-        """Final LN + tied LM head: ``logits [s, b, vocab]``."""
+        """Final LN + tied LM head: ``logits [s, b, vocab]`` over the full
+        vocabulary (at tp > 1 the shards all-gathered, so every rank
+        samples in one id space)."""
         hidden = self.final_ln(x)
-        return parallel_lm_logits(
+        logits = parallel_lm_logits(
             hidden, self.embedding.word_embeddings.embedding, self.cfg)
+        if self.tp > 1:
+            logits = cc.all_gather(logits, self.cfg.tensor_axis,
+                                   concat_axis=-1)
+        return logits
 
     def _rope_tables(self, positions, dtype):
         cfg = self.cfg
@@ -379,8 +446,11 @@ class DecodeModel(nn.Module):
                 rope = (cos.reshape(B, S, -1).transpose(0, 1),
                         sin.reshape(B, S, -1).transpose(0, 1))
 
+        attend = (paged_attention_decode if self.fused_attention
+                  else paged_attention_decode_unfused)
+
         def attn_core(q, k, v, layer_arenas):
-            # q [S, B, n, d]; k/v [S, B, g, d]
+            # q [S, B, n_local, d]; k/v [S, B, g_local, d]
             if rope is not None:
                 rot = apply_rotary_decode if S == 1 else apply_rotary_packed
                 q = rot(q, *rope)
@@ -389,10 +459,10 @@ class DecodeModel(nn.Module):
             self._append_rows(layer_arenas, rows, dest, k, v)
             kv, sc = self._attend_kwargs(layer_arenas)
             if S == 1:
-                ctx = paged_attention_decode(q[0].contiguous(), *kv,
-                                             block_tables, lengths, **sc)
+                ctx = attend(q[0].contiguous(), *kv, block_tables, lengths,
+                             **sc)
                 return ctx.reshape(1, B, -1)
-            ctx = paged_attention_decode(
+            ctx = attend(
                 q.transpose(0, 1).contiguous(), *kv, block_tables, lengths,
                 limits=limits, **sc)                     # [B, S, n, d]
             return ctx.transpose(0, 1).reshape(S, B, -1)
@@ -450,16 +520,18 @@ class DecodeModel(nn.Module):
             rope = (cos.reshape(B, T, -1).transpose(0, 1),
                     sin.reshape(B, T, -1).transpose(0, 1))
 
+        attend = (paged_prefill_attention if self.fused_attention
+                  else paged_prefill_attention_unfused)
+
         def attn_core(q, k, v, layer_arenas):
-            # q [T, B, n, d]; k/v [T, B, g, d]
+            # q [T, B, n_local, d]; k/v [T, B, g_local, d]
             if rope is not None:
                 q = apply_rotary_packed(q, *rope)
                 k = apply_rotary_packed(k, *rope)
             self._append_rows(layer_arenas, rows, dest, k, v)
             kv, sc = self._attend_kwargs(layer_arenas)
-            ctx = paged_prefill_attention(
-                q.transpose(0, 1).contiguous(), *kv, block_tables, lengths,
-                limits, **sc)                            # [B, T, n, d]
+            ctx = attend(q.transpose(0, 1).contiguous(), *kv, block_tables,
+                         lengths, limits, **sc)          # [B, T, n, d]
             return ctx.transpose(0, 1).reshape(T, B, -1)
 
         x = self._layer_stack(x, arenas, attn_core, adapters, adapter_slots)

@@ -34,6 +34,13 @@ gather each slot's whole table and lower the masked softmax as separate
 ops, like the JAX package's ``*_unfused`` twins; they are the CPU path
 and the kernels' reference.
 
+:func:`paged_attention_decode_unfused` and
+:func:`paged_prefill_attention_unfused` are those twins under the
+reference's names and signatures: plain PyTorch on any device, CUDA
+tensors included, launching neither kernel.  The engine runs them when
+``ServingConfig(fused_attention=False)`` asks for the reference's A/B
+baseline.
+
 The speculative k+1 verify is a 4-D ``q [batch, k+1, n_heads, head_dim]``
 with per-position ``limits [batch, k+1]`` through
 :func:`paged_attention_decode`: it takes K2's multi-query sweep (a verify
@@ -54,8 +61,10 @@ __all__ = [
     "decode_route",
     "paged_attention_decode",
     "paged_attention_decode_plain",
+    "paged_attention_decode_unfused",
     "paged_prefill_attention",
     "paged_prefill_attention_plain",
+    "paged_prefill_attention_unfused",
     "prefill_route",
 ]
 
@@ -410,3 +419,38 @@ def paged_prefill_attention_plain(q, k_arena, v_arena, block_tables,
     mask = cols[None, None, None, :] < limits.long()[:, :, None, None]
     out = _masked_softmax_av(s, mask, "btns,bsnd->btnd", v)
     return out.to(q.dtype)
+
+
+def paged_attention_decode_unfused(q, k_arena, v_arena, block_tables,
+                                   lengths, *, limits=None, k_scales=None,
+                                   v_scales=None,
+                                   scale: Optional[float] = None):
+    """The separate-ops lowering of :func:`paged_attention_decode` on any
+    device, the A/B baseline of K1: each slot's whole table gathered into
+    fp32 copies, then the masked softmax as separate ops.  A 4-D ``q``
+    with ``limits`` is the unfused k + 1 verify
+    (:func:`paged_prefill_attention_unfused`).  Launches no kernel."""
+    if q.dim() == 4:
+        if limits is None:
+            raise ValueError(
+                "4-D q (the k+1 verify step) needs per-position limits")
+        return paged_prefill_attention_unfused(
+            q, k_arena, v_arena, block_tables, lengths, limits,
+            k_scales=k_scales, v_scales=v_scales, scale=scale)
+    if limits is not None:
+        raise ValueError("limits only apply to a 4-D (multi-query) q")
+    return paged_attention_decode_plain(
+        q, k_arena, v_arena, block_tables, lengths, k_scales=k_scales,
+        v_scales=v_scales, scale=scale)
+
+
+def paged_prefill_attention_unfused(q, k_arena, v_arena, block_tables,
+                                    lengths, limits, *, k_scales=None,
+                                    v_scales=None,
+                                    scale: Optional[float] = None):
+    """The separate-ops lowering of :func:`paged_prefill_attention` on any
+    device, the A/B baseline of K2: gather each slot's whole table, mask
+    per token.  Launches no kernel."""
+    return paged_prefill_attention_plain(
+        q, k_arena, v_arena, block_tables, lengths, limits,
+        k_scales=k_scales, v_scales=v_scales, scale=scale)

@@ -213,11 +213,31 @@ Phases (any failure exits non-zero; none is caught):
    dispatch/combine einsums' forward + backward device time at the step's
    shapes; (d) one ``build_gpt_3d`` step with those experts
    (``expert_axis="dp"``) at pp = 1, 12 chunks and 4 microbatches: F1 96
-   and F2, F3 48, its loss finite.
+   and F2, F3 48, its loss finite;
+14. serving over a one-rank tp grid and the rest of the engine, at world
+   size 1 over NCCL, phase 3's GPT-124M engine and bf16 wave: (a) the
+   engine with ``mesh=`` (``initialize_model_parallel(1, 1)``): K1-K3 12
+   a call on their routes, no collective, the streams bit for bit phase
+   3's no-mesh wave's, tokens/s, the pool's peak occupancy, device busy
+   ms of one profiled wave; (b) ``fused_attention=False``: no K1 or K2
+   launch, K3 12 a call, the streams equal (a)'s up to bf16 near ties,
+   tokens/s and busy ms beside (a)'s (the reference's ``vs_unfused``
+   A/B), and GPT-124M in fp32 with and without it: the first step's
+   logits within 1e-4; (c) ``admission="reserve"``: the streams bit for
+   bit (a)'s, no preemption, tokens/s and peak occupancy; (d) a request
+   exported after 8 tokens from one card engine and imported into
+   another, the bytes and ms of each side: in fp32 the continued stream
+   bit for bit the uninterrupted twin's, in bf16 equal up to near ties;
+   (e) ``introspect()["mfu"]`` a number, and the wave's host time with
+   the telemetry off (a registry that records nothing, no recorder) and
+   on (the metric registry and an armed flight recorder) in alternating
+   blocks, with the armed wave's timeline event counts, and one more
+   armed wave with the host time inside the telemetry's calls summed.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
-``{"context_moe": {...}}`` and a ``{"kernels": [...]}`` JSON object and
+``{"context_moe": {...}}``, a ``{"serving_tp": {...}}`` and a
+``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -3746,6 +3766,451 @@ def context_moe_phase(torch, fa, flash_step):
     return launches
 
 
+# ---------- phase 14: serving over a one-rank tp grid, the rest of the engine
+
+TELEMETRY_ROUNDS = 2          # (off, on, on, off) blocks of waves
+UNFUSED_LOGIT_TOL = 1e-4      # the CPU tests' fused-against-unfused limit
+EXPORT_AFTER = 8              # tokens served before the export
+
+
+class _NullMetric:
+    def inc(self, n=1.0):
+        pass
+
+    def set(self, v):
+        pass
+
+    def observe(self, v):
+        pass
+
+
+class _TimedMetric:
+    """A metric whose calls add their host seconds to ``spent[0]``."""
+
+    def __init__(self, metric, spent):
+        self.metric, self.spent = metric, spent
+
+    def _call(self, name, v):
+        t0 = time.perf_counter()
+        getattr(self.metric, name)(v)
+        self.spent[0] += time.perf_counter() - t0
+
+    def inc(self, n=1.0):
+        self._call("inc", n)
+
+    def set(self, v):
+        self._call("set", v)
+
+    def observe(self, v):
+        self._call("observe", v)
+
+
+class TimedRegistry:
+    """A metric registry that adds the host seconds of every call, its
+    lookups included, to ``spent[0]``."""
+
+    def __init__(self, inner, spent):
+        self.inner, self.spent = inner, spent
+
+    def _get(self, kind, name, **kw):
+        t0 = time.perf_counter()
+        metric = getattr(self.inner, kind)(name, **kw)
+        self.spent[0] += time.perf_counter() - t0
+        return _TimedMetric(metric, self.spent)
+
+    def counter(self, name):
+        return self._get("counter", name)
+
+    def gauge(self, name):
+        return self._get("gauge", name)
+
+    def histogram(self, name, *, keep_samples=0):
+        return self._get("histogram", name, keep_samples=keep_samples)
+
+
+class NullRegistry:
+    """A registry that records nothing: the baseline of the telemetry
+    A/B (with no recorder armed, the engine's telemetry costs nothing
+    more than these calls)."""
+
+    _metric = _NullMetric()
+
+    def counter(self, name):
+        return self._metric
+
+    def gauge(self, name):
+        return self._metric
+
+    def histogram(self, name, *, keep_samples=0):
+        return self._metric
+
+
+def tp_engine(torch, params, dtype=None, mesh=None, registry=None, **kw):
+    """Phase 1's engine (GPT-124M, bf16 compute and cache unless ``dtype``
+    says otherwise), over ``mesh`` when given."""
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.serving import ServingEngine
+
+    dtype = dtype or torch.bfloat16
+    kw.setdefault("cache_dtype", dtype)
+    eng = ServingEngine(gpt124m(torch, dtype), serving_shape(torch, **kw),
+                        params, mesh=mesh,
+                        registry=registry if registry is not None
+                        else MetricRegistry())
+    serve(eng, [[7] * 64], 4, stagger=False)          # warm-up, not counted
+    return eng
+
+
+def tp_wave(torch, np, pa, fo, lo, eng, prompts, label, peak=False):
+    """One wave of ``prompts`` (32 tokens each) on ``eng``: its requests,
+    launch counts, calls, tokens/s and, with ``peak``, the pool's peak
+    occupancy after any step."""
+    base = calls_of(eng)
+    tokens0 = eng.tokens_generated
+    highest = [0.0]
+    step = eng.step
+    if peak:
+        def watched():
+            step()
+            highest[0] = max(highest[0], eng.scheduler.kv_occupancy())
+        eng.step = watched
+    zero_counts(pa, fo, lo)
+    try:
+        reqs, wall = serve(eng, prompts, 32)
+    finally:
+        eng.step = step
+    for req in reqs:
+        check(req.state.value == "finished" and len(req.output_tokens) == 32,
+              f"{label}: request {req.rid} finished with its 32 tokens")
+    rec = {"calls": calls_of(eng, base), "counts": read_counts(pa, fo, lo),
+           "tokens_per_s": (eng.tokens_generated - tokens0) / wall,
+           "wall_ms": wall * 1e3}
+    if peak:
+        rec["peak_occupancy"] = highest[0]
+    return reqs, rec
+
+
+def tp_busy(torch, eng, prompts):
+    """Device busy ms of one profiled wave, and its wall ms.  The card's
+    activity only, summed over the raw events: recording every host op
+    too, or ``key_averages()`` over a wave's tens of thousands of kernels,
+    took 10-50 s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = serve(eng, prompts, 32)
+    busy_ns = sum(e.duration_ns()
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda and not e.is_user_annotation())
+    check(busy_ns > 0, "the profiled wave recorded device time")
+    return busy_ns / 1e6, wall * 1e3
+
+
+def first_step_logits(torch, model, prompts):
+    """Prefill ``prompts`` (one per slot, up to a chunk each) and decode
+    one token: the prefill logits at each last prompt position and the
+    decode step's, fp32."""
+    from apex_tpu_torch.serving import init_kv_arena
+
+    dev, bs, T = model.device, model.cache.block_size, CHUNK
+    nb = T // bs
+    S = len(prompts)
+    arenas = init_kv_arena(model.cache, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.long, device=dev)
+    tables = torch.zeros((S, model.cache.max_blocks_per_request), **i32)
+    tokens = torch.zeros((S, T), **i64)
+    pos = torch.zeros((S, T), **i64)
+    limits = torch.zeros((S, T), **i32)
+    lengths = torch.zeros((S,), **i32)
+    dest_b = torch.full((S, T), model.cache.n_blocks, **i64)
+    dest_o = torch.zeros((S, T), **i64)
+    last = torch.zeros((S,), **i64)
+    for s, p in enumerate(prompts):
+        n = len(p)
+        tables[s, :nb] = torch.arange(s * nb, (s + 1) * nb, **i32)
+        tokens[s, :n] = torch.tensor(p, **i64)
+        pos[s, :n] = torch.arange(n, **i64)
+        limits[s, :n] = torch.arange(1, n + 1, **i32)
+        lengths[s] = n
+        dest_b[s, :n] = torch.tensor([s * nb + t // bs for t in range(n)],
+                                     **i64)
+        dest_o[s, :n] = torch.arange(n, **i64) % bs
+        last[s] = n - 1
+    zeros = torch.zeros(S, device=dev), torch.zeros(S, **i64)
+    policy = (zeros[0], zeros[1], torch.ones(S, device=dev), zeros[1],
+              zeros[1])
+    nxt, logits = model.prefill(arenas, tokens, pos, tables, lengths, limits,
+                                dest_b, dest_o, last, *policy)
+    pre = logits[torch.arange(S, device=dev), last].float()
+    _, _, dec = model.decode_step(
+        arenas, nxt[:, None], lengths.long(), tables,
+        torch.ones(S, dtype=torch.bool, device=dev), *policy)
+    return pre, dec[:, 0].float()
+
+
+def unfused_logits_check(torch, params, prompts):
+    """GPT-124M in fp32 (K1 and K2 on their simt routes) with and without
+    ``fused_attention``: the first step's logits within the CPU tests'
+    limit."""
+    from apex_tpu_torch.serving import DecodeModel, KVCacheConfig
+
+    cfg = gpt124m(torch, torch.float32)
+    cache = KVCacheConfig(n_layers=12, n_blocks=3 * CHUNK // BLOCK,
+                          block_size=BLOCK, kv_heads=N_HEADS,
+                          head_dim=HEAD_DIM, max_seq=MAX_SEQ,
+                          dtype=torch.float32)
+    out = {}
+    for fused in (True, False):
+        model = DecodeModel(cfg, cache, fused_attention=fused)
+        model.load_params(params)
+        out[fused] = first_step_logits(torch, model, prompts)
+        del model
+    err = max(float((a - b).abs().max()) for a, b in zip(out[True],
+                                                         out[False]))
+    scale = float(out[True][0].abs().max())
+    check(err <= UNFUSED_LOGIT_TOL,
+          f"fused_attention=False: the first step's logits within "
+          f"{UNFUSED_LOGIT_TOL} of K1/K2's in fp32 (largest difference "
+          f"{err:.3e}, largest logit {scale:.3f})")
+    return err
+
+
+def export_check(torch, np, params, dtype, prompt, twin, label):
+    """Serve ``prompt`` to EXPORT_AFTER tokens on one card engine, export
+    it, import it into another and finish there; the stitched stream
+    against ``twin`` (a request of the uninterrupted engine), the bytes
+    and the ms of each side."""
+    from types import SimpleNamespace
+
+    src = tp_engine(torch, params, dtype=dtype)
+    dst = tp_engine(torch, params, dtype=dtype)
+    req = src.submit(prompt, 32)
+    while len(req.output_tokens) < EXPORT_AFTER:
+        src.step()
+    head = list(req.output_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta, payloads = src.export_request(req)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    moved = dst.import_request(list(prompt) + head, 32 - len(head),
+                               cache_len=meta["cache_len"], payloads=payloads)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    dst.run_until_drained()
+    check(len(src.exports) == 1, f"{label}: the run pinned until the ack")
+    src.release_export(req.rid, ok=True)
+    check(len(src.exports) == 0, f"{label}: the pin released")
+    for eng in (src, dst):
+        eng.scheduler.allocator.check()
+    stitched = SimpleNamespace(output_tokens=head + moved.output_tokens,
+                               prompt=prompt)
+    same = stitched.output_tokens == twin.output_tokens
+    if dtype == torch.float32:
+        check(same, f"{label}: the continued stream bit for bit the "
+              f"uninterrupted twin's")
+    else:
+        compare_streams(torch, label, [stitched], [twin], src.model,
+                        BF16_TIE)
+    rec = {"bytes": meta["bytes"], "blocks": meta["n_blocks"],
+           "cache_len": meta["cache_len"], "export_ms": export_ms,
+           "import_ms": import_ms, "identical": same}
+    log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def telemetry_ab(torch, np, pa, fo, lo, eng, prompts):
+    """The wave's host time with the telemetry off (a registry that
+    records nothing, no recorder) and on (the metric registry and an
+    armed flight recorder), in alternating blocks; the armed waves'
+    timeline event counts."""
+    from apex_tpu_torch.observability import FlightRecorder, MetricRegistry
+    from apex_tpu_torch.observability import timeline
+
+    walls = {"off": [], "on": []}
+    kinds, registry = {}, eng.registry
+    for _ in range(TELEMETRY_ROUNDS):
+        for mode in ("off", "on", "on", "off"):
+            rec = None
+            if mode == "on":
+                registry = MetricRegistry()
+                rec = timeline.arm(FlightRecorder(ring=1 << 16))
+            eng.registry = registry if mode == "on" else NullRegistry()
+            try:
+                _, wave_rec = tp_wave(torch, np, pa, fo, lo, eng, prompts,
+                                      f"telemetry {mode}")
+            finally:
+                timeline.disarm()
+            walls[mode].append(wave_rec["wall_ms"])
+            if rec is not None:
+                kinds = {}
+                for e in rec.events():
+                    kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    # one more armed wave, the host time inside the telemetry's own calls
+    # summed (an upper bound: the timing wrappers cost a little too)
+    spent = [0.0]
+    eng.registry = TimedRegistry(MetricRegistry(), spent)
+    rec = timeline.arm(FlightRecorder(ring=1 << 16))
+    emit = rec.emit
+
+    def timed_emit(*args, **kw):
+        t0 = time.perf_counter()
+        out = emit(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    rec.emit = timed_emit
+    try:
+        _, wave_rec = tp_wave(torch, np, pa, fo, lo, eng, prompts,
+                              "telemetry timed")
+    finally:
+        timeline.disarm()
+    eng.registry = registry
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    return {"wall_ms": walls, "median_ms": med,
+            "ratio": med["on"] / med["off"], "events": kinds,
+            "counters": registry.snapshot_typed()["counters"],
+            "telemetry_ms": spent[0] * 1e3,
+            "telemetry_share": spent[0] * 1e3 / wave_rec["wall_ms"],
+            "timed_wall_ms": wave_rec["wall_ms"]}
+
+
+def serving_tp_phase(torch, np, pa, fo, lo, params, prompts, plain):
+    """Phase 14: the engine through a one-rank NCCL grid and the rest of
+    its surface; returns the phase's K1, K2, K3 and L1 launches.
+    ``plain`` is phase 3's bf16 wave of the engine without a mesh."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import collectives as cc
+    from apex_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    L = 12
+    out = {"seconds": {}}
+
+    def mark(part):
+        out["seconds"][part] = time.perf_counter() - t0
+
+    launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                  backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", "an NCCL process group")
+        mesh = parallel.initialize_model_parallel(1, 1)
+
+        # (a) the engine over the one-rank tp grid
+        mark("grid")
+        eng = tp_engine(torch, params, mesh=mesh)
+        mark("a engine")
+        check(eng.mesh is mesh and eng.tp == 1, "(a): an engine over tp 1")
+        cc.zero_counts()
+        reqs, a = tp_wave(torch, np, pa, fo, lo, eng, prompts, "(a)",
+                          peak=True)
+        check(all(v == 0 for v in cc.CALLS.values()),
+              f"(a): no collective at tp 1 ({cc.CALLS})")
+        check_path_counts(a["counts"], a["calls"], L, spec=False, lora=False)
+        check_prefill_routes(pa, "tc", "(a) mesh engine")
+        check([r.output_tokens for r in reqs]
+              == [r.output_tokens for r in plain],
+              "(a): the streams bit for bit the no-mesh engine's (phase 3)")
+        add(a["counts"])
+        snap = eng.introspect()
+        check(isinstance(snap["mfu"], float) and 0.0 < snap["mfu"] < 1.0,
+              f"(e): introspect's MFU a number on the card "
+              f"({snap['mfu']}, {snap['mfu_reason']})")
+        a["mfu"] = snap["mfu"]
+        a["last_decode_ms"] = snap["last_decode_ms"]
+        mark("a wave")
+        a["busy_ms"], a["profiled_wall_ms"] = tp_busy(torch, eng, prompts)
+        log(f"serving_tp (a) mesh tp 1: {json.dumps(a)}")
+        out["a"] = a
+        mark("a")
+
+        # (b) fused_attention=False: the reference's vs_unfused A/B
+        ueng = tp_engine(torch, params, fused_attention=False)
+        ureqs, b = tp_wave(torch, np, pa, fo, lo, ueng, prompts, "(b)")
+        prefill, decode = b["calls"]
+        want = dict.fromkeys(b["counts"], 0)
+        want["fused_residual_norm"] = L * (prefill + decode)
+        check(b["counts"] == want,
+              f"(b): no K1 or K2 launch, K3 {L} a call: {b['counts']}")
+        add(b["counts"])
+        compare_streams(torch, "(b) fused_attention=False vs (a)", ureqs,
+                        reqs, eng.model, BF16_TIE)
+        mark("b wave")
+        b["busy_ms"], b["profiled_wall_ms"] = tp_busy(torch, ueng, prompts)
+        del ueng
+        mark("b profile")
+        b["fp32_first_step_logit_err"] = unfused_logits_check(
+            torch, params, [prompts[1][:64], prompts[2][:CHUNK],
+                            prompts[3][:CHUNK]])
+        log(f"serving_tp (b) fused_attention=False: {json.dumps(b)}")
+        out["b"] = b
+        mark("b")
+
+        # (c) worst-case reservation
+        reng = tp_engine(torch, params, admission="reserve")
+        rreqs, c = tp_wave(torch, np, pa, fo, lo, reng, prompts, "(c)",
+                           peak=True)
+        check_path_counts(c["counts"], c["calls"], L, spec=False, lora=False)
+        add(c["counts"])
+        check([r.output_tokens for r in rreqs]
+              == [r.output_tokens for r in reqs],
+              "(c): the reserve streams bit for bit (a)'s")
+        check(reng.scheduler.preemptions == 0
+              and reng.scheduler.prefix_cache is None,
+              "(c): no preemption, no prefix cache")
+        del reng
+        log(f"serving_tp (c) admission=reserve: {json.dumps(c)}")
+        out["c"] = c
+        mark("c")
+
+        # (d) KV export and import between two card engines
+        zero_counts(pa, fo, lo)
+        out["d"] = {"bf16": export_check(
+            torch, np, params, torch.bfloat16, prompts[2], reqs[2],
+            "(d) export/import, bf16")}
+        twin = tp_engine(torch, params, dtype=torch.float32)
+        (twin_req,), _ = serve(twin, [prompts[2]], 32, stagger=False)
+        del twin
+        out["d"]["fp32"] = export_check(
+            torch, np, params, torch.float32, prompts[2], twin_req,
+            "(d) export/import, fp32")
+        add(read_counts(pa, fo, lo))
+        mark("d")
+
+        # (e) the telemetry's cost and the timeline of a wave
+        zero_counts(pa, fo, lo)
+        e = telemetry_ab(torch, np, pa, fo, lo, eng, prompts)
+        add(read_counts(pa, fo, lo))
+        check(e["events"].get("request_finish") == len(prompts)
+              and e["events"].get("request_submit") == len(prompts),
+              f"(e): the armed wave's lifecycle events {e['events']}")
+        check(e["counters"]["serving/tokens_generated"] == 32 * len(prompts),
+              "(e): the registry counted the wave's tokens")
+        e["mfu"] = eng.introspect()["mfu"]
+        log(f"serving_tp (e) telemetry: {json.dumps(e)}")
+        out["e"] = e
+        mark("e")
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
+    out["launches"] = launches
+    log(json.dumps({"serving_tp": out}))
+    log(f"phase 14 (serving over a one-rank tp grid, the rest of the "
+        f"engine): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def main():
     import torch
 
@@ -3908,6 +4373,9 @@ def main():
                                flash_step).items():
         launches[k] += v
     for k, v in context_moe_phase(torch, fa, flash_step).items():
+        launches[k] += v
+    for k, v in serving_tp_phase(torch, np, pa, fo, lo, params, prompts,
+                                 fused).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

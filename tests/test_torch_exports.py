@@ -3,13 +3,16 @@
 For every public name of ``apex_tpu.ops``, ``apex_tpu.serving``,
 ``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer``,
 ``apex_tpu.transformer.tensor_parallel``,
-``apex_tpu.transformer.context_parallel``, ``apex_tpu.transformer.moe``
-and ``apex_tpu.transformer.testing`` (its ``__all__``, or else every
-name without a leading underscore), the port's package of the same place
-holds an object of the same kind: a function stays a function, a class a class, a module a
+``apex_tpu.transformer.context_parallel``, ``apex_tpu.transformer.moe``,
+``apex_tpu.transformer.testing``, ``apex_tpu.observability`` and
+``apex_tpu.resilience`` (its ``__all__``, or else every name without a
+leading underscore), the port's package of the same place holds an object
+of the same kind: a function stays a function, a class a class, a module a
 module, a dtype a dtype.  Names whose modules are still queued in
-``ROADMAP.md`` section A are left out, each with its item; each of them
-must still be missing, so the list can only shrink.
+``ROADMAP.md`` section A are left out, each with its item, and so are
+the names with no counterpart in eager PyTorch (``NO_COUNTERPART``, each
+with its reason); each of them must still be missing, so the lists can
+only shrink.
 """
 
 import importlib
@@ -21,7 +24,8 @@ import torch
 
 PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
          "transformer.tensor_parallel", "transformer.context_parallel",
-         "transformer.moe", "transformer.testing"]
+         "transformer.moe", "transformer.testing", "observability",
+         "resilience"]
 
 # name -> the ROADMAP.md section A item that ports its module
 QUEUED = {
@@ -33,7 +37,7 @@ QUEUED = {
     },
     "serving": {
         # serving/{autopilot,fleet,replica,transport,loader}.py and the
-        # engine items of A.3 (the unfused paged attention, the restores)
+        # engine's checkpoint restores
         "AutopilotConfig": "A.3", "FleetAutopilot": "A.3",
         "trace_attribution": "A.3",
         "FleetRequest": "A.3", "FleetRouter": "A.3",
@@ -43,8 +47,6 @@ QUEUED = {
         "start_replica_server": "A.3",
         "restore_gpt_for_serving": "A.3",
         "restore_adapter_for_serving": "A.3",
-        "paged_attention_decode_unfused": "A.3",
-        "paged_prefill_attention_unfused": "A.3",
     },
     "amp": {},
     "parallel": {
@@ -62,6 +64,44 @@ QUEUED = {
         # standalone_transformer_lm.py's pooler and standalone_bert.py
         "Pooler": "A.4", "BertModel": "A.4",
         "bert_extended_attention_mask": "A.4",
+    },
+    "observability": {
+        # observability/trainstats.py
+        "TrainStats": "A.3", "PartialTrainStats": "A.3",
+        "TrainStatsLogger": "A.3", "train_stats": "A.3",
+        "partial_train_stats": "A.3", "device_partial_norms": "A.3",
+        "local_grad_stats": "A.3", "pack_local_stats": "A.3",
+        "stats_from_reduced": "A.3", "stats_partition_specs": "A.3",
+        # observability/spans.py
+        "named_span": "A.3", "span": "A.3", "step_trace": "A.3",
+        "TraceWindow": "A.3",
+        # observability/writers.py
+        "JsonlWriter": "A.3", "read_jsonl": "A.3", "iter_jsonl": "A.3",
+        # observability/debug_server.py
+        "DebugServer": "A.3", "render_openmetrics": "A.3",
+        # observability/trace.py
+        "TRACE_HOP_BUCKETS": "A.3", "estimate_offset": "A.3",
+        "stitch_traces": "A.3", "summarize_traces": "A.3",
+        "merge_dir": "A.3", "format_trace_report": "A.3",
+        "collect_slo_events": "A.3",
+        # observability/timeseries.py and slo.py
+        "MetricHistory": "A.3", "match_series": "A.3",
+        "SLOPolicy": "A.3", "SLOEvaluator": "A.3",
+    },
+    "resilience": {
+        # resilience/manager.py and reshard.py
+        "CheckpointManager": "A.4", "ShardingSpec": "A.4",
+        "build_spec": "A.4", "load_logical": "A.4",
+        "restore_resharded": "A.4",
+    },
+}
+
+# name -> why eager PyTorch has no counterpart
+NO_COUNTERPART = {
+    "observability": {
+        "compiled_flops": "reads XLA's cost analysis of a compiled "
+                          "program; the serving engine counts its FLOPs "
+                          "from its shapes",
     },
 }
 
@@ -91,7 +131,7 @@ def _kind(obj) -> str:
 def test_every_ported_name_is_exported_with_its_kind(package):
     ref = importlib.import_module(f"apex_tpu.{package}")
     port = importlib.import_module(f"apex_tpu_torch.{package}")
-    queued = QUEUED[package]
+    queued = {**QUEUED[package], **NO_COUNTERPART.get(package, {})}
     wrong = []
     for name in _public(ref):
         if name in queued:
