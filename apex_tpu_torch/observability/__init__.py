@@ -1,16 +1,23 @@
 """Observability of the port (counterpart of
 :mod:`apex_tpu.observability`): the host metrics registry with MFU and
 the heartbeat (:mod:`.metrics`), the flight recorder's run timeline
-(:mod:`.timeline`) and its goodput report (:mod:`.goodput`).
+(:mod:`.timeline`) and its goodput report (:mod:`.goodput`), the
+crash-safe JSONL writers (:mod:`.writers`), the longitudinal metric
+history (:mod:`.timeseries`) and its SLO burn-rate alerts (:mod:`.slo`),
+the fleet's distributed traces (:mod:`.trace`) and the live debug
+endpoint (:mod:`.debug_server`).
 
 The serving engine records into a :class:`MetricRegistry` and, when a
-recorder is armed, logs every request's lifecycle to the timeline.  The
-rest of the reference package (the debug server, SLOs, spans, traces,
-training stats, time series and the JSONL writers) is not ported yet
-(ROADMAP.md, section A.3); ``compiled_flops`` has no counterpart, since
-eager PyTorch compiles no program whose cost analysis it could read.
+recorder is armed, logs every request's lifecycle to the timeline.  Not
+ported yet: the spans (ROADMAP.md, section A.2) and the training stats
+(section A.3); ``compiled_flops`` has no counterpart, since eager
+PyTorch compiles no program whose cost analysis it could read.
 """
 
+from apex_tpu_torch.observability.debug_server import (
+    DebugServer,
+    render_openmetrics,
+)
 from apex_tpu_torch.observability.goodput import (
     format_report,
     goodput_report,
@@ -26,7 +33,23 @@ from apex_tpu_torch.observability.metrics import (
     peak_flops_for,
     peak_flops_reason,
 )
+from apex_tpu_torch.observability.slo import SLOEvaluator, SLOPolicy
 from apex_tpu_torch.observability.timeline import FlightRecorder
+from apex_tpu_torch.observability.timeseries import MetricHistory, match_series
+from apex_tpu_torch.observability.trace import (
+    TRACE_HOP_BUCKETS,
+    collect_slo_events,
+    estimate_offset,
+    format_trace_report,
+    merge_dir,
+    stitch_traces,
+    summarize_traces,
+)
+from apex_tpu_torch.observability.writers import (
+    JsonlWriter,
+    iter_jsonl,
+    read_jsonl,
+)
 
 __all__ = [
     "MetricRegistry",
@@ -41,4 +64,20 @@ __all__ = [
     "goodput_report",
     "serving_goodput_report",
     "format_report",
+    "JsonlWriter",
+    "read_jsonl",
+    "iter_jsonl",
+    "DebugServer",
+    "render_openmetrics",
+    "TRACE_HOP_BUCKETS",
+    "estimate_offset",
+    "stitch_traces",
+    "summarize_traces",
+    "merge_dir",
+    "format_trace_report",
+    "collect_slo_events",
+    "MetricHistory",
+    "match_series",
+    "SLOPolicy",
+    "SLOEvaluator",
 ]

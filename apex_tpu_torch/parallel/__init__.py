@@ -11,9 +11,9 @@ collectives over those axes by name, and
 :class:`DistributedDataParallel` reduces the gradients over the data
 axes after the backward.
 
-Not ported yet (ROADMAP.md, section A.4): ``zero_init``,
-``zero_data_parallel_train_step``, ``SyncBatchNorm``,
-``sync_batch_norm_stats`` and ``LARC``.
+Not ported yet (ROADMAP.md, section A.4): ``SyncBatchNorm``,
+``sync_batch_norm_stats`` and ``LARC``; and (section A.5) ``zero_init``
+and ``zero_data_parallel_train_step``.
 """
 
 from apex_tpu_torch.parallel import collectives, launch  # noqa: F401

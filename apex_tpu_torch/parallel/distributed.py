@@ -13,7 +13,7 @@ one flat all-reduce per gradient dtype; it issues them at every group
 size, one rank included.
 
 Not ported yet: the ZeRO pair ``zero_init`` /
-``zero_data_parallel_train_step`` (ROADMAP.md, section A.4).
+``zero_data_parallel_train_step`` (ROADMAP.md, section A.5).
 """
 
 from __future__ import annotations
@@ -116,13 +116,26 @@ def all_reduce_gradients(grads, axis=mesh_lib.DATA_AXIS, *,
     return _map(grads, lambda g: next(reduced).to(g.dtype))
 
 
-def dp_shard_batch(batch, mesh=None, *, axis=DP_AXES):
+def dp_shard_batch(batch, mesh=None, *, local_ranks=None, axis=DP_AXES):
     """This rank's contiguous slice of the global batch's leading dim,
     laid out over ``(dcn, dp)`` dcn-major as the reference's
     ``P(("dcn", "dp"))`` shards it; 0-d leaves (a mixup lambda) are
-    every rank's.  ``mesh`` is accepted for the reference's signature."""
+    every rank's.  ``mesh`` is accepted for the reference's signature.
+
+    ``local_ranks`` (the reference's multi-host form): the batch holds
+    only this host's rows, ``len(local_ranks)`` equal windows, window
+    ``i`` belonging to data-parallel rank ``local_ranks[i]`` (use
+    :func:`host_dp_ranks`); this rank takes its own window.  ``axis``
+    (the port's, kept for the pipeline's callers that shard over ``dp``
+    alone) names the data-parallel axes."""
     del mesh
     n, i = cc.axis_size(axis), cc.axis_index(axis)
+    if local_ranks is not None:
+        local_ranks = [int(r) for r in local_ranks]
+        if i not in local_ranks:
+            raise ValueError(f"data-parallel rank {i} is not among "
+                             f"local_ranks {local_ranks}")
+        n, i = len(local_ranks), local_ranks.index(i)
 
     def leaf(x):
         if not isinstance(x, torch.Tensor):

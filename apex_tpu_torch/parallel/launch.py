@@ -7,6 +7,7 @@
   ``backend="gloo"``).  A job that wants NCCL where NCCL is missing is an
   error, never a quiet fall back to gloo.
 - :func:`run_multiprocess` starts ``world_size`` local ranks of a
+  script (the reference's contract: ``CompletedProcess`` results) or of a
   function with the ``spawn`` start method (never ``fork``: a parent
   that runs JAX or CUDA has threads), joins them to one group, and
   returns what each rank's call returned.  Every wait has a deadline;
@@ -27,6 +28,8 @@ import datetime
 import os
 import queue
 import socket
+import subprocess
+import sys
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
@@ -188,20 +191,88 @@ def start_multiprocess(fn: Callable, world_size: int, *,
     return RankJob(procs, results, world_size, timeout)
 
 
-def run_multiprocess(fn: Callable, world_size: int, *,
+def run_multiprocess(fn, world_size: int = 2,
+                     devices_per_process: int = 1,
+                     timeout: Optional[float] = None,
+                     extra_env: Optional[dict] = None,
+                     script_args: Optional[Sequence[str]] = None, *,
+                     num_processes: Optional[int] = None,
                      args: Sequence[Any] = (), backend: str = "gloo",
-                     timeout: float = 120.0,
-                     num_threads: Optional[int] = None) -> List[Any]:
-    """Run ``fn(*args)`` on ``world_size`` spawned ranks of one process
-    group and return their results in rank order.
+                     num_threads: Optional[int] = None):
+    """Run ``world_size`` local ranks, in one of two forms.
 
-    ``fn`` must be importable by name (a module-level function) and its
-    result picklable.  Each child sets ``torch.set_num_threads
+    **A function** (the port's form): ``fn(*args)`` on ``world_size``
+    spawned ranks of one process group; returns their results in rank
+    order.  ``fn`` must be importable by name (a module-level function)
+    and its result picklable.  Each child sets ``torch.set_num_threads
     (num_threads)`` when given, joins the group (``backend``, on
     ``127.0.0.1``), calls ``fn`` and leaves the group.  If a rank raises,
-    or ``timeout`` seconds pass before every rank has answered, every
-    child still running is killed and ``RuntimeError`` is raised with
-    what the ranks reported."""
+    or ``timeout`` seconds (120 by default) pass before every rank has
+    answered, every child still running is killed and ``RuntimeError`` is
+    raised with what the ranks reported.
+
+    **A script path** (``str``, the reference's contract):
+    ``num_processes`` (or ``world_size``) ranks of ``python fn
+    *script_args``, each with the environment
+    :func:`initialize_distributed` reads (``COORDINATOR_ADDRESS``,
+    ``NUM_PROCESSES``, ``PROCESS_ID``) plus ``extra_env``; the script
+    joins the group itself.  Returns the ranks' ``CompletedProcess``
+    results (stdout and stderr as bytes) and raises ``RuntimeError`` if a
+    rank exits non-zero or outlives ``timeout`` (600 s by default; it is
+    then killed).
+
+    ``devices_per_process`` is the reference's count of forced host
+    devices per rank.  A rank of the port drives one device (the card
+    ``PROCESS_ID % device_count`` under NCCL, or the CPU), so it must be
+    1."""
+    if devices_per_process != 1:
+        raise ValueError(
+            f"devices_per_process={devices_per_process}: a rank of the port "
+            "drives one device")
+    if num_processes is not None:
+        world_size = num_processes
+    if isinstance(fn, (str, os.PathLike)):
+        return _run_script(os.fspath(fn), world_size,
+                           600.0 if timeout is None else timeout,
+                           extra_env, script_args)
     return start_multiprocess(fn, world_size, args=args, backend=backend,
-                              timeout=timeout,
+                              timeout=120.0 if timeout is None else timeout,
                               num_threads=num_threads).join()
+
+
+def _run_script(script: str, num_processes: int, timeout: float,
+                extra_env: Optional[dict],
+                script_args: Optional[Sequence[str]]) -> list:
+    """The script form of :func:`run_multiprocess`."""
+    port = free_port()
+    procs = []
+    for rank in range(num_processes):
+        env = dict(os.environ)
+        env.update(extra_env or {})
+        env["COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+        env["NUM_PROCESSES"] = str(num_processes)
+        env["PROCESS_ID"] = str(rank)
+        procs.append(subprocess.Popen(
+            [sys.executable, script, *(script_args or ())], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    deadline = time.monotonic() + timeout
+    results, failed = [], []
+    for rank, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failed.append((rank, "timeout", err))
+            continue
+        results.append(subprocess.CompletedProcess(
+            proc.args, proc.returncode, out, err))
+        if proc.returncode != 0:
+            failed.append((rank, proc.returncode, err))
+    if failed:
+        msgs = "\n".join(
+            f"rank {r}: {rc}\n{e.decode(errors='replace')[-2000:]}"
+            for r, rc, e in failed)
+        raise RuntimeError(f"multiprocess launch failed:\n{msgs}")
+    return results

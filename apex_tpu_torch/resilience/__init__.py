@@ -1,7 +1,7 @@
 """Resilience (counterpart of :mod:`apex_tpu.resilience`): the unified
 non-finite sentinel and the SIGTERM preemption guard.  The rest of the
 package (the checkpoint manager and resharding) is not ported yet
-(ROADMAP.md, sections A.3 and A.4)."""
+(ROADMAP.md, section A.2)."""
 
 from apex_tpu_torch.resilience.preemption import PreemptionGuard
 from apex_tpu_torch.resilience.sentinel import (  # noqa: F401

@@ -3,10 +3,28 @@ paged KV cache with its export ledger, the paged-attention (and its
 unfused A/B lowering), fused-epilogue and LoRA-delta kernels, sampling,
 the decode model, the continuous-batching scheduler, n-gram speculative
 drafting, the multi-LoRA adapter arena and the engine, at any
-tensor-parallel size.  Not ported yet: the checkpoint restores and the
-fleet (ROADMAP.md, section A.3)."""
+tensor-parallel size; and the fleet over it: replicas as spawned
+processes (:mod:`.replica`), the mp-queue and framed-TCP transports
+(:mod:`.transport`), the router with failover, rollout, shedding, tenant
+fairness and prefill/decode disaggregation with KV migration
+(:mod:`.fleet`), and the SLO autopilot (:mod:`.autopilot`).  Not ported
+yet: the checkpoint restores (ROADMAP.md, section A.2)."""
 
 from apex_tpu_torch.serving.engine import ServingConfig, ServingEngine
+from apex_tpu_torch.serving.replica import ReplicaProcess, ReplicaSpec
+from apex_tpu_torch.serving.fleet import FleetRequest, FleetRouter
+from apex_tpu_torch.serving.autopilot import (
+    AutopilotConfig,
+    FleetAutopilot,
+    trace_attribution,
+)
+from apex_tpu_torch.serving.transport import (
+    SocketTransport,
+    TransportError,
+    TransportServer,
+    replica_serve,
+    start_replica_server,
+)
 from apex_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     KVCacheConfig,
@@ -37,6 +55,18 @@ from apex_tpu_torch.serving.speculative import (
 
 __all__ = [
     "AdapterArena",
+    "AutopilotConfig",
+    "FleetAutopilot",
+    "FleetRequest",
+    "FleetRouter",
+    "ReplicaProcess",
+    "ReplicaSpec",
+    "SocketTransport",
+    "TransportError",
+    "TransportServer",
+    "replica_serve",
+    "start_replica_server",
+    "trace_attribution",
     "BlockAllocator",
     "DecodeModel",
     "KVCacheConfig",

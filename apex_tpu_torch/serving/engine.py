@@ -86,9 +86,7 @@ timeline`) the engine logs each request's lifecycle keyed by request id
 Not ported: ``restore_gpt_for_serving`` and
 ``restore_adapter_for_serving``, the checkpoint restores (with
 ``serving/loader.py``, ``checkpoint.py`` and the resilience manager;
-ROADMAP.md, section A.3), and the fleet that drives engines across
-processes (``replica``, ``transport``, ``fleet``, ``autopilot``; section
-A.3).
+ROADMAP.md, section A.2).
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ dim, so each rank's delta is a partial sum that the model all-reduces.
 :func:`shard_adapter_values` cuts a full adapter to it.
 
 Not ported yet: ``restore_adapter_for_serving`` (the adapter checkpoint
-restore, with the checkpoint module; ROADMAP.md, section A.3).
+restore, with the checkpoint module; ROADMAP.md, section A.2).
 """
 
 from __future__ import annotations
@@ -100,11 +100,14 @@ class LoRAConfig:
     """Adapter-arena shape: ``max_adapters`` resident slots (the zero
     adapter at slot 0 comes on top), the shared ``rank`` of every
     registered adapter, and ``alpha``, the LoRA scale (B is stored
-    multiplied by ``alpha / rank``)."""
+    multiplied by ``alpha / rank``).  ``fused=True`` takes L1 on the card;
+    ``False`` serves through :func:`lora_delta_plain` on any device, the
+    reference's A/B switch."""
 
     rank: int = 8
     max_adapters: int = 8
     alpha: float = 16.0
+    fused: bool = True
 
     def __post_init__(self):
         if self.rank < 1:
@@ -410,7 +413,7 @@ def _check_cuda_operands(x, a, b, slots):
         raise TypeError(f"slots must be int32, got {slots.dtype}")
 
 
-def lora_delta(x, a, b, slots):
+def lora_delta(x, a, b, slots, *, fused: bool = True):
     """``delta[s, i] = (x[s, i] @ a[slots[i]]) @ b[slots[i]]`` (L1).
 
     ``x [S, B, in]`` sequence-major activations (any strides over the
@@ -418,7 +421,11 @@ def lora_delta(x, a, b, slots):
     (pre-scaled); ``slots [B]`` int32, each in ``[0, n_slots)``.  Both
     products in fp32, cast once to ``x.dtype``; returns ``[S, B, out]``.
     CUDA tensors launch the kernel :func:`lora_route` names; CPU tensors
-    run :func:`lora_delta_plain`."""
+    run :func:`lora_delta_plain`.  ``fused=False`` (the reference's
+    ``lora_delta_unfused``) runs :func:`lora_delta_plain` on any device
+    and launches nothing."""
+    if not fused:
+        return lora_delta_plain(x, a, b, slots)
     _check_delta(x, a, b, slots)
     if x.device.type == "cpu":
         return lora_delta_plain(x, a, b, slots)

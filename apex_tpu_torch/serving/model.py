@@ -307,7 +307,8 @@ class DecodeModel(nn.Module):
         bitwise."""
         cfg = self.cfg
         h, bias = mlp.dense_h_to_4h(x)
-        h = h + bias + lora_delta(x, fc1_a, fc1_b, slots)
+        h = h + bias + lora_delta(x, fc1_a, fc1_b, slots,
+                                  fused=self.lora.fused)
         if cfg.swiglu:
             gate, gate_bias = mlp.dense_h_to_4h_gate(x)
             h = F.silu(gate + gate_bias) * h
@@ -315,7 +316,8 @@ class DecodeModel(nn.Module):
             h = F.gelu(h, approximate="tanh" if cfg.bias_gelu_fusion
                        else "none")
         out, out_bias = mlp.dense_4h_to_h(h)
-        out = out + self._lora_psum(lora_delta(h, fc2_a, fc2_b, slots))
+        out = out + self._lora_psum(lora_delta(h, fc2_a, fc2_b, slots,
+                                               fused=self.lora.fused))
         return out, out_bias
 
     def _layer_stack(self, x, arenas, attn_core, adapters=None,
@@ -331,13 +333,15 @@ class DecodeModel(nn.Module):
             if adapters is not None:
                 (qkv_a, qkv_b, dense_a, dense_b,
                  fc1_a, fc1_b, fc2_a, fc2_b) = (a[i] for a in adapters)
-                qkv = qkv + lora_delta(ln1, qkv_a, qkv_b, adapter_slots)
+                qkv = qkv + lora_delta(ln1, qkv_a, qkv_b, adapter_slots,
+                                       fused=self.lora.fused)
             q, k, v = self._split_qkv(qkv)
             ctx = attn_core(q, k, v, layer_arenas)
             y, y_bias = layer.self_attention.dense(ctx)
             if adapters is not None:
                 y = y + self._lora_psum(
-                    lora_delta(ctx, dense_a, dense_b, adapter_slots))
+                    lora_delta(ctx, dense_a, dense_b, adapter_slots,
+                               fused=self.lora.fused))
             ln2 = layer.post_attention_layernorm
             epilogue = (fused_residual_norm if self.fuse_epilogue
                         else residual_norm_unfused)

@@ -604,11 +604,13 @@ class TransformerLanguageModel(nn.Module):
         return self.encoder(x, attention_mask, generator, segment_ids)
 
 
-def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig):
+def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig,
+                       bias=None):
     """Tied LM head: ``hidden [s, b, h]`` against the embedding table
-    ``[vocab, h]`` -> ``[s, b, vocab]`` in ``hidden``'s dtype.  At tp > 1
-    the table is this rank's ``[vocab/tp, h]`` shard and so are the
-    logits; ``hidden`` enters the tensor-parallel region first (under
+    ``[vocab, h]`` -> ``[s, b, vocab]`` in ``hidden``'s dtype, plus
+    ``bias`` (``[vocab]``, BERT's head) when given.  At tp > 1 the table
+    is this rank's ``[vocab/tp, h]`` shard and so are the logits and the
+    bias; ``hidden`` enters the tensor-parallel region first (under
     sequence parallelism all-gathered from its sequence shards)."""
     cfg = config
     if cfg.sp:
@@ -617,4 +619,7 @@ def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig):
     elif cfg.tp_world > 1:
         hidden = mappings.copy_to_tensor_model_parallel_region(
             hidden, cfg.tensor_axis)
-    return torch.matmul(hidden, word_embeddings.to(hidden.dtype).t())
+    logits = torch.matmul(hidden, word_embeddings.to(hidden.dtype).t())
+    if bias is not None:
+        logits = logits + bias
+    return logits

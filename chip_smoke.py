@@ -106,8 +106,13 @@ Phases (any failure exits non-zero; none is caught):
    route (here and in the LoRA waves); a LoRA wave (rank 8, four
    adapters, requests cycling over them and no adapter, a hot swap after
    the first tick, an LRU eviction after the drain): L1 48 times per
-   call, every launch on the cluster route, the no-adapter streams bit
-   for bit a bare engine's, the arena's
+   call, every launch on the cluster route, the same wave again through
+   ``LoRAConfig(fused=False)`` (no L1 launch, its no-adapter streams bit
+   for bit the L1 wave's, the adapter streams' parting points printed,
+   and ``lora_delta(fused=False)`` within ``lora_close``'s limits of L1
+   at the four projections), the no-adapter streams bit for bit a bare
+   engine's,
+   the arena's
    books closed; the same with k = 4 drafting and an int8 cache; four
    requests with drafting and two adapters in fp32 on the card and on the
    CPU; eight drafting LoRA requests under ``torch.profiler``, with L1's
@@ -232,7 +237,30 @@ Phases (any failure exits non-zero; none is caught):
    the telemetry off (a registry that records nothing, no recorder) and
    on (the metric registry and an armed flight recorder) in alternating
    blocks, with the armed wave's timeline event counts, and one more
-   armed wave with the host time inside the telemetry's calls summed.
+   armed wave with the host time inside the telemetry's calls summed;
+15. the serving fleet: replicas as spawned processes, each with its own
+   CUDA context, sharing the card, GPT-124M from ``init_fn(0)`` with
+   phase 3's serving shape, every stream held against one in-process
+   engine on the same weights (fp32 bit for bit, bf16 up to near ties):
+   (a) two ``ReplicaProcess`` replicas (fp32, traced) behind a
+   ``FleetRouter`` serve phase 3's 16 prompts, 32 tokens each, both
+   taking work, with each replica's ready time, the fleet's tokens/s
+   beside the in-process engine's and the router's TTFT/TPOT p50/p99;
+   (b) the replica serving the first request SIGKILLed after its third
+   relayed token, the rest replayed on the survivor, the time from the
+   kill to the last replayed token; the autopilot (``min_replicas=2``)
+   respawns it; (e) one replica drained by SIGTERM mid-wave (``drained``,
+   exit 0, only what it gave back requeued), and the spills merged into
+   one fully attributed trace per request; (c)/(d) a prefill and a decode
+   replica over ``SocketTransport`` through ``fleet_replica_target`` (the
+   prefill link behind a ``ChaosProxy`` that drops it once: a reconnect,
+   no failover), in bf16, 16 requests in rounds of 8 (the decode
+   replica's slots), every request's KV migrated (blocks, MB, router ms,
+   engine-side export and import ms from the replicas' ``/metrics``), the
+   slabs crossing as ``uint16``; the children's launches: K1 on split and
+   K2 on tc, 12 a call each, K3 12 a call of either kind, no simt launch,
+   added to the kernels line's counts; and the same pair in fp32 over
+   ``start_replica_server``, 8 requests.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
@@ -2071,6 +2099,9 @@ def lora_phase(torch, np, pa, fo, lo, params, prompts, spec_int8=False):
     arena = tuned.adapter_arena
     check(arena.active == 0, "no adapter left pinned after the wave")
     arena.check()
+    if not spec_int8:
+        unfused_lora_wave(torch, pa, fo, lo, cfg, params, prompts, samplings,
+                          reqs, tuned)
     slot = tuned.register_adapter("t4")
     check(arena.evictions == 1 and arena.resident("t4")
           and len(arena) == ADAPTERS, f"t4 (slot {slot}) evicted one adapter")
@@ -2107,6 +2138,72 @@ def lora_phase(torch, np, pa, fo, lo, params, prompts, spec_int8=False):
         f"moved by their adapter {moved}/{len(reqs) - len(nones)}; hot swap "
         f"of t2, eviction for t4 ({arena.evictions}); launches {counts}")
     return counts
+
+
+def unfused_lora_wave(torch, pa, fo, lo, cfg, params, prompts, samplings,
+                      fused, tuned):
+    """The LoRA wave again through ``LoRAConfig(fused=False)`` (the
+    reference's A/B switch): the same adapters, hot swap and requests;
+    no L1 launch, every other kernel as in the fused wave, the requests
+    without an adapter bit for bit the fused wave's (``fused``,
+    ``tuned``: the fused wave's requests and engine).  The adapter
+    fixture's deltas are tens in size, and the model with them
+    amplifies a rounding difference of one delta into logits 1e-2 apart
+    after one fp32 forward (card L1 against the CPU's plain version), so
+    the adapter streams' parting points are printed, not held to a tie;
+    the two lowerings are held against each other delta for delta
+    (``lora_unfused_delta_check``)."""
+    from apex_tpu_torch.serving import LoRAConfig, ServingEngine
+
+    lora_unfused_delta_check(torch, lo)
+    unfused = ServingEngine(cfg, serving_shape(torch, lora=LoRAConfig(
+        rank=RANK, max_adapters=ADAPTERS, alpha=16, fused=False)), params)
+    for i in range(ADAPTERS):
+        unfused.register_adapter(f"t{i}")
+    serve(unfused, [prompts[1][:64]], 4, stagger=False)      # warm-up
+    base = calls_of(unfused)
+    zero_counts(pa, fo, lo)
+    reqs, wall = serve(
+        unfused, prompts, SPEC_NEW, samplings=samplings,
+        after_first_tick=lambda: unfused.register_adapter("t2", seed=1234))
+    counts = read_counts(pa, fo, lo)
+    check_path_counts(counts, calls_of(unfused, base), cfg.num_layers,
+                      False, False)
+    check(lo.LAUNCHES == 0, "LoRAConfig(fused=False) launches no L1")
+    parts = []
+    for i, (g, w) in enumerate(zip(reqs, fused)):
+        if samplings[i].adapter_id is None:
+            check(g.output_tokens == w.output_tokens,
+                  f"lora fused=False: request {i} without an adapter is bit "
+                  f"for bit the L1 wave's")
+        elif g.output_tokens != w.output_tokens:
+            parts.append(next(j for j, (a, b) in enumerate(
+                zip(g.output_tokens, w.output_tokens)) if a != b))
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    n_tagged = sum(s.adapter_id is not None for s in samplings)
+    log(f"lora fused=False: {len(reqs)} requests, {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; launches {counts}; "
+        f"no-adapter streams bit for bit the L1 wave's; "
+        f"{n_tagged - len(parts)} of {n_tagged} adapter streams identical, "
+        f"the rest parting at tokens {parts}")
+
+
+def lora_unfused_delta_check(torch, lo):
+    """``lora_delta(..., fused=False)`` on the card against L1 at the
+    four projections, S = 1 and a prefill chunk, bf16 x over the fp32
+    arena (the LoRA wave's operands): no launch, and within
+    ``lora_close``'s limits of L1's output."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for proj, (n_in, _) in LORA_PAIRS.items():
+        for S in (1, CHUNK):
+            x, a, b, slots = lora_inputs(torch, bf16, f32, proj, S, False)
+            before = lo.LAUNCHES
+            unfused = lo.lora_delta(x, a, b, slots, fused=False)
+            torch.cuda.synchronize()
+            check(lo.LAUNCHES == before, "lora_delta(fused=False) launches "
+                  "no L1")
+            lora_close(torch, f"lora_delta fused=False [{proj}, S={S}]",
+                       lo.lora_delta(x, a, b, slots), unfused, n_in)
 
 
 def card_vs_cpu_lora(torch, params, prompts):
@@ -3907,10 +4004,10 @@ def tp_busy(torch, eng, prompts):
     return busy_ns / 1e6, wall * 1e3
 
 
-def first_step_logits(torch, model, prompts):
+def first_step_logits(torch, model, prompts, **kw):
     """Prefill ``prompts`` (one per slot, up to a chunk each) and decode
     one token: the prefill logits at each last prompt position and the
-    decode step's, fp32."""
+    decode step's, fp32 (``kw``: the adapters and their slots)."""
     from apex_tpu_torch.serving import init_kv_arena
 
     dev, bs, T = model.device, model.cache.block_size, CHUNK
@@ -3942,11 +4039,11 @@ def first_step_logits(torch, model, prompts):
     policy = (zeros[0], zeros[1], torch.ones(S, device=dev), zeros[1],
               zeros[1])
     nxt, logits = model.prefill(arenas, tokens, pos, tables, lengths, limits,
-                                dest_b, dest_o, last, *policy)
+                                dest_b, dest_o, last, *policy, **kw)
     pre = logits[torch.arange(S, device=dev), last].float()
     _, _, dec = model.decode_step(
         arenas, nxt[:, None], lengths.long(), tables,
-        torch.ones(S, dtype=torch.bool, device=dev), *policy)
+        torch.ones(S, dtype=torch.bool, device=dev), *policy, **kw)
     return pre, dec[:, 0].float()
 
 
@@ -4211,6 +4308,489 @@ def serving_tp_phase(torch, np, pa, fo, lo, params, prompts, plain):
 
 
 
+# --------------------------------------------- phase 15: the serving fleet
+
+FLEET_SEED = 0
+FLEET_NEW = 32              # tokens per request, as phase 3's wave
+FLEET_KILL_AT = 3           # relayed tokens before the SIGKILL
+FLEET_READY_S = 300.0       # a replica's start: torch, CUDA, the library
+FLEET_WAVE_S = 300.0        # the longest a fleet wave may take
+FLEET_COUNTS = ("DECODE_LAUNCHES", "DECODE_SPLIT_LAUNCHES",
+                "DECODE_SIMT_LAUNCHES", "PREFILL_LAUNCHES",
+                "PREFILL_TC_LAUNCHES", "PREFILL_SIMT_LAUNCHES")
+
+
+def fleet_replica_target(spec, name, addr_q, counts_path):
+    """Spawn target of phase 15's socket replicas: the port's
+    ``replica_serve`` in this child, then, once its server stops, the
+    child's kernel launch counts written to ``counts_path``."""
+    from apex_tpu_torch.serving import fused_ops as fo
+    from apex_tpu_torch.serving import lora as lo
+    from apex_tpu_torch.serving import paged_attention as pa
+    from apex_tpu_torch.serving import transport
+
+    try:
+        transport.replica_serve(spec, name, ready_hook=addr_q.put)
+    finally:
+        counts = {k: getattr(pa, k) for k in FLEET_COUNTS}
+        counts["RESIDUAL_NORM_LAUNCHES"] = fo.RESIDUAL_NORM_LAUNCHES
+        counts["LORA_LAUNCHES"] = lo.LAUNCHES
+        with open(counts_path, "w") as f:
+            json.dump(counts, f)
+
+
+def fleet_spec(torch, dtype, **kw):
+    """GPT-124M at full width from ``init_fn(FLEET_SEED)``, phase 3's
+    serving shape; a bf16 model keeps a bf16 cache, an fp32 one fp32."""
+    from apex_tpu_torch.serving import ReplicaSpec
+
+    return ReplicaSpec(config=gpt124m(torch, dtype),
+                       serving=serving_shape(torch, cache_dtype=dtype),
+                       seed=FLEET_SEED, **kw)
+
+
+def fleet_reference(torch, spec, prompts):
+    """The wave through one in-process engine on the replicas' weights
+    (``_build_engine`` of the spec, here): its requests, tokens/s and
+    model."""
+    from apex_tpu_torch.observability.metrics import MetricRegistry
+    from apex_tpu_torch.serving.replica import _build_engine
+
+    eng, _ = _build_engine(spec, MetricRegistry(rank=0, world=1), None)
+    serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up
+    reqs, wall = serve(eng, prompts, FLEET_NEW)
+    tokens = sum(len(r.output_tokens) for r in reqs)
+    return reqs, tokens / wall, eng.model
+
+
+class FleetLog:
+    """Every event the router polls, per replica (a client's ``poll``
+    wrapped), so the phase can read what crossed the wire."""
+
+    def __init__(self):
+        self.events = []
+
+    def tee(self, client):
+        poll = client.poll
+
+        def tee():
+            evs = poll()
+            self.events.extend((client.name, ev) for ev in evs)
+            return evs
+        client.poll = tee
+        return client
+
+    def kinds(self, kind, name=None):
+        return [ev for n, ev in self.events
+                if ev[0] == kind and (name is None or n == name)]
+
+
+def fleet_wave(router, prompts, *, during=None):
+    """Phase 3's stagger over the router: 4 requests up front, then one
+    every 20 ms; ``during(reqs)`` runs each pump; pump to idle.  Returns
+    the requests and the wall time."""
+    reqs, pending = [], list(prompts)
+    t0 = time.perf_counter()
+    next_at = t0
+    while pending or not router.idle():
+        now = time.perf_counter()
+        if pending and now >= next_at:
+            for _ in range(4 if not reqs else 1):
+                if pending:
+                    reqs.append(router.submit(pending.pop(0), FLEET_NEW))
+            next_at = now + 0.02
+        router.pump()
+        if during is not None:
+            during(reqs)
+        check(time.perf_counter() - t0 < FLEET_WAVE_S,
+              "the fleet wave drains")
+        time.sleep(0.0005)
+    return reqs, time.perf_counter() - t0
+
+
+def fleet_streams(torch, label, got, want, model, bound):
+    """Every request finished with its 32 tokens; the streams equal the
+    in-process engine's, bit for bit (``bound`` 0) or up to near ties."""
+    for r in got:
+        check(r.state.value == "finished" and len(r.output_tokens)
+              == FLEET_NEW, f"{label}: request {r.rid} finished with its "
+              f"{FLEET_NEW} tokens")
+    if bound == 0:
+        same = sum(g.output_tokens == w.output_tokens
+                   for g, w in zip(got, want))
+        check(same == len(want), f"{label}: {same} of {len(want)} streams "
+              f"bit for bit the in-process engine's")
+        log(f"{label}: all {len(want)} streams bit for bit the in-process "
+            f"engine's")
+    else:
+        compare_streams(torch, label, got, want, model, bound)
+
+
+def fleet_latency(router):
+    snap = router.registry.snapshot()
+    parts = []
+    for name in ("fleet/ttft_ms", "fleet/tpot_ms"):
+        h = snap.get(name) or {}
+        parts.append(f"{name.split('/')[1]} p50 {h.get('p50')} p99 "
+                     f"{h.get('p99')}")
+    return "; ".join(parts)
+
+
+def fleet_ready(clients, t_start):
+    """Wait for each client's handshake; print each replica's ready
+    time since ``t_start`` (its spawn)."""
+    out = {}
+    for c in clients:
+        c.wait_ready(timeout=FLEET_READY_S)
+        out[c.name] = round(time.perf_counter() - t_start[c.name], 3)
+    return out
+
+
+def start_counted(torch, spec, name, counts_path):
+    """One socket replica through ``fleet_replica_target``; returns the
+    process and its listening address."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    addr_q = ctx.Queue()
+    proc = ctx.Process(target=fleet_replica_target,
+                       args=(spec, name, addr_q, counts_path),
+                       daemon=False, name=f"fleet-{name}")
+    proc.start()
+    deadline = time.monotonic() + FLEET_READY_S
+    while True:
+        try:
+            host, port = addr_q.get(timeout=0.5)
+            return proc, (host, int(port))
+        except queue.Empty:
+            check(proc.is_alive(), f"replica {name} is alive before binding")
+            check(time.monotonic() < deadline, f"replica {name} binds")
+
+
+def child_metric(port, name):
+    """A histogram's mean from a replica's ``/metrics`` (its debug
+    server)."""
+    import urllib.request
+
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=10).read().decode()
+    flat = "apex_" + re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    vals = {}
+    for line in body.splitlines():
+        for key in ("_sum", "_count"):
+            if line.startswith(flat + key + "{"):
+                vals[key] = float(line.rsplit(" ", 1)[1])
+    return vals["_sum"] / vals["_count"] if vals.get("_count") else None
+
+
+def reap(procs):
+    for p in procs:
+        p.join(30)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+
+
+def fleet_queue_part(torch, np, prompts, trace_dir, ref32):
+    """(a) two ``ReplicaProcess`` replicas (fp32, traced) behind a
+    ``FleetRouter`` serve the wave; (b) one is SIGKILLed after its third
+    relayed token and the survivor replays; the autopilot respawns it;
+    (e) one is drained by SIGTERM mid-wave; the spills merge into one
+    attributed trace per request."""
+    from apex_tpu_torch.observability import trace as tr
+    from apex_tpu_torch.observability.metrics import MetricRegistry
+    from apex_tpu_torch.observability import timeline
+    from apex_tpu_torch.serving import (
+        AutopilotConfig,
+        FleetAutopilot,
+        FleetRouter,
+        ReplicaProcess,
+    )
+    from apex_tpu_torch.testing.faults import simulate_sigterm
+
+    spec = fleet_spec(torch, torch.float32, timeline_dir=trace_dir,
+                      timeline_tick_every=1)
+    ref_reqs, ref_tps, ref_model = ref32
+    t_start, procs, spawned = {}, {}, []
+    for name in ("q0", "q1"):
+        t_start[name] = time.perf_counter()
+        procs[name] = ReplicaProcess(spec, name)
+        spawned.append(procs[name])
+    ready = fleet_ready(procs.values(), t_start)
+    flog = FleetLog()
+    for p in procs.values():
+        flog.tee(p)
+    tr.arm_process(trace_dir, "router", "router")
+    # 12 in flight a replica: 8 running and 4 queued in its engine, what
+    # a drain gives back
+    router = FleetRouter(list(procs.values()),
+                         registry=MetricRegistry(rank=0, world=1),
+                         heartbeat_timeout_s=30.0, replica_queue_limit=12)
+    try:
+        reqs, wall = fleet_wave(router, prompts)
+        fleet_streams(torch, "fleet (a) [2 queue replicas, fp32]", reqs,
+                      ref_reqs, ref_model, 0)
+        took = {r.replica for r in reqs}
+        check(took == {"q0", "q1"}, f"both replicas took work ({took})")
+        tokens = sum(len(r.output_tokens) for r in reqs)
+        log(f"fleet (a): ready s {ready}; {len(reqs)} requests, {tokens} "
+            f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s (one "
+            f"in-process engine {ref_tps:.1f}); {fleet_latency(router)}; "
+            f"per replica {sorted((n, sum(r.replica == n for r in reqs)) for n in took)}")
+
+        # (b) SIGKILL the replica holding the first request at its 3rd token
+        killed = {}
+
+        def kill_at_k(live):
+            if killed or not live or len(live[0].output_tokens) < FLEET_KILL_AT:
+                return
+            victim = procs[live[0].replica]
+            victim.kill()
+            killed.update(name=victim.name, t=time.monotonic(),
+                          held=sum(r.replica == victim.name and not r.done
+                                   for r in live))
+        before = router.registry.snapshot()
+        reqs, wall = fleet_wave(router, prompts[:8], during=kill_at_k)
+        check(bool(killed), "a replica was killed mid-wave")
+        fleet_streams(torch, "fleet (b) [failover, fp32]", reqs,
+                      ref_reqs[:8], ref_model, 0)
+        replayed = [r for r in reqs if r.replays]
+        check(replayed and all(r.replica != killed["name"] for r in replayed),
+              "the killed replica's requests replayed on the survivor")
+        check(router._views[killed["name"]].down, "the killed replica is down")
+        last = max(r.t_last_token for r in replayed)
+        snap = router.registry.snapshot()
+        log(f"fleet (b): killed {killed['name']} holding {killed['held']} "
+            f"requests after {FLEET_KILL_AT} relayed tokens; "
+            f"{len(replayed)} replayed; kill to last replayed token "
+            f"{(last - killed['t']) * 1e3:.1f} ms; failovers "
+            f"{snap['fleet/failovers'] - before.get('fleet/failovers', 0)}")
+
+        # the autopilot repairs the min pool: one respawn
+        def spawn(name):
+            t_start[name] = time.perf_counter()
+            procs[name] = flog.tee(ReplicaProcess(spec, name))
+            spawned.append(procs[name])
+            return procs[name]
+        ap = FleetAutopilot(router, spawn=spawn,
+                            config=AutopilotConfig(min_replicas=2))
+        t0 = time.perf_counter()
+        while not any(d.get("verdict") == "joined" for d in ap.decisions):
+            router.pump()
+            ap.tick()
+            check(time.perf_counter() - t0 < FLEET_READY_S,
+                  "the autopilot's respawn joins")
+            time.sleep(0.01)
+        snap = router.registry.snapshot()
+        check(snap.get("fleet/autopilot/respawns") == 1,
+              "the autopilot respawned one replica")
+        log(f"fleet (e) autopilot: respawned {killed['name']}, joined in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # (e) SIGTERM one replica mid-wave: it drains and exits 0
+        drained = {}
+
+        def sigterm(live):
+            busy = [r.replica for r in live if r.replica and not r.done]
+            if drained or not busy or sum(
+                    len(r.output_tokens) for r in live) < B:
+                return
+            simulate_sigterm(procs[busy[-1]].pid)
+            drained["name"] = busy[-1]
+        before = router.registry.snapshot()
+        n_events = len(flog.events)
+        reqs, wall = fleet_wave(router, prompts, during=sigterm)
+        check(bool(drained), "a replica was sent SIGTERM mid-wave")
+        fleet_streams(torch, "fleet (e) [SIGTERM drain, fp32]", reqs,
+                      ref_reqs, ref_model, 0)
+        gone = procs[drained["name"]]
+        gone._proc.join(60)
+        check(gone.exitcode == 0, f"the drained replica exited 0 "
+              f"({gone.exitcode})")
+        check(flog.kinds("drained", drained["name"]), "it sent drained")
+        snap = router.registry.snapshot()
+        # what the draining replica gave back: its queue, cancelled, and
+        # what reached it after the drain began, refused
+        back = [ev for n, ev in flog.events[n_events:]
+                if n == drained["name"] and ev[0] in ("cancelled", "rejected")]
+        resched = (snap.get("fleet/reschedules", 0)
+                   - before.get("fleet/reschedules", 0))
+        check(resched == len(back) and snap.get("fleet/failovers", 0)
+              == before.get("fleet/failovers", 0),
+              f"the router requeued only what the drain gave back "
+              f"({resched} reschedules, {len(back)} cancelled or refused)")
+        log(f"fleet (e): SIGTERM to {drained['name']} mid-wave; drained, "
+            f"exit 0; {len(back)} queued requests given back and requeued")
+    finally:
+        router.close()
+        timeline.disarm()
+        reap([p._proc for p in spawned])
+    merged = tr.merge_dir(trace_dir)
+    traces = merged["traces"]
+    n_submitted = len(router.requests)
+    check(len(traces) == n_submitted, f"one trace per request "
+          f"({len(traces)} of {n_submitted})")
+    for tid, rec in traces.items():
+        check(rec["state"] == "finished" and rec["unattributed_s"] == 0.0
+              and rec["overcommit_s"] == 0.0,
+              f"trace {tid} fully attributed ({rec['state']}, "
+              f"unattributed {rec['unattributed_s']}, overcommit "
+              f"{rec['overcommit_s']})")
+    summary = tr.summarize_traces(traces)
+    log(f"fleet (e) traces: {len(traces)} requests, states "
+        f"{summary['states']}; hop seconds {json.dumps(summary['hop_totals_s'])}")
+
+
+def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
+    """(c)/(d) a prefill and a decode replica over ``SocketTransport``:
+    every request migrates its KV and the decode replica continues its
+    stream.  ``counted``: through ``fleet_replica_target`` with the
+    prefill replica behind a ``ChaosProxy`` that drops the link once
+    (a reconnect, no failover), the children's launch counts returned."""
+    from apex_tpu_torch.observability.metrics import MetricRegistry
+    from apex_tpu_torch.serving import (
+        FleetRouter,
+        SocketTransport,
+        start_replica_server,
+    )
+    from apex_tpu_torch.testing.faults import ChaosProxy
+
+    label = "bf16" if dtype == torch.bfloat16 else "fp32"
+    ref_reqs, _, ref_model = ref
+    t_start, procs, addrs, paths = {}, {}, {}, {}
+    for role in ("prefill", "decode"):
+        spec = fleet_spec(torch, dtype, role=role)
+        t_start[role] = time.perf_counter()
+        if counted:
+            paths[role] = f"build/fleet_counts.{role}.json"
+            procs[role], addrs[role] = start_counted(torch, spec, role,
+                                                     paths[role])
+        else:
+            procs[role], addrs[role] = start_replica_server(spec, role)
+    proxy = ChaosProxy(addrs["prefill"]) if counted else None
+    if proxy is not None:
+        addrs["prefill"] = proxy.address
+    flog = FleetLog()
+    clients = [flog.tee(SocketTransport(r, addrs[r], backoff_initial_s=0.01,
+                                        ping_every_s=0.05))
+               for r in ("prefill", "decode")]
+    ready = fleet_ready(clients, t_start)
+    # every request first lands on the prefill replica (the router sends
+    # one to a decode replica only when no prefill replica has room)
+    router = FleetRouter(clients, registry=MetricRegistry(rank=0, world=1),
+                         heartbeat_timeout_s=30.0, replica_queue_limit=B)
+    dropped = []
+
+    def drop_once(live):
+        if proxy is not None and not dropped and sum(
+                len(r.output_tokens) for r in live) >= 2 * B:
+            proxy.drop_connections()
+            dropped.append(time.monotonic())
+    try:
+        # rounds of B requests: the decode replica has B slots, and the
+        # router refuses an import with no slot free (it degrades to a
+        # re-prefill on the prefill replica)
+        reqs, wall = [], 0.0
+        for i in range(0, len(prompts), B):
+            got, dt = fleet_wave(router, prompts[i:i + B], during=drop_once)
+            reqs += got
+            wall += dt
+        fleet_streams(torch, f"fleet (d) [prefill/decode over the socket, "
+                      f"{label}]", reqs, ref_reqs, ref_model,
+                      BF16_TIE if dtype == torch.bfloat16 else 0)
+        snap = router.registry.snapshot()
+        n = len(reqs)
+        check(snap.get("fleet/kv_migrate_completed") == n
+              and not snap.get("fleet/kv_migrate_failed"),
+              f"every request migrated its KV ({snap.get('fleet/kv_migrate_completed')} of {n})")
+        check(all(r.replica == "decode" for r in reqs),
+              "the decode replica finished every stream")
+        metas = flog.kinds("kv_meta")
+        check(all(m[2]["slab_dtypes"] == [DTYPES[label]] * 2 for m in metas),
+              "the KV slabs' dtypes ride kv_meta")
+        slabs = [a for ev in flog.kinds("kv_block") for a in ev[3]]
+        wire = "uint16" if dtype == torch.bfloat16 else "float32"
+        check(slabs and all(a.dtype == np.dtype(wire) for a in slabs),
+              f"the {label} slabs cross as {wire} numpy arrays")
+        mig = snap.get("fleet/kv_migrate_ms") or {}
+        blocks = snap["fleet/kv_migrate_blocks"] / n
+        n_bytes = snap["fleet/kv_migrate_bytes"] / n
+        ports = {c.name: (c.meta or {}).get("debug_port") for c in clients}
+        export_ms = child_metric(ports["prefill"], "serving/kv_export_ms")
+        import_ms = child_metric(ports["decode"], "serving/kv_import_ms")
+        tokens = sum(len(r.output_tokens) for r in reqs)
+        if proxy is not None:
+            check(bool(dropped) and snap.get("fleet/reconnects", 0) >= 1
+                  and not snap.get("fleet/failovers"),
+                  f"the dropped link cost a reconnect "
+                  f"({snap.get('fleet/reconnects')}) and no failover")
+        log(f"fleet (d) [{label}]: ready s {ready}; {n} requests, {tokens} "
+            f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+            f"{fleet_latency(router)}; per migration {blocks:.1f} blocks, "
+            f"{n_bytes / 1e6:.3f} MB, {mig.get('mean'):.3f} ms mean (p50 "
+            f"{mig.get('p50')}, p99 {mig.get('p99')}) from the router's "
+            f"migrate start to its commit; engine-side export "
+            f"{export_ms:.3f} ms and import {import_ms:.3f} ms (means); "
+            f"reconnects {snap.get('fleet/reconnects', 0)}")
+    finally:
+        router.close()
+        if proxy is not None:
+            proxy.close()
+        reap(procs.values())
+    if not counted:
+        return None
+    counts = {}
+    for role, path in paths.items():
+        with open(path) as f:
+            counts[role] = json.load(f)
+    return counts
+
+
+def fleet_phase(torch, np, prompts):
+    """Phase 15: the serving fleet at GPT-124M width, replicas as spawned
+    processes sharing the card; returns the children's K1-K3 launches."""
+    import os
+    import shutil
+
+    trace_dir = "build/fleet_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.makedirs(trace_dir)
+    t0 = time.perf_counter()
+    refs = {dtype: fleet_reference(torch, fleet_spec(torch, dtype), prompts)
+            for dtype in (torch.float32, torch.bfloat16)}
+    fleet_queue_part(torch, np, prompts, trace_dir, refs[torch.float32])
+    counts = fleet_socket_part(torch, np, prompts, torch.bfloat16,
+                               refs[torch.bfloat16], counted=True)
+    fleet_socket_part(torch, np, prompts[:8], torch.float32,
+                      (refs[torch.float32][0][:8],) + refs[torch.float32][1:],
+                      counted=False)
+    total = {}
+    for role, c in counts.items():
+        k1, k1_split = c["DECODE_LAUNCHES"], c["DECODE_SPLIT_LAUNCHES"]
+        k2, k2_tc = c["PREFILL_LAUNCHES"], c["PREFILL_TC_LAUNCHES"]
+        k3 = c["RESIDUAL_NORM_LAUNCHES"]
+        layers = gpt124m(torch, torch.bfloat16).num_layers
+        check(k1_split == k1 and k2_tc == k2 and c["DECODE_SIMT_LAUNCHES"]
+              == 0 and c["PREFILL_SIMT_LAUNCHES"] == 0,
+              f"replica {role}: every bf16 K1 launch on split and K2 on tc "
+              f"({c})")
+        check(k1 > 0 and k2 > 0 and k1 % layers == 0 and k2 % layers == 0
+              and k3 == k1 + k2 and c["LORA_LAUNCHES"] == 0,
+              f"replica {role}: K1 {k1} and K2 {k2} launches at {layers} a "
+              f"call, K3 {k3} at {layers} a call of either kind")
+        log(f"fleet (c) replica {role}: K1 {k1} on split ({k1 // layers} "
+            f"decode calls), K2 {k2} on tc ({k2 // layers} prefill calls), "
+            f"K3 {k3}")
+        for key, name in (("paged_attention_decode", k1),
+                          ("paged_attention_decode/split", k1_split),
+                          ("paged_prefill_attention", k2),
+                          ("fused_residual_norm", k3)):
+            total[key] = total.get(key, 0) + name
+    log(f"fleet phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main():
     import torch
 
@@ -4376,6 +4956,8 @@ def main():
         launches[k] += v
     for k, v in serving_tp_phase(torch, np, pa, fo, lo, params, prompts,
                                  fused).items():
+        launches[k] += v
+    for k, v in fleet_phase(torch, np, prompts).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

@@ -36,25 +36,17 @@ QUEUED = {
         "mlp": "A.4", "MLP": "A.4", "mlp_forward": "A.4",
     },
     "serving": {
-        # serving/{autopilot,fleet,replica,transport,loader}.py and the
-        # engine's checkpoint restores
-        "AutopilotConfig": "A.3", "FleetAutopilot": "A.3",
-        "trace_attribution": "A.3",
-        "FleetRequest": "A.3", "FleetRouter": "A.3",
-        "ReplicaProcess": "A.3", "ReplicaSpec": "A.3",
-        "SocketTransport": "A.3", "TransportError": "A.3",
-        "TransportServer": "A.3", "replica_serve": "A.3",
-        "start_replica_server": "A.3",
-        "restore_gpt_for_serving": "A.3",
-        "restore_adapter_for_serving": "A.3",
+        # serving/loader.py and the engine's checkpoint restores
+        "restore_gpt_for_serving": "A.2",
+        "restore_adapter_for_serving": "A.2",
     },
     "amp": {},
     "parallel": {
-        # parallel/sync_batchnorm.py, the ZeRO pair of distributed.py and
-        # optimizers/larc.py
+        # parallel/sync_batchnorm.py and optimizers/larc.py
         "SyncBatchNorm": "A.4", "sync_batch_norm_stats": "A.4",
-        "sync_batchnorm": "A.4", "zero_init": "A.4",
-        "zero_data_parallel_train_step": "A.4", "LARC": "A.4",
+        "sync_batchnorm": "A.4", "LARC": "A.4",
+        # the ZeRO pair of distributed.py
+        "zero_init": "A.5", "zero_data_parallel_train_step": "A.5",
     },
     "transformer": {},
     "transformer.tensor_parallel": {},
@@ -73,26 +65,14 @@ QUEUED = {
         "local_grad_stats": "A.3", "pack_local_stats": "A.3",
         "stats_from_reduced": "A.3", "stats_partition_specs": "A.3",
         # observability/spans.py
-        "named_span": "A.3", "span": "A.3", "step_trace": "A.3",
-        "TraceWindow": "A.3",
-        # observability/writers.py
-        "JsonlWriter": "A.3", "read_jsonl": "A.3", "iter_jsonl": "A.3",
-        # observability/debug_server.py
-        "DebugServer": "A.3", "render_openmetrics": "A.3",
-        # observability/trace.py
-        "TRACE_HOP_BUCKETS": "A.3", "estimate_offset": "A.3",
-        "stitch_traces": "A.3", "summarize_traces": "A.3",
-        "merge_dir": "A.3", "format_trace_report": "A.3",
-        "collect_slo_events": "A.3",
-        # observability/timeseries.py and slo.py
-        "MetricHistory": "A.3", "match_series": "A.3",
-        "SLOPolicy": "A.3", "SLOEvaluator": "A.3",
+        "named_span": "A.2", "span": "A.2", "step_trace": "A.2",
+        "TraceWindow": "A.2",
     },
     "resilience": {
         # resilience/manager.py and reshard.py
-        "CheckpointManager": "A.4", "ShardingSpec": "A.4",
-        "build_spec": "A.4", "load_logical": "A.4",
-        "restore_resharded": "A.4",
+        "CheckpointManager": "A.2", "ShardingSpec": "A.2",
+        "build_spec": "A.2", "load_logical": "A.2",
+        "restore_resharded": "A.2",
     },
 }
 

@@ -97,6 +97,38 @@ def test_delta_matches_jax_fused_and_unfused(dtype, S):
         atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_unfused_delta_matches_jax_unfused_on_any_device(dtype):
+    """``lora_delta(..., fused=False)`` is the reference's A/B switch: the
+    slots' A and B gathered, two fp32 products, bit for bit JAX's
+    ``lora_delta_unfused`` in fp32 (its bf16 cast within one step).  It
+    runs where no kernel exists ("meta") and launches nothing; the fused
+    call on "meta" raises."""
+    rng = np.random.default_rng(11)
+    x, a, b = _delta_inputs(rng, 3, 4, 16, 4, 12, 3)
+    slots = np.asarray([1, 2, 0, 1], np.int32)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tx, ta, tb = (torch.from_numpy(v).to(tdt) for v in (x, a, b))
+    jx, ja, jb = (jnp.asarray(v.float().numpy(), jdt) for v in (tx, ta, tb))
+    got = lora.lora_delta(tx, ta, tb, torch.from_numpy(slots), fused=False)
+    want = np.asarray(jnp.asarray(jax_lora.lora_delta(
+        jx, ja, jb, jnp.asarray(slots), fused=False), jnp.float32))
+    tol = (dict(atol=1e-6, rtol=1e-6) if dtype == "fp32"
+           else dict(atol=1e-6, rtol=2.0 ** -7))
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    torch.testing.assert_close(
+        got, lora.lora_delta_plain(tx, ta, tb, torch.from_numpy(slots)),
+        atol=0, rtol=0)
+    meta = [t.to("meta") for t in (tx, ta, tb)]
+    mslots = torch.from_numpy(slots).to("meta")
+    out = lora.lora_delta(*meta, mslots, fused=False)
+    assert out.device.type == "meta" and out.shape == (3, 4, 12)
+    with pytest.raises(ValueError, match="no kernel"):
+        lora.lora_delta(*meta, mslots)
+    assert lora.LAUNCHES == 0
+    assert LoRAConfig().fused and not LoRAConfig(fused=False).fused
+
 def test_delta_takes_strided_x_and_checks_its_operands():
     """A sequence-major view with strides (no copy needed) gives the
     same delta as its contiguous copy; bad shapes raise; other devices
@@ -541,3 +573,34 @@ def test_unknown_adapter_is_rejected():
     assert req.state is RequestState.REJECTED and bare.scheduler.idle
     with pytest.raises(RuntimeError, match="lora is None"):
         bare.register_adapter("tenant-a")
+
+
+def test_unfused_lora_engine_streams_match_jax_unfused_engine():
+    """An engine with ``LoRAConfig(fused=False)`` serves tagged and bare
+    requests through the unfused lowering, token for token as the JAX
+    engine with ``fused=False``, and as the fused engine."""
+    jcfg, tcfg = _configs(GPT)
+    tree = _jax_tree(jcfg, 3)
+    unfused = LoRAConfig(rank=LORA.rank, max_adapters=LORA.max_adapters,
+                         fused=False)
+    port = ServingEngine(tcfg, ServingConfig(**SHAPE, lora=unfused),
+                         from_jax_params(tree), device="cpu")
+    fused = ServingEngine(tcfg, ServingConfig(**SHAPE, lora=LORA),
+                          from_jax_params(tree), device="cpu")
+    ref = JaxServingEngine(
+        jcfg, JaxServingConfig(**SHAPE, lora=JaxLoRAConfig(
+            rank=LORA.rank, max_adapters=LORA.max_adapters, fused=False)),
+        _as_jax(tree), mesh=_mesh(), registry=MetricRegistry())
+    assert port.model.lora.fused is False
+    prompt = [9, 8, 7, 6, 5]
+    script = [("register", "t0", 10), ("register", "t1", 11)]
+    for i, aid in enumerate(["t0", "t1", None, "t0"]):
+        script.append(("submit", f"r{i}", prompt + [i + 1], 8, aid))
+    script.append(("run",))
+    p_reqs, f_reqs, j_reqs = _lockstep([port, fused, ref], script)
+    for name, req in p_reqs.items():
+        assert req.state is RequestState.FINISHED, name
+        assert req.output_tokens == j_reqs[name].output_tokens, name
+        assert req.output_tokens == f_reqs[name].output_tokens, name
+    assert p_reqs["r0"].output_tokens != p_reqs["r2"].output_tokens
+    assert lora.LAUNCHES == 0

@@ -420,6 +420,27 @@ def test_data_parallel_train_step_matches_jax(run, mesh):
             _close(got["b"], np.asarray(params["b"]))
 
 
+def test_dp_shard_batch_takes_local_ranks_as_jax(run, mesh):
+    """``dp_shard_batch(..., local_ranks=...)`` on two data-parallel
+    ranks: a rank given only its own rows (``host_dp_ranks()``) keeps
+    them, and the batch of both windows with ``local_ranks=[0, 1]``
+    gives each rank its window: the rows JAX's placement puts on that
+    rank's devices."""
+    from apex_tpu.parallel.distributed import dp_shard_batch as j_shard
+
+    inputs, results = run
+    x = inputs["dp_step"]["x"]
+    placed = j_shard({"x": x}, local_ranks=[0, 1])["x"]
+    for d in range(DP):
+        want = x[d * 4:(d + 1) * 4]
+        rows = {s.index[0].start or 0 for s in placed.addressable_shards
+                if s.device == jax.devices()[_rank(d, 0)]}
+        assert rows == {d * 4}
+        for t in range(TP):
+            got = results[_rank(d, t)]["dp_step"]
+            np.testing.assert_array_equal(got["local_own"], want)
+            np.testing.assert_array_equal(got["local_all"], want)
+
 def test_grad_accumulation_and_split_match_jax():
     """``grad_accumulation`` over four microbatches is the full batch's
     mean loss and gradient, as JAX's; ``split_tensor_along_last_dim``

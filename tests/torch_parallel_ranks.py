@@ -188,9 +188,19 @@ def _dp_step(c):
     step = parallel.data_parallel_train_step(
         loss_fn, FusedAdam([w, b], lr=1e-2), microbatches=2)
     losses = [float(step(batch)) for _ in range(2)]
+    # the reference's multi-host form: the host's rows only, one window
+    # per local rank; and the whole batch as the windows of every rank
+    d = parallel.host_dp_ranks()[0]
+    own = c["x"][d * 4:(d + 1) * 4]
     return {"losses": losses, "w": w.detach().numpy(),
             "b": b.detach().numpy(), "rows": batch["x"].shape[0],
-            "host_dp_ranks": parallel.host_dp_ranks()}
+            "host_dp_ranks": parallel.host_dp_ranks(),
+            "local_own": parallel.dp_shard_batch(
+                torch.from_numpy(own),
+                local_ranks=parallel.host_dp_ranks()).numpy(),
+            "local_all": parallel.dp_shard_batch(
+                {"x": torch.from_numpy(c["x"])},
+                local_ranks=[0, 1])["x"].numpy()}
 
 
 def _fp8_linears(c, d, t):
