@@ -19,9 +19,11 @@ pair of ``start_replica_server`` daemons over ``SocketTransport``, a
 replay, and a KV migration in fp32 (over the queues) and in bf16 (over
 the socket, the slabs as ``uint16`` views) each give the streams of an
 in-process engine on the same weights; no torch tensor crosses either
-transport.
+transport.  The wire form itself round-trips an exported run bit for bit
+in bf16, fp32 and int8 (with its scales).
 """
 
+import contextlib
 import pathlib
 import re
 import time
@@ -91,12 +93,24 @@ def _spec(cache_dtype=None, role="both", device="cpu"):
         heartbeat_every_s=0.02, idle_sleep_s=0.002)
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """One torch thread, as the CPU replicas run (their GEMMs then sum in
+    the same order), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _reference(cache_dtype, items):
     """The streams of an in-process engine on the replicas' weights."""
-    torch.set_num_threads(1)
-    engine, _ = _build_engine(_spec(cache_dtype), MetricRegistry(), None)
-    reqs = [engine.submit(p, n) for p, n in items]
-    engine.run_until_drained()
+    with _one_thread():
+        engine, _ = _build_engine(_spec(cache_dtype), MetricRegistry(), None)
+        reqs = [engine.submit(p, n) for p, n in items]
+        engine.run_until_drained()
     return [r.output_tokens for r in reqs]
 
 
@@ -129,6 +143,45 @@ def _pump(router, until, *, timeout=60.0):
         router.pump()
         assert time.monotonic() < deadline, "fleet did not settle"
         time.sleep(0.002)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32", "int8"])
+def test_kv_wire_form_round_trips_bit_for_bit(cache_dtype):
+    """An exported run through the replica's wire form (numpy slabs, bf16
+    as ``uint16``, int8 with its fp32 scales) and a pickle, back into
+    another engine: the slabs bit for bit, and the continued stream the
+    uninterrupted engine's."""
+    import pickle
+
+    from apex_tpu_torch.serving.replica import _kv_from_wire, _kv_to_wire
+
+    dtype = getattr(torch, cache_dtype)
+    prompt, n_new = [4, 8, 15, 16, 23, 42, 7, 1, 2], 10
+    want = _reference(dtype, [(prompt, n_new)])[0]
+    with _one_thread():
+        src, _ = _build_engine(_spec(dtype), MetricRegistry(), None)
+        dst, _ = _build_engine(_spec(dtype), MetricRegistry(), None)
+        req = src.submit(prompt, n_new)
+        while len(req.output_tokens) < 3:
+            src.step()
+        meta, payloads = src.export_request(req)
+    wire = pickle.loads(pickle.dumps([_kv_to_wire(p) for p in payloads]))
+    names = wire[0][1]
+    assert names == [cache_dtype] * 2 + (["float32"] * 2
+                                         if cache_dtype == "int8" else [])
+    assert all(isinstance(a, np.ndarray) and a.dtype == np.dtype(
+        "uint16" if cache_dtype == "bfloat16" else cache_dtype if i < 2
+        else "float32") for slabs, _ in wire for i, a in enumerate(slabs))
+    back = [_kv_from_wire(slabs, names) for slabs, _ in wire]
+    for got, sent in zip(back, payloads):
+        assert all(g.dtype == t.dtype and torch.equal(g, t)
+                   for g, t in zip(got, sent))
+    with _one_thread():
+        moved = dst.import_request(prompt + req.output_tokens,
+                                   n_new - meta["n_out"],
+                                   cache_len=meta["cache_len"], payloads=back)
+        dst.run_until_drained()
+    assert req.output_tokens + moved.output_tokens == want
 
 
 @pytest.fixture(scope="module")
