@@ -365,7 +365,7 @@ class flapping_replica:
     The schedule is pure arithmetic on the clock — first :meth:`tick`
     pins ``t0``; edges land at ``t0 + k * period_s`` and each edge
     flips the state (even k → down, odd k → up), so the same fake
-    clock replays the same churn run after run.  A driver loop calls
+    clock replays the same churn run after run.  A test loop calls
     :meth:`tick` as often as it likes; missed edges are applied in
     order on the next call.  ``max_flaps`` bounds the churn: after
     that many down-edges the replica is brought (and stays) up, so a
