@@ -362,9 +362,11 @@ def _kv_from_wire(slabs, names: Sequence[str]) -> tuple:
 
 
 def _replica_worker(spec: ReplicaSpec, name: str, cmd_q, evt_q,
-                    parent_pid: int) -> None:
+                    parent_pid: int, on_ready=None) -> None:
     """Replica-process main: build the engine, serve the command stream,
-    relay tokens/state; drain-and-exit on SIGTERM; die on orphanhood."""
+    relay tokens/state; drain-and-exit on SIGTERM; die on orphanhood.
+    ``on_ready(engine)`` runs once the warm-up is done, just before the
+    ready event goes out (where a harness starts counting)."""
     import os
     import time
 
@@ -410,6 +412,8 @@ def _replica_worker(spec: ReplicaSpec, name: str, cmd_q, evt_q,
                 if engine.scheduler.idle:
                     break
                 engine.step()
+        if on_ready is not None:
+            on_ready(engine)
         debug_port = None
         if spec.debug_server:
             from apex_tpu_torch.observability.debug_server import DebugServer

@@ -1107,7 +1107,7 @@ class TransportServer:
 
 
 def replica_serve(spec, name: str, *, host: str = "127.0.0.1",
-                  port: int = 0, ready_hook=None) -> None:
+                  port: int = 0, ready_hook=None, on_ready=None) -> None:
     """Process main for one cross-host replica: the existing
     :func:`~apex_tpu_torch.serving.replica._replica_worker` lifecycle (same
     ready handshake carrying the restored ckpt step + debug port, same
@@ -1117,7 +1117,9 @@ def replica_serve(spec, name: str, *, host: str = "127.0.0.1",
     Runs the worker on the *calling* thread so the PreemptionGuard owns
     the real SIGTERM handler — a preempted/rolled host drains exactly
     like the in-process transport.  ``ready_hook(address)`` fires once
-    the listener is bound (how a spawner learns an ephemeral port).
+    the listener is bound (how a spawner learns an ephemeral port);
+    ``on_ready(engine)`` once the engine has warmed up, before the ready
+    handshake (:func:`~apex_tpu_torch.serving.replica._replica_worker`).
 
     The server's bound on one connection's un-flushed bytes is the
     replica's whole KV arena plus 16 MiB: a KV migration puts a
@@ -1136,7 +1138,8 @@ def replica_serve(spec, name: str, *, host: str = "127.0.0.1",
     if ready_hook is not None:
         ready_hook(server.address)
     try:
-        _replica_worker(spec, name, cmd_q, evt_q, os.getppid())
+        _replica_worker(spec, name, cmd_q, evt_q, os.getppid(),
+                        on_ready=on_ready)
     finally:
         server.close(bye=True)
 

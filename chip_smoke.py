@@ -108,14 +108,14 @@ Phases (any failure exits non-zero; none is caught):
    the first tick, an LRU eviction after the drain): L1 48 times per
    call, every launch on the cluster route, the same wave again through
    ``LoRAConfig(fused=False)`` (no L1 launch, its no-adapter streams bit
-   for bit the L1 wave's, the adapter streams' parting points printed,
-   and ``lora_delta(fused=False)`` within ``lora_close``'s limits of L1
-   at the four projections), the no-adapter streams bit for bit a bare
-   engine's,
-   the arena's
-   books closed; the same with k = 4 drafting and an int8 cache; four
-   requests with drafting and two adapters in fp32 on the card and on the
-   CPU; eight drafting LoRA requests under ``torch.profiler``, with L1's
+   for bit the L1 wave's, the adapter streams' parting points and top-2
+   gaps printed), the no-adapter streams bit for bit a bare engine's,
+   the arena's books closed; the same with k = 4 drafting and an int8
+   cache; four requests with drafting and two adapters in fp32 on the
+   card through L1, on the card through ``LoRAConfig(fused=False)`` (no
+   L1 launch) and on the CPU, L1 against the CPU and the unfused streams
+   against L1 equal up to near ties of 1e-3, the three's first-step
+   logits printed; eight drafting LoRA requests under ``torch.profiler``, with L1's
    device time per kernel instance (8-row tiles: the verify; 16: prefill);
 8. the norm path: ``pallas_layer_norm`` and ``pallas_rms_norm`` forward
    and backward at ``[8, 1024, 768]``, 10 passes each, bf16 x and fp32
@@ -257,10 +257,13 @@ Phases (any failure exits non-zero; none is caught):
    no failover), in bf16, 16 requests in rounds of 8 (the decode
    replica's slots), every request's KV migrated (blocks, MB, router ms,
    engine-side export and import ms from the replicas' ``/metrics``), the
-   slabs crossing as ``uint16``; the children's launches: K1 on split and
-   K2 on tc, 12 a call each, K3 12 a call of either kind, no simt launch,
-   added to the kernels line's counts; and the same pair in fp32 over
-   ``start_replica_server``, 8 requests.
+   slabs crossing as ``uint16``; the children's launches from after
+   their warm-up: K1 on split and K2 on tc, 12 a call of the child
+   engine's decode and prefill calls, K3 12 a call of either kind, no
+   simt or L1 launch, added to the kernels line's counts; and the same
+   pair in fp32 over ``start_replica_server``, 8 requests; both pairs'
+   routers demote a link as slow only past the 30 s heartbeat timeout,
+   so that every request migrates.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
@@ -1182,7 +1185,9 @@ def lora_close(torch, what, out, ref, n_in):
 
 def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
     """L1 through the route ``lora_route`` names against its plain
-    version (``lora_close``), the zero adapter's rows exactly 0; a
+    version (``lora_close``; the plain version through ``lora_delta(...,
+    fused=False)``, which launches nothing), the zero adapter's rows
+    exactly 0; a
     cluster-route check also holds and times the simt route on the same
     operands (``rec["simt"]``).  ``floor_ms`` is the same launch with
     nothing to do: every slot out of range, so each CTA reads its slot and
@@ -1197,12 +1202,16 @@ def check_lora(torch, lo, timer, x_dtype, w_dtype, proj, S, timed=True):
     out = kernel()
     torch.cuda.synchronize()
     check_one_launch(lora_counts(lo), before, route, f"L1 {proj} S={S}")
-    ref = plain()
+    before = lora_counts(lo)
+    ref = lo.lora_delta(x, a, b, slots, fused=False)
     torch.cuda.synchronize()
+    check(lora_counts(lo) == before, f"L1 {proj} S={S}: lora_delta("
+          f"fused=False) launches nothing")
     err, rel = lora_close(torch, f"L1 {proj} S={S}", out, ref, n_in)
     zero = slots == 0
     check(not out[:, zero].any(), f"L1 {proj} S={S}: zero-slot rows are 0")
-    rec = dict(max_abs_err=err, err_over_rms=rel, kernel_route=route)
+    rec = dict(max_abs_err=err, err_over_rms=rel, kernel_route=route,
+               share_unequal=float((out != ref).float().mean()))
     simt = None
     if route != "simt":
         simt = lambda: lo._launch("simt", x, a, b, slots)  # noqa: E731
@@ -2146,16 +2155,15 @@ def unfused_lora_wave(torch, pa, fo, lo, cfg, params, prompts, samplings,
     reference's A/B switch): the same adapters, hot swap and requests;
     no L1 launch, every other kernel as in the fused wave, the requests
     without an adapter bit for bit the fused wave's (``fused``,
-    ``tuned``: the fused wave's requests and engine).  The adapter
-    fixture's deltas are tens in size, and the model with them
-    amplifies a rounding difference of one delta into logits 1e-2 apart
-    after one fp32 forward (card L1 against the CPU's plain version), so
-    the adapter streams' parting points are printed, not held to a tie;
-    the two lowerings are held against each other delta for delta
-    (``lora_unfused_delta_check``)."""
+    ``tuned``: the fused wave's requests and engine).  Where an adapter
+    stream parts from the fused wave's, the fused engine's top-2 logit
+    gap there is printed, not held: L1 and the plain lowering add their
+    fp32 products in other orders, so some elements round to bf16 one
+    step apart (``check_lora`` counts them), and a step at the fixture's
+    deltas of tens moves the logits by more than ``BF16_TIE``.  The A/B
+    is held in fp32 (``card_vs_cpu_lora``)."""
     from apex_tpu_torch.serving import LoRAConfig, ServingEngine
 
-    lora_unfused_delta_check(torch, lo)
     unfused = ServingEngine(cfg, serving_shape(torch, lora=LoRAConfig(
         rank=RANK, max_adapters=ADAPTERS, alpha=16, fused=False)), params)
     for i in range(ADAPTERS):
@@ -2172,43 +2180,35 @@ def unfused_lora_wave(torch, pa, fo, lo, cfg, params, prompts, samplings,
     check(lo.LAUNCHES == 0, "LoRAConfig(fused=False) launches no L1")
     parts = []
     for i, (g, w) in enumerate(zip(reqs, fused)):
-        if samplings[i].adapter_id is None:
+        aid = samplings[i].adapter_id
+        if aid is None:
             check(g.output_tokens == w.output_tokens,
                   f"lora fused=False: request {i} without an adapter is bit "
                   f"for bit the L1 wave's")
         elif g.output_tokens != w.output_tokens:
-            parts.append(next(j for j, (a, b) in enumerate(
-                zip(g.output_tokens, w.output_tokens)) if a != b))
+            at = next(j for j, (a, b) in enumerate(
+                zip(g.output_tokens, w.output_tokens)) if a != b)
+            gap = top2_gap(torch, tuned.model, list(map(int, w.prompt))
+                           + w.output_tokens[:at], tuned.adapters,
+                           tuned.adapter_arena.slot_of(aid))
+            parts.append(f"{aid}@{at}:{gap:.3g}")
     tokens = sum(len(r.output_tokens) for r in reqs)
     n_tagged = sum(s.adapter_id is not None for s in samplings)
     log(f"lora fused=False: {len(reqs)} requests, {tokens} tokens in "
         f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; launches {counts}; "
         f"no-adapter streams bit for bit the L1 wave's; "
         f"{n_tagged - len(parts)} of {n_tagged} adapter streams identical, "
-        f"the rest parting at tokens {parts}")
-
-
-def lora_unfused_delta_check(torch, lo):
-    """``lora_delta(..., fused=False)`` on the card against L1 at the
-    four projections, S = 1 and a prefill chunk, bf16 x over the fp32
-    arena (the LoRA wave's operands): no launch, and within
-    ``lora_close``'s limits of L1's output."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    for proj, (n_in, _) in LORA_PAIRS.items():
-        for S in (1, CHUNK):
-            x, a, b, slots = lora_inputs(torch, bf16, f32, proj, S, False)
-            before = lo.LAUNCHES
-            unfused = lo.lora_delta(x, a, b, slots, fused=False)
-            torch.cuda.synchronize()
-            check(lo.LAUNCHES == before, "lora_delta(fused=False) launches "
-                  "no L1")
-            lora_close(torch, f"lora_delta fused=False [{proj}, S={S}]",
-                       lo.lora_delta(x, a, b, slots), unfused, n_in)
+        f"the rest parting at (adapter@token:top-2 gap of the L1 engine, "
+        f"t2 read after its hot swap) {parts}")
 
 
 def card_vs_cpu_lora(torch, params, prompts):
     """Four requests with k = 4 drafting and two adapters, 16 tokens
-    each, in fp32 on the card and on the CPU."""
+    each, in fp32 on the card through L1, on the card through
+    ``LoRAConfig(fused=False)`` (C.8's A/B: no L1 launch) and on the CPU;
+    the card's L1 streams against the CPU's and the unfused streams
+    against L1's, equal up to near ties of 1e-3.  The first step's logits
+    of the three are printed beside each other."""
     from apex_tpu_torch.serving import (
         LoRAConfig,
         SamplingParams,
@@ -2221,15 +2221,19 @@ def card_vs_cpu_lora(torch, params, prompts):
     from apex_tpu_torch.serving import paged_attention as pa
 
     cfg = gpt124m(torch, torch.float32)
-    shape = serving_shape(
-        torch, cache_dtype=torch.float32, speculative=SpeculativeConfig(k=SPEC_K),
-        lora=LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16))
     four = sorted(prompts, key=len)[:4]
     ids = ["t0", "t1", None, "t0"]
-    engines = {}
-    for device in ("cuda", "cpu"):
+    engines, logits = {}, {}
+    for label, device, fused in (("card L1", "cuda", True),
+                                 ("card unfused", "cuda", False),
+                                 ("CPU", "cpu", True)):
         p = params if device == "cuda" else type(params)(
             *(_to_cpu(part) for part in params))
+        shape = serving_shape(
+            torch, cache_dtype=torch.float32,
+            speculative=SpeculativeConfig(k=SPEC_K),
+            lora=LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16,
+                            fused=fused))
         eng = ServingEngine(cfg, shape, p, device=device)
         for aid in ("t0", "t1"):
             eng.register_adapter(aid)
@@ -2237,19 +2241,35 @@ def card_vs_cpu_lora(torch, params, prompts):
         reqs, _ = serve(eng, four, 16, stagger=False,
                         samplings=[SamplingParams(adapter_id=a) for a in ids])
         if device == "cuda":
-            check_prefill_routes(pa, "simt", "card vs CPU [spec + LoRA]")
+            check_prefill_routes(pa, "simt", f"card vs CPU [spec + LoRA, "
+                                 f"{label}]")
             check_path_counts(read_counts(pa, fo, lo), calls_of(eng),
-                              cfg.num_layers, spec=True, lora=True)
-        engines[device] = (eng, reqs)
-    cpu, c_reqs = engines["cpu"]
-    slots = [cpu.adapter_arena.slot_of(a) if a else 0 for a in ids]
+                              cfg.num_layers, spec=True, lora=fused)
+        slots = [eng.adapter_arena.slot_of(a) if a else 0 for a in ids]
+        logits[label] = [t.cpu() for t in first_step_logits(
+            torch, eng.model, [p[:CHUNK] for p in four],
+            adapters=eng.adapters, adapter_slots=torch.tensor(
+                slots, dtype=torch.int32, device=eng.device))]
+        engines[label] = (eng, reqs, slots)
+    l1, l1_reqs, l1_slots = engines["card L1"]
+    cpu, c_reqs, c_slots = engines["CPU"]
     compare_streams(torch, "card vs CPU [spec + LoRA, fp32, TF32 off]",
-                    engines["cuda"][1], c_reqs, cpu.model, 1e-3,
-                    adapters=cpu.adapters, slots=slots)
+                    l1_reqs, c_reqs, cpu.model, 1e-3,
+                    adapters=cpu.adapters, slots=c_slots)
+    compare_streams(torch, "LoRA fused=False vs L1 on the card [spec, fp32, "
+                    "TF32 off]", engines["card unfused"][1], l1_reqs,
+                    l1.model, 1e-3, adapters=l1.adapters, slots=l1_slots)
+    for a, b in (("card L1", "CPU"), ("card unfused", "CPU"),
+                 ("card unfused", "card L1")):
+        pre, dec = ((x - y).abs().amax(-1).tolist()
+                    for x, y in zip(logits[a], logits[b]))
+        log(f"first-step logits [spec + LoRA, fp32, adapters {ids}], {a} "
+            f"vs {b}: per-request max |diff| prefill "
+            f"{[f'{v:.3g}' for v in pre]}, decode {[f'{v:.3g}' for v in dec]}"
+            f" (largest logit {float(logits[b][0].abs().max()):.3f})")
     log(f"card vs CPU [spec + LoRA]: 4 streams of 16 tokens, "
         f"prompts {[len(p) for p in four]}, adapters {ids}; card drafted "
-        f"{engines['cuda'][0].spec_proposed}, accepted "
-        f"{engines['cuda'][0].spec_accepted}")
+        f"{l1.spec_proposed}, accepted {l1.spec_accepted}")
 
 
 def profile_spec_lora(torch, params, prompts):
@@ -4007,12 +4027,17 @@ def tp_busy(torch, eng, prompts):
 def first_step_logits(torch, model, prompts, **kw):
     """Prefill ``prompts`` (one per slot, up to a chunk each) and decode
     one token: the prefill logits at each last prompt position and the
-    decode step's, fp32 (``kw``: the adapters and their slots)."""
+    decode step's, fp32 (``kw``: the adapters and their slots).  Each
+    slot owns the blocks of a chunk and one more, where the decoded
+    token of a full chunk lands."""
     from apex_tpu_torch.serving import init_kv_arena
 
     dev, bs, T = model.device, model.cache.block_size, CHUNK
-    nb = T // bs
+    nb = T // bs + 1        # the decoded token of a full chunk opens one
     S = len(prompts)
+    check(S * nb <= model.cache.n_blocks and all(len(p) <= T for p in
+                                                 prompts),
+          f"first-step logits: {S} prompts of up to {T} tokens fit the cache")
     arenas = init_kv_arena(model.cache, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.long, device=dev)
@@ -4054,7 +4079,7 @@ def unfused_logits_check(torch, params, prompts):
     from apex_tpu_torch.serving import DecodeModel, KVCacheConfig
 
     cfg = gpt124m(torch, torch.float32)
-    cache = KVCacheConfig(n_layers=12, n_blocks=3 * CHUNK // BLOCK,
+    cache = KVCacheConfig(n_layers=12, n_blocks=3 * (CHUNK // BLOCK + 1),
                           block_size=BLOCK, kv_heads=N_HEADS,
                           head_dim=HEAD_DIM, max_seq=MAX_SEQ,
                           dtype=torch.float32)
@@ -4315,28 +4340,36 @@ FLEET_NEW = 32              # tokens per request, as phase 3's wave
 FLEET_KILL_AT = 3           # relayed tokens before the SIGKILL
 FLEET_READY_S = 300.0       # a replica's start: torch, CUDA, the library
 FLEET_WAVE_S = 300.0        # the longest a fleet wave may take
-FLEET_COUNTS = ("DECODE_LAUNCHES", "DECODE_SPLIT_LAUNCHES",
-                "DECODE_SIMT_LAUNCHES", "PREFILL_LAUNCHES",
-                "PREFILL_TC_LAUNCHES", "PREFILL_SIMT_LAUNCHES")
+FLEET_SILENT_S = 30.0       # a socket replica's longest silence
 
 
 def fleet_replica_target(spec, name, addr_q, counts_path):
     """Spawn target of phase 15's socket replicas: the port's
-    ``replica_serve`` in this child, then, once its server stops, the
-    child's kernel launch counts written to ``counts_path``."""
+    ``replica_serve`` in this child, the launch counts set to 0 once the
+    replica has warmed up; once its server stops, the child's counts
+    (``read_counts``, K2's tc launches) and its engine's prefill and
+    decode calls since then written to ``counts_path``."""
     from apex_tpu_torch.serving import fused_ops as fo
     from apex_tpu_torch.serving import lora as lo
     from apex_tpu_torch.serving import paged_attention as pa
     from apex_tpu_torch.serving import transport
 
+    warm = {}
+
+    def on_ready(engine):
+        warm["engine"], warm["base"] = engine, calls_of(engine)
+        zero_counts(pa, fo, lo)
+
     try:
-        transport.replica_serve(spec, name, ready_hook=addr_q.put)
+        transport.replica_serve(spec, name, ready_hook=addr_q.put,
+                                on_ready=on_ready)
     finally:
-        counts = {k: getattr(pa, k) for k in FLEET_COUNTS}
-        counts["RESIDUAL_NORM_LAUNCHES"] = fo.RESIDUAL_NORM_LAUNCHES
-        counts["LORA_LAUNCHES"] = lo.LAUNCHES
-        with open(counts_path, "w") as f:
-            json.dump(counts, f)
+        if warm:
+            with open(counts_path, "w") as f:
+                json.dump({"counts": read_counts(pa, fo, lo),
+                           "prefill_tc": pa.PREFILL_TC_LAUNCHES,
+                           "calls": calls_of(warm["engine"], warm["base"])},
+                          f)
 
 
 def fleet_spec(torch, dtype, **kw):
@@ -4484,20 +4517,13 @@ def child_metric(port, name):
     return vals["_sum"] / vals["_count"] if vals.get("_count") else None
 
 
-def reap(procs):
-    for p in procs:
-        p.join(30)
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-
-
 def fleet_queue_part(torch, np, prompts, trace_dir, ref32):
     """(a) two ``ReplicaProcess`` replicas (fp32, traced) behind a
     ``FleetRouter`` serve the wave; (b) one is SIGKILLed after its third
     relayed token and the survivor replays; the autopilot respawns it;
     (e) one is drained by SIGTERM mid-wave; the spills merge into one
     attributed trace per request."""
+    from apex_tpu_torch.data._producer import reap_process
     from apex_tpu_torch.observability import trace as tr
     from apex_tpu_torch.observability.metrics import MetricRegistry
     from apex_tpu_torch.observability import timeline
@@ -4625,7 +4651,8 @@ def fleet_queue_part(torch, np, prompts, trace_dir, ref32):
     finally:
         router.close()
         timeline.disarm()
-        reap([p._proc for p in spawned])
+        for p in spawned:
+            reap_process(p._proc, 30, "replica")
     merged = tr.merge_dir(trace_dir)
     traces = merged["traces"]
     n_submitted = len(router.requests)
@@ -4648,6 +4675,7 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
     stream.  ``counted``: through ``fleet_replica_target`` with the
     prefill replica behind a ``ChaosProxy`` that drops the link once
     (a reconnect, no failover), the children's launch counts returned."""
+    from apex_tpu_torch.data._producer import reap_process
     from apex_tpu_torch.observability.metrics import MetricRegistry
     from apex_tpu_torch.serving import (
         FleetRouter,
@@ -4677,9 +4705,15 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
                for r in ("prefill", "decode")]
     ready = fleet_ready(clients, t_start)
     # every request first lands on the prefill replica (the router sends
-    # one to a decode replica only when no prefill replica has room)
+    # one to a decode replica only when no prefill replica has room, or
+    # when the prefill replica's link is demoted as slow: its pongs wait
+    # behind the KV it is exporting, 13-29 MB a request, which took them
+    # past the default 1 s and sent requests to the decode replica
+    # unmigrated, so the demotion threshold is the heartbeat timeout)
     router = FleetRouter(clients, registry=MetricRegistry(rank=0, world=1),
-                         heartbeat_timeout_s=30.0, replica_queue_limit=B)
+                         heartbeat_timeout_s=FLEET_SILENT_S,
+                         link_degraded_rtt_s=FLEET_SILENT_S,
+                         replica_queue_limit=B)
     dropped = []
 
     def drop_once(live):
@@ -4737,7 +4771,8 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
         router.close()
         if proxy is not None:
             proxy.close()
-        reap(procs.values())
+        for p in procs.values():
+            reap_process(p, 30, "replica")
     if not counted:
         return None
     counts = {}
@@ -4766,27 +4801,19 @@ def fleet_phase(torch, np, prompts):
                       (refs[torch.float32][0][:8],) + refs[torch.float32][1:],
                       counted=False)
     total = {}
+    layers = gpt124m(torch, torch.bfloat16).num_layers
     for role, c in counts.items():
-        k1, k1_split = c["DECODE_LAUNCHES"], c["DECODE_SPLIT_LAUNCHES"]
-        k2, k2_tc = c["PREFILL_LAUNCHES"], c["PREFILL_TC_LAUNCHES"]
-        k3 = c["RESIDUAL_NORM_LAUNCHES"]
-        layers = gpt124m(torch, torch.bfloat16).num_layers
-        check(k1_split == k1 and k2_tc == k2 and c["DECODE_SIMT_LAUNCHES"]
-              == 0 and c["PREFILL_SIMT_LAUNCHES"] == 0,
-              f"replica {role}: every bf16 K1 launch on split and K2 on tc "
-              f"({c})")
-        check(k1 > 0 and k2 > 0 and k1 % layers == 0 and k2 % layers == 0
-              and k3 == k1 + k2 and c["LORA_LAUNCHES"] == 0,
-              f"replica {role}: K1 {k1} and K2 {k2} launches at {layers} a "
-              f"call, K3 {k3} at {layers} a call of either kind")
-        log(f"fleet (c) replica {role}: K1 {k1} on split ({k1 // layers} "
-            f"decode calls), K2 {k2} on tc ({k2 // layers} prefill calls), "
-            f"K3 {k3}")
-        for key, name in (("paged_attention_decode", k1),
-                          ("paged_attention_decode/split", k1_split),
-                          ("paged_prefill_attention", k2),
-                          ("fused_residual_norm", k3)):
-            total[key] = total.get(key, 0) + name
+        got, calls = c["counts"], c["calls"]
+        check_path_counts(got, calls, layers, spec=False, lora=False)
+        check(got["paged_prefill_attention"] > 0
+              and c["prefill_tc"] == got["paged_prefill_attention"],
+              f"replica {role}: every bf16 K2 launch on tc ({c})")
+        log(f"fleet (c) replica {role}, after its warm-up: K1 "
+            f"{got['paged_attention_decode']} on split for {calls[1]} decode "
+            f"calls, K2 {got['paged_prefill_attention']} on tc for "
+            f"{calls[0]} prefill calls, K3 {got['fused_residual_norm']}")
+        for key, n in got.items():
+            total[key] = total.get(key, 0) + n
     log(f"fleet phase: {time.perf_counter() - t0:.1f} s")
     return total
 

@@ -267,35 +267,26 @@ def _fixtures(fn, kw, tmp_path: pathlib.Path, stack: contextlib.ExitStack):
 
 
 def run_case(name: str, case, side: str, tmp_path: pathlib.Path,
-             parts=ALL_PARTS, attempts: int = 1) -> dict:
-    """One scenario on one side (its asserts included); its outcome.
-    ``attempts`` > 1 reruns a scenario whose own asserts failed, for the
-    loopback-socket scenarios whose event timing depends on the load of
-    the machine (each attempt is a fresh run from scratch)."""
+             parts=ALL_PARTS) -> dict:
+    """One scenario on one side (its asserts included); its outcome."""
     test, kw = case
     mod = load(name, side)
-    for attempt in range(attempts):
-        rec: dict = {}
-        _ACTIVE.append(rec)
-        try:
-            with _patched(side), contextlib.ExitStack() as stack:
-                fn = mod.__dict__[test]
-                fn(**_fixtures(fn, kw, tmp_path / f"{side}{attempt}",
-                               stack))
-        except AssertionError:
-            if attempt + 1 == attempts:
-                raise
-            continue
-        finally:
-            _ACTIVE.pop()
-        return _outcome(rec, parts)
+    rec: dict = {}
+    _ACTIVE.append(rec)
+    try:
+        with _patched(side), contextlib.ExitStack() as stack:
+            fn = mod.__dict__[test]
+            fn(**_fixtures(fn, kw, tmp_path / side, stack))
+    finally:
+        _ACTIVE.pop()
+    return _outcome(rec, parts)
 
 
 def assert_same(name: str, case, tmp_path: pathlib.Path,
-                parts=ALL_PARTS, attempts: int = 1) -> dict:
+                parts=ALL_PARTS) -> dict:
     """The scenario through both packages: equal outcomes."""
-    ref = run_case(name, case, "ref", tmp_path, parts, attempts)
-    port = run_case(name, case, "port", tmp_path, parts, attempts)
+    ref = run_case(name, case, "ref", tmp_path, parts)
+    port = run_case(name, case, "port", tmp_path, parts)
     assert set(port) == set(ref)
     for key in ref:
         assert port[key] == ref[key], key

@@ -9,10 +9,7 @@ demotion, torn and corrupt frames, KV migration over the socket, the
 router's reattach) runs over an in-process served fake through the
 JAX package's ``SocketTransport``/``TransportServer``/``ChaosProxy``
 and through the port's, with its own asserts on each side; each
-request's final state and tokens are equal (``fleet_twins.py``).  Over
-loopback sockets a scenario's event timing depends on the machine's
-load, so a scenario whose own asserts fail is run again from scratch,
-up to three times a side.
+request's final state and tokens are equal (``fleet_twins.py``).
 """
 
 import numpy as np
@@ -58,5 +55,4 @@ def test_each_side_decodes_the_others_frames(enc, dec):
 
 @pytest.mark.parametrize("case", tw.cases("test_transport"))
 def test_transport_scenario_matches_reference(case, tmp_path):
-    tw.assert_same("test_transport", case, tmp_path, tw.SOCKET_PARTS,
-                   attempts=3)
+    tw.assert_same("test_transport", case, tmp_path, tw.SOCKET_PARTS)
