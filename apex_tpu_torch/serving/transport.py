@@ -202,6 +202,14 @@ class FrameDecoder:
 # ---------------------------------------------------------------------------
 
 
+# inbound reads: the server's recv size and the bytes one connection
+# may take in a loop turn before the others get theirs; the client's
+# bytes a poll, so the router's pump returns to every link often
+_READ_CHUNK = 1 << 20
+_READ_BUDGET = 32 << 20
+_POLL_READ_BUDGET = 4 << 20
+
+
 class SocketTransport:
     """Framed-TCP replica client — the cross-host half of the
     :class:`~apex_tpu_torch.serving.fleet.FleetRouter` transport duck type.
@@ -251,6 +259,9 @@ class SocketTransport:
 
         self.reconnects = 0
         self.frames_corrupt = 0
+        # the oldest unsent bytes a poll found after its flush: what
+        # ``send_timeout_s`` bounds (a KV migration's margin to it)
+        self.send_backlog_max_s = 0.0
         self.link_rtt_s: Optional[float] = None
         # latest per-link clock offset (client_mono ≈ server_mono +
         # offset), ±RTT/2; None until the first stamped pong/hello
@@ -407,10 +418,13 @@ class SocketTransport:
         self._read(now, out)
         if self._sock is not None and self._hello_done:
             self._maybe_ping(now)
-            if self._wire and self._wire_since is not None and \
-                    now - self._wire_since > self.send_timeout_s:
-                self._fail(f"send timeout: {len(self._wire)} bytes "
-                           f"stuck for {self.send_timeout_s:.1f}s")
+            if self._wire and self._wire_since is not None:
+                stuck = now - self._wire_since
+                self.send_backlog_max_s = max(self.send_backlog_max_s,
+                                              stuck)
+                if stuck > self.send_timeout_s:
+                    self._fail(f"send timeout: {len(self._wire)} bytes "
+                               f"stuck for {self.send_timeout_s:.1f}s")
         return out
 
     def wait_ready(self, timeout: float = 300.0) -> dict:
@@ -580,7 +594,13 @@ class SocketTransport:
             self._wire_since = None
 
     def _read(self, now: float, out: list) -> None:
-        while self._sock is not None:
+        """At most ``_POLL_READ_BUDGET`` bytes a poll: read to EAGAIN,
+        a link takes in whole bursts of KV exports, which the router
+        relays before its pump comes back to flush the other links, so
+        an ``export_kv`` for a fresh first token would wait behind them
+        while its stream finishes in place."""
+        budget = _POLL_READ_BUDGET
+        while self._sock is not None and budget > 0:
             try:
                 data = self._sock.recv(65536)
             except (BlockingIOError, InterruptedError):
@@ -599,6 +619,7 @@ class SocketTransport:
                     self._fail("torn frame (EOF mid-frame)")
                 self._disconnect(now, "connection closed")
                 return
+            budget -= len(data)
             try:
                 msgs = self._decoder.feed(data)
             except FrameError as e:
@@ -878,30 +899,38 @@ class TransportServer:
             self._conns[conn] = _ServerConn(self._max_frame)
 
     def _read(self, s: socket.socket) -> None:
-        conn = self._conns.get(s)
-        if conn is None:
-            return
-        try:
-            data = s.recv(65536)
-        except (BlockingIOError, InterruptedError):
-            return
-        except OSError:
-            self._drop(s)
-            return
-        if data == b"":
-            self._drop(s)
-            return
-        try:
-            msgs = conn.decoder.feed(data)
-        except FrameError as e:
-            # garbage from the router direction: drop the connection;
-            # the client reconnects and re-sends its unacked commands
-            logger.warning("transport server: dropping connection on "
-                           "bad inbound frame: %s", e)
-            self._drop(s)
-            return
-        for msg in msgs:
-            self._handle(s, conn, msg)
+        """Drain what the kernel holds for ``s``, up to
+        ``_READ_BUDGET`` bytes a loop turn.  Every turn waits for the
+        GIL behind the engine thread, so a KV migration's blocks read a
+        small chunk a turn would outlast the client's send timeout."""
+        budget = _READ_BUDGET
+        while budget > 0:
+            conn = self._conns.get(s)
+            if conn is None:
+                return
+            try:
+                data = s.recv(_READ_CHUNK)
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                self._drop(s)
+                return
+            if data == b"":
+                self._drop(s)
+                return
+            budget -= len(data)
+            try:
+                msgs = conn.decoder.feed(data)
+            except FrameError as e:
+                # garbage from the router direction: drop the
+                # connection; the client reconnects and re-sends its
+                # unacked commands
+                logger.warning("transport server: dropping connection "
+                               "on bad inbound frame: %s", e)
+                self._drop(s)
+                return
+            for msg in msgs:
+                self._handle(s, conn, msg)
 
     def _handle(self, s, conn: _ServerConn, msg: tuple) -> None:
         kind = msg[0]

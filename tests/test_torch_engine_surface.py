@@ -81,6 +81,7 @@ from test_torch_serving import (
     _mesh,
     _t,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = dict(max_batch=3, block_size=4, max_seq=32, prefill_len=6,
              n_blocks=8)

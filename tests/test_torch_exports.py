@@ -21,6 +21,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
          "transformer.tensor_parallel", "transformer.context_parallel",

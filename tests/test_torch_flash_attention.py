@@ -17,6 +17,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the modules (each ops package re-exports a function under the same name)
 fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")

@@ -46,6 +46,7 @@ from apex_tpu_torch.serving.replica import _build_engine, wire_submit_item
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

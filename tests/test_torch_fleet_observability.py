@@ -29,6 +29,7 @@ from apex_tpu_torch import observability as port_obs
 from apex_tpu_torch.observability import debug_server as port_debug
 from apex_tpu_torch.observability import metrics as port_metrics
 from apex_tpu_torch.observability import timeline as port_timeline
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIDES = {"ref": (ref_obs, ref_metrics, ref_timeline, ref_debug),
          "port": (port_obs, port_metrics, port_timeline, port_debug)}

@@ -37,6 +37,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"e4m3": (fp8.E4M3, jfp8.E4M3), "e5m2": (fp8.E5M2, jfp8.E5M2)}
 GPT = dict(hidden_size=64, num_layers=2, num_attention_heads=4,

@@ -27,6 +27,7 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine,
 )
 from apex_tpu_torch.serving import fused_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 HIDDEN = 96
 DTYPES = {"fp32": (jnp.float32, torch.float32),

@@ -69,6 +69,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, DP, PP, TP, VPP, M = 8, 2, 2, 2, 2, 2
 MOE = {"num_experts": 4, "expert_axis": "dp"}

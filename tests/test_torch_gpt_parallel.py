@@ -36,6 +36,7 @@ from apex_tpu.transformer.testing import TransformerConfig as JaxConfig
 from apex_tpu_torch.parallel.launch import run_multiprocess
 from apex_tpu_torch.serving.bridge import from_flax_gpt
 from apex_tpu_torch.transformer import tensor_parallel as tp
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, STEPS, BATCH, SEQ = 4, 5, 4, 16
 GPT = dict(hidden_size=32, num_layers=2, num_attention_heads=4,

@@ -54,6 +54,7 @@ from test_torch_serving import (
     _mesh,
     _t,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------- kernel
 

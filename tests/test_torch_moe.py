@@ -39,6 +39,7 @@ from apex_tpu_torch.transformer.moe import (
     switch_route,
 )
 from apex_tpu_torch.transformer.testing import GPTModel, TransformerConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, B, H, FFN, E = 8, 4, 16, 32, 4
 EP = 8

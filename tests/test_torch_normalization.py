@@ -25,6 +25,7 @@ import apex_tpu.normalization as jn
 import apex_tpu_torch.normalization as tn
 from apex_tpu_torch.serving.bridge import from_flax_norm
 from apex_tpu_torch.transformer import layers as tlayers
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF16_STEP = dict(rtol=2.0 ** -7, atol=1e-6)
 FP32_FWD = dict(rtol=1e-5, atol=1e-5)

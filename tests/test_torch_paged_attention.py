@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from apex_tpu.serving import paged_attention as jax_pa
 from apex_tpu_torch.serving import paged_attention as pa
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BS, G, D, N_BLOCKS, MAX_BLOCKS = 4, 2, 16, 12, 4

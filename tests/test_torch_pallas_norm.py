@@ -22,6 +22,7 @@ import torch
 
 from apex_tpu.ops import pallas_norm as jax_pn
 from apex_tpu_torch.ops import pallas_norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF16_STEP = dict(rtol=2.0 ** -7, atol=1e-6)
 FP32_FWD = dict(rtol=1e-5, atol=1e-5)

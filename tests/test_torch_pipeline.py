@@ -39,6 +39,7 @@ from apex_tpu_torch.transformer import microbatches as mb
 from apex_tpu_torch.transformer import pipeline_parallel as pl
 from apex_tpu_torch.transformer.pipeline_parallel import schedules
 from apex_tpu_torch.transformer.pipeline_parallel import utils
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, H, B, M = 8, 4, 2, 4
 CASES = {"pp2_vpp1": (2, 1), "pp2_vpp2": (2, 2), "pp4_vpp1": (4, 1)}

@@ -47,6 +47,7 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 VOCAB = 128

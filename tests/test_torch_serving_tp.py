@@ -44,6 +44,7 @@ from apex_tpu_torch.parallel.launch import start_multiprocess
 
 import torch_serving_ranks as ranks
 from test_torch_serving import MODERN, WAVE, _as_jax, _greedy, _jax_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 TP = 2
 SHAPE = dict(max_batch=3, block_size=4, max_seq=32, prefill_len=6,

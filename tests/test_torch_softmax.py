@@ -28,6 +28,7 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     CoreAttention,
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

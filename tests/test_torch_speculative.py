@@ -65,6 +65,7 @@ from test_torch_serving import (
     _mesh,
     _t,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -34,6 +34,7 @@ from apex_tpu.transformer.layers.layer_norm import (
 )
 from apex_tpu_torch.parallel.launch import run_multiprocess
 from apex_tpu_torch.transformer import tensor_parallel as tp
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, TP, DP = 4, 2, 2
 RTOL = 1e-6

@@ -40,6 +40,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     TransformerConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the module (apex_tpu_torch.ops re-exports the function under its name)
 fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")

@@ -18,6 +18,7 @@ import pytest
 import fleet_twins as tw
 from apex_tpu.serving import transport as ref_transport
 from apex_tpu_torch.serving import transport
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAYLOADS = [
     ("token", 3, 42),
@@ -56,3 +57,32 @@ def test_each_side_decodes_the_others_frames(enc, dec):
 @pytest.mark.parametrize("case", tw.cases("test_transport"))
 def test_transport_scenario_matches_reference(case, tmp_path):
     tw.assert_same("test_transport", case, tmp_path, tw.SOCKET_PARTS)
+
+
+def test_server_drains_the_socket_in_one_read_turn():
+    """A busy worker thread makes every server loop turn wait for the
+    GIL, so a turn reads all the kernel holds, not one 64 KiB chunk:
+    a KV migration's blocks must not trickle in a chunk a turn."""
+    import queue
+    import socket
+
+    cmd_q = queue.Queue()
+    server = transport.TransportServer(cmd_q, queue.Queue())
+    server.close(bye=False)            # stop the loop; drive _read here
+    router, replica = socket.socketpair()
+    try:
+        replica.setblocking(False)
+        server._conns[replica] = transport._ServerConn(
+            transport.MAX_FRAME_BYTES)
+        block = np.zeros(10_000, np.uint8)
+        wire = transport.encode_frame(("hello", 0, 0, True, 1)) + b"".join(
+            transport.encode_frame(("cmd", i + 1, ("kv_block", 0, i, [block])))
+            for i in range(12))
+        assert len(wire) > 65536
+        router.sendall(wire)
+        server._read(replica)
+        got = [cmd_q.get_nowait()[2] for _ in range(cmd_q.qsize())]
+        assert got == list(range(12))
+    finally:
+        router.close()
+        replica.close()
