@@ -8,9 +8,11 @@ the fleet's distributed traces (:mod:`.trace`) and the live debug
 endpoint (:mod:`.debug_server`).
 
 The serving engine records into a :class:`MetricRegistry` and, when a
-recorder is armed, logs every request's lifecycle to the timeline.  Not
-ported yet: the spans (ROADMAP.md, section A.2) and the training stats
-(section A.3); ``compiled_flops`` has no counterpart, since eager
+recorder is armed, logs every request's lifecycle to the timeline.  The
+spans (:mod:`.spans`: ``span``, ``named_span``, ``step_trace`` and
+``TraceWindow``, over ``torch.profiler``) time the checkpoint layer.  Not
+ported yet: the training stats (ROADMAP.md, section A.3);
+``compiled_flops`` has no counterpart, since eager
 PyTorch compiles no program whose cost analysis it could read.
 """
 
@@ -34,6 +36,12 @@ from apex_tpu_torch.observability.metrics import (
     peak_flops_reason,
 )
 from apex_tpu_torch.observability.slo import SLOEvaluator, SLOPolicy
+from apex_tpu_torch.observability.spans import (
+    TraceWindow,
+    named_span,
+    span,
+    step_trace,
+)
 from apex_tpu_torch.observability.timeline import FlightRecorder
 from apex_tpu_torch.observability.timeseries import MetricHistory, match_series
 from apex_tpu_torch.observability.trace import (
@@ -52,6 +60,10 @@ from apex_tpu_torch.observability.writers import (
 )
 
 __all__ = [
+    "named_span",
+    "span",
+    "step_trace",
+    "TraceWindow",
     "MetricRegistry",
     "default_registry",
     "is_host_local",

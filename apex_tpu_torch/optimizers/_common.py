@@ -20,14 +20,25 @@ a 0-d tensor on the lists' device.
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["adam_apply", "scale_grads", "resolve_master", "finalize_params",
-           "cast_like", "apply_skip", "advance_step", "tree_map_flat"]
+__all__ = ["OptState", "adam_apply", "scale_grads", "resolve_master",
+           "finalize_params", "cast_like", "apply_skip", "advance_step",
+           "tree_map_flat"]
 
 Tensors = List[torch.Tensor]
+
+
+class OptState(NamedTuple):
+    """The reference's optimizer state tree, the checkpointed form of an
+    optimizer's state: a step counter (int32, 0-d), named slot trees of
+    the parameters' structure, and the optional fp32 master params."""
+
+    step: torch.Tensor
+    slots: Any  # dict name -> tree (same structure as params)
+    master: Optional[Any]  # fp32 params tree or None
 
 
 def adam_apply(p: Tensors, g: Tensors, m: Tensors, v: Tensors, *, lr, b1: float,

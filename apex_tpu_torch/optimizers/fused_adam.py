@@ -23,6 +23,12 @@ taken on the device too.  The step counter is one per parameter group
 comes late joins the group's count, and ``state_dict`` carries it with
 the group.  AMSGrad is rejected like the reference.
 
+:meth:`FusedAdam.opt_state` gives the state as the reference's
+:class:`~apex_tpu_torch.optimizers._common.OptState` tree (``step``,
+``slots={"exp_avg", "exp_avg_sq"}``, ``master``) in the structure of a
+tree of the parameters, the form a checkpoint holds, and
+:meth:`FusedAdam.load_opt_state` loads it back.
+
 Plain torch ops (``torch._foreach_*``, one launch per op for all
 parameters): the JAX FusedAdam is plain XLA, not a Pallas kernel.
 """
@@ -33,7 +39,9 @@ from typing import Tuple
 
 import torch
 
+from apex_tpu_torch.amp._tree import tree_leaves, tree_map
 from apex_tpu_torch.optimizers._common import (
+    OptState,
     adam_apply,
     advance_step,
     apply_skip,
@@ -127,3 +135,60 @@ class FusedAdam(torch.optim.Optimizer):
             finalize_params(p32, params)
             group["step"] = advance_step(step, skip)
         return loss
+
+    def _group_of(self, params):
+        """The one parameter group holding every leaf of ``params``."""
+        leaves = tree_leaves(params)
+        ids = {id(p) for p in leaves}
+        groups = [g for g in self.param_groups
+                  if any(id(p) in ids for p in g["params"])]
+        held = {id(p) for g in groups for p in g["params"]}
+        if len(groups) != 1 or not ids <= held:
+            raise ValueError(
+                "opt_state/load_opt_state take the parameters of one "
+                f"parameter group (found {len(groups)} groups holding "
+                f"{len(ids & held)} of {len(ids)} leaves)")
+        return groups[0]
+
+    @torch.no_grad()
+    def opt_state(self, params) -> OptState:
+        """The state as the reference's ``OptState`` in the structure of
+        ``params`` (a tree of this optimizer's parameters): the step
+        count as an int32 0-d tensor, ``exp_avg`` and ``exp_avg_sq``
+        (zeros for a parameter not stepped yet), and the fp32 masters
+        with ``master_weights`` (else ``None``).  The tensors are the
+        optimizer's own, not copies."""
+        group = self._group_of(params)
+        first = tree_leaves(params)[0]
+        step = torch.as_tensor(group.get("step", 0), device=first.device)
+        slots = {name: tree_map(lambda p, n=name: self._state(p)[n], params)
+                 for name in ("exp_avg", "exp_avg_sq")}
+        master = (tree_map(lambda p: self._state(p)["master"], params)
+                  if self.master_weights else None)
+        return OptState(step=step.to(torch.int32), slots=slots,
+                        master=master)
+
+    @torch.no_grad()
+    def load_opt_state(self, params, state: OptState, *,
+                       step_on_device: bool = True) -> None:
+        """Load an ``OptState`` (from :meth:`opt_state` or a checkpoint)
+        for ``params``, copying into the optimizer's own tensors.  The
+        step count becomes the group's: a device tensor (``step_on_device``,
+        as a run with the sentinel's skip holds it after its first step,
+        so its bias corrections are taken on the device as before), or a
+        host int, as a run without a skip holds it."""
+        group = self._group_of(params)
+        tree_map(lambda p, m: self._state(p)["exp_avg"].copy_(m),
+                 params, state.slots["exp_avg"])
+        tree_map(lambda p, v: self._state(p)["exp_avg_sq"].copy_(v),
+                 params, state.slots["exp_avg_sq"])
+        if self.master_weights:
+            if state.master is None:
+                raise ValueError("master_weights=True but the state has "
+                                 "no master params")
+            tree_map(lambda p, w: self._state(p)["master"].copy_(w),
+                     params, state.master)
+        first = tree_leaves(params)[0]
+        step = torch.as_tensor(state.step)
+        group["step"] = (step.to(device=first.device, dtype=torch.int64)
+                         if step_on_device else int(step))

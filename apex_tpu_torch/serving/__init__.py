@@ -7,8 +7,10 @@ tensor-parallel size; and the fleet over it: replicas as spawned
 processes (:mod:`.replica`), the mp-queue and framed-TCP transports
 (:mod:`.transport`), the router with failover, rollout, shedding, tenant
 fairness and prefill/decode disaggregation with KV migration
-(:mod:`.fleet`), and the SLO autopilot (:mod:`.autopilot`).  Not ported
-yet: the checkpoint restores (ROADMAP.md, section A.2)."""
+(:mod:`.fleet`), and the SLO autopilot (:mod:`.autopilot`); and the
+checkpoint restores that put a trained GPT and its adapters on the
+engine (:mod:`.loader`'s ``restore_gpt_for_serving``,
+``restore_adapter_for_serving``)."""
 
 from apex_tpu_torch.serving.engine import ServingConfig, ServingEngine
 from apex_tpu_torch.serving.replica import ReplicaProcess, ReplicaSpec
@@ -37,7 +39,9 @@ from apex_tpu_torch.serving.lora import (
     LoRAConfig,
     OutOfAdapterSlotsError,
     init_adapter_weights,
+    restore_adapter_for_serving,
 )
+from apex_tpu_torch.serving.loader import restore_gpt_for_serving
 from apex_tpu_torch.serving.paged_attention import (
     paged_attention_decode,
     paged_attention_decode_unfused,
@@ -89,5 +93,7 @@ __all__ = [
     "paged_attention_decode_unfused",
     "paged_prefill_attention",
     "paged_prefill_attention_unfused",
+    "restore_adapter_for_serving",
+    "restore_gpt_for_serving",
     "sample_tokens",
 ]

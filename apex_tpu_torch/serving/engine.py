@@ -83,10 +83,11 @@ With a flight recorder armed (:mod:`apex_tpu_torch.observability.
 timeline`) the engine logs each request's lifecycle keyed by request id
 (the event kinds are listed there).
 
-Not ported: ``restore_gpt_for_serving`` and
-``restore_adapter_for_serving``, the checkpoint restores (with
-``serving/loader.py``, ``checkpoint.py`` and the resilience manager;
-ROADMAP.md, section A.2).
+The checkpoint restores that feed it are
+:func:`apex_tpu_torch.serving.loader.restore_gpt_for_serving` (a trained
+GPT's params onto the engine's ``[L, 1, ...]`` stack) and
+:func:`apex_tpu_torch.serving.lora.restore_adapter_for_serving` (adapter
+weights for :meth:`ServingEngine.register_adapter`).
 """
 
 from __future__ import annotations

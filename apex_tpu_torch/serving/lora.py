@@ -34,13 +34,15 @@ dim, so each rank's delta is a partial sum that the model all-reduces.
 :func:`init_adapter_arena` allocates the rank's shard and
 :func:`shard_adapter_values` cuts a full adapter to it.
 
-Not ported yet: ``restore_adapter_for_serving`` (the adapter checkpoint
-restore, with the checkpoint module; ROADMAP.md, section A.2).
+:func:`restore_adapter_for_serving` reads an adapter's weights back from
+a :class:`~apex_tpu_torch.resilience.CheckpointManager` directory, past a
+corrupt newest step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
@@ -74,8 +76,11 @@ __all__ = [
     "lora_delta_plain",
     "lora_route",
     "pack_adapter_values",
+    "restore_adapter_for_serving",
     "shard_adapter_values",
 ]
+
+logger = logging.getLogger(__name__)
 
 #: Owner under which the arena itself holds every resident adapter's slot
 #: (the prefix cache's ``CACHE_OWNER`` pattern): a slot is evictable
@@ -228,6 +233,65 @@ def pack_adapter_values(config, lora: LoRAConfig, weights,
         vals.append(torch.from_numpy(np.array(a)).to(dtype))
         vals.append(torch.from_numpy(np.array(b * scale)).to(dtype))
     return tuple(vals)
+
+
+def restore_adapter_for_serving(ckpt_dir: str, config, lora: LoRAConfig, *,
+                                key: str = "lora", sharded: bool = True,
+                                verify: bool = True, with_step: bool = False):
+    """Restore the newest intact adapter checkpoint as host weights.
+
+    ``ckpt_dir`` is a :class:`~apex_tpu_torch.resilience.CheckpointManager`
+    directory whose checkpoints carry ``{key: {proj: {"a": ..., "b":
+    ...}}}`` (any layer-stack factoring: placement is reshape-only
+    through the mesh-independent ``load_logical`` view).  Checksums are
+    verified, and a corrupt newest step falls back to the previous
+    committed one.  Returns the ``{proj: (A, B)}`` numpy dict
+    :meth:`ServingEngine.register_adapter` takes (and the step, with
+    ``with_step=True``)."""
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch.resilience import CheckpointManager, reshard
+
+    shapes = adapter_shapes(config, lora)
+    L = config.num_layers
+    mgr = CheckpointManager(ckpt_dir, sharded=sharded)
+    failures = []
+    for step in reversed(mgr.all_steps()):
+        try:
+            if verify:
+                mgr.verify(step)
+            logical, _ = reshard.load_logical(mgr.step_path(step))
+            weights = {}
+            for proj in PROJECTIONS:
+                pair = []
+                for part, shape in zip(("a", "b"), shapes[proj]):
+                    path = f"{key}/{proj}/{part}"
+                    if path not in logical:
+                        raise ckpt.CheckpointCorruptError(
+                            f"adapter checkpoint has no leaf {path!r}")
+                    host = logical[path]
+                    tgt = (L,) + shape
+                    if int(np.prod(host.shape)) != int(np.prod(tgt)):
+                        raise ckpt.CheckpointCorruptError(
+                            f"{path}: logical shape {list(host.shape)} "
+                            f"cannot reshape to adapter shape {list(tgt)}")
+                    pair.append(np.ascontiguousarray(host).reshape(tgt))
+                weights[proj] = tuple(pair)
+            if failures:
+                logger.warning(
+                    "adapter restore fell back to step %d past %s",
+                    step, "; ".join(failures))
+            if with_step:
+                return weights, step
+            return weights
+        except (ckpt.CheckpointCorruptError, ValueError, OSError,
+                KeyError) as e:
+            failures.append(f"step {step}: {e!r}")
+            logger.warning(
+                "adapter checkpoint step %d unusable (%r); falling back",
+                step, e)
+    raise FileNotFoundError(
+        f"no adapter checkpoint under {ckpt_dir!r} restorable"
+        + (f" (tried: {'; '.join(failures)})" if failures else ""))
 
 
 # ---------------------------------------------------------------------------

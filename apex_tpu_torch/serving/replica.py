@@ -217,9 +217,10 @@ class ReplicaSpec:
 
     ``ckpt_dir`` None: deterministic seed init through ``build_gpt_3d``'s
     ``init_fn(seed=seed)`` — two replicas with the same spec serve the
-    same bits.  ``ckpt_dir`` set raises ``NotImplementedError`` until the
-    checkpoint restores are ported (ROADMAP.md §A.2,
-    ``restore_gpt_for_serving``).  ``device`` is the engine's device in
+    same bits.  ``ckpt_dir`` set: the newest intact checkpoint of that
+    :class:`~apex_tpu_torch.resilience.CheckpointManager` directory
+    (``restore_gpt_for_serving``), its step reported in the ready
+    handshake's ``ckpt_step``.  ``device`` is the engine's device in
     the child: None means ``cuda`` (a child that finds no card raises,
     and the router sees its ``error`` event), ``"cpu"`` the CPU.
     """
@@ -283,20 +284,23 @@ def _build_engine(spec: ReplicaSpec, registry, guard):
             f"tp={spec.tp}: a replica of several ranks needs a process "
             "group inside the replica (ROADMAP.md §A); replicas serve at "
             "tp = 1")
-    if spec.ckpt_dir is not None:
-        raise NotImplementedError(
-            "ckpt_dir: restore_gpt_for_serving is not ported yet "
-            "(ROADMAP.md §A.2); pass ckpt_dir=None for seeded weights")
     device = resolve_device(spec.device)
-    init_fn, _, _ = build_gpt_3d(
-        spec.config, num_chunks=spec.config.num_layers,
-        num_microbatches=1, device=device)
-    params, _ = init_fn(seed=spec.seed)
+    step = None
+    if spec.ckpt_dir is not None:
+        from apex_tpu_torch.serving.loader import restore_gpt_for_serving
+
+        params, _, step = restore_gpt_for_serving(
+            spec.ckpt_dir, spec.config, with_step=True, device=device)
+    else:
+        init_fn, _, _ = build_gpt_3d(
+            spec.config, num_chunks=spec.config.num_layers,
+            num_microbatches=1, device=device)
+        params, _ = init_fn(seed=spec.seed)
     engine = ServingEngine(spec.config, spec.serving, params,
                            registry=registry, guard=guard,
                            timeline_tick_every=spec.timeline_tick_every,
                            device=device)
-    return engine, None
+    return engine, step
 
 
 def _kv_pool_bytes(spec: ReplicaSpec) -> int:

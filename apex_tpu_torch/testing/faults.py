@@ -1,6 +1,17 @@
-"""Fault injection for the fleet (port of the network and process faults
-of :mod:`apex_tpu.testing.faults`).
+"""Fault injection (port of :mod:`apex_tpu.testing.faults`): make the
+failure paths testable on a laptop.
 
+- :func:`poison_grads` — NaN/Inf injection into a gradient tree at a
+  chosen step (a ``torch.where`` on the step counter, so a device counter
+  needs no host sync);
+- :func:`bitflip_file` / :func:`truncate_file` /
+  :func:`corrupt_checkpoint` — storage damage (one flipped bit in an
+  array payload, a torn tail) that the per-array checksums must catch;
+- :func:`transient_os_errors` — ``os.<op>`` raising ``OSError`` for the
+  first N matching calls (the NFS blip the manager's retry exists for),
+  scoped by path prefix so only checkpoint traffic is hit;
+- :func:`hung_writes` — park checkpoint writers on a gate before any
+  byte is written, so a test holds a writer provably mid-flight;
 - :func:`simulate_sigterm` — deliver a real SIGTERM to a process (the
   preemption grace signal), driving
   :class:`apex_tpu_torch.resilience.PreemptionGuard`;
@@ -15,17 +26,14 @@ of :mod:`apex_tpu.testing.faults`).
   the autopilot's flap-quarantine is driven by the same fake clock that
   drives its decisions.
 
-The checkpoint faults of the reference module (``poison_grads``,
-``bitflip_file``, ``truncate_file``, ``corrupt_checkpoint``,
-``transient_os_errors``, ``hung_writes``) come with the checkpoint
-layer (ROADMAP.md §A.2).
-
 Everything restores global state on exit; one fault at a time —
 compose scenarios sequentially, as production failures arrive.
 """
 
 from __future__ import annotations
 
+import contextlib
+import errno
 import os
 import signal
 import socket
@@ -33,7 +41,183 @@ import threading
 import time
 from typing import Optional, Tuple
 
-__all__ = ["ChaosProxy", "simulate_sigterm", "flapping_replica"]
+import numpy as np
+
+__all__ = [
+    "poison_grads",
+    "bitflip_file",
+    "truncate_file",
+    "corrupt_checkpoint",
+    "transient_os_errors",
+    "hung_writes",
+    "simulate_sigterm",
+    "ChaosProxy",
+    "flapping_replica",
+]
+
+
+# ---------------------------------------------------------------------------
+# Non-finite gradients
+# ---------------------------------------------------------------------------
+
+
+def poison_grads(grads, *, step, at_step, kind: str = "nan",
+                 leaf: int = 0):
+    """``grads`` with leaf ``leaf`` (in the JAX leaf order) filled with
+    NaN/Inf where ``step == at_step`` — a ``torch.where``, so ``step``
+    may be a device counter.  ``kind``: ``"nan"``, ``"inf"`` or
+    ``"-inf"``."""
+    import torch
+
+    from apex_tpu_torch.checkpoint import _leaves_with_path, _unflatten
+
+    bad = {"nan": float("nan"), "inf": float("inf"),
+           "-inf": float("-inf")}[kind]
+    leaves = [x for _, x in _leaves_with_path(grads)]
+    x = leaves[leaf]
+    hit = torch.as_tensor(step, device=x.device) == at_step
+    leaves[leaf] = torch.where(hit, torch.full_like(x, bad), x)
+    return _unflatten(grads, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Storage corruption
+# ---------------------------------------------------------------------------
+
+
+def bitflip_file(path: str, *, frac: float = 0.75, bit: int = 3) -> int:
+    """Flip one bit inside an array payload of an ``.npz`` checkpoint (not
+    zip metadata, which nothing checksums): the data offset is read from
+    the zip directory, targeting the last non-manifest entry.  A file
+    that is not a zip is flipped at ``frac`` of its size.  Returns the
+    byte offset flipped."""
+    import zipfile
+
+    size = os.path.getsize(path)
+    off = min(size - 1, max(0, int(size * frac)))
+    try:
+        with zipfile.ZipFile(path) as zf:
+            infos = [i for i in zf.infolist()
+                     if i.filename != "__manifest__.npy"] or zf.infolist()
+            info = infos[-1]
+            with open(path, "rb") as f:
+                # local header: bytes 26..28 hold the name and extra
+                # lengths; the payload starts after the 30-byte header
+                f.seek(info.header_offset + 26)
+                n, m = np.frombuffer(f.read(4), dtype="<u2")
+            data_start = info.header_offset + 30 + int(n) + int(m)
+            # past the ~100-byte .npy header: land in raw values
+            off = min(data_start + max(128, info.compress_size // 2),
+                      data_start + info.compress_size - 1)
+    except Exception:
+        pass  # not a zip (or torn already): positional flip
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ (1 << bit)]))
+    return off
+
+
+def truncate_file(path: str, *, keep_frac: float = 0.5) -> None:
+    """Tear the file's tail off (for ``.npz`` the zip central directory
+    goes: the archive no longer opens)."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(1, int(size * keep_frac)))
+
+
+def corrupt_checkpoint(path: str, *, mode: str = "bitflip",
+                       shard: int = 0) -> str:
+    """Damage a checkpoint: a flat ``.npz`` file, or ``shard_{shard}.npz``
+    of a sharded checkpoint directory.  ``mode``: ``"bitflip"`` or
+    ``"truncate"``.  Returns the file damaged."""
+    target = path
+    if os.path.isdir(path):
+        target = os.path.join(path, f"shard_{shard}.npz")
+    if mode == "bitflip":
+        bitflip_file(target)
+    elif mode == "truncate":
+        truncate_file(target)
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    return target
+
+
+# ---------------------------------------------------------------------------
+# Flaky / hung filesystem
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def transient_os_errors(times: int, *, path_prefix: str,
+                        op: str = "replace",
+                        err: int = errno.EIO):
+    """Make ``os.<op>`` (default the atomic-rename commit point) raise
+    ``OSError(err)`` for the first ``times`` calls whose first argument
+    starts with ``path_prefix``; later calls pass through.  Yields a
+    counter with ``.failed`` (the failures injected)."""
+    real = getattr(os, op)
+    lock = threading.Lock()
+
+    class _Counter:
+        failed = 0
+
+    counter = _Counter()
+
+    def flaky(*args, **kwargs):
+        src = os.fspath(args[0]) if args else ""
+        with lock:
+            inject = (counter.failed < times
+                      and str(src).startswith(path_prefix))
+            if inject:
+                counter.failed += 1
+        if inject:
+            raise OSError(err, f"injected transient {op} failure "
+                               f"#{counter.failed}", str(src))
+        return real(*args, **kwargs)
+
+    setattr(os, op, flaky)
+    try:
+        yield counter
+    finally:
+        setattr(os, op, real)
+
+
+class _HangHandle:
+    """Controls writers parked by :func:`hung_writes`."""
+
+    def __init__(self):
+        self._gate = threading.Event()
+        self.entered = threading.Event()  # a writer reached the gate
+
+    def release(self) -> None:
+        """Let parked (and all future) writers proceed."""
+        self._gate.set()
+
+
+@contextlib.contextmanager
+def hung_writes(*, path_prefix: str = ""):
+    """Park every checkpoint write whose destination starts with
+    ``path_prefix`` on a gate before any byte is written; the gate opens
+    on exit."""
+    from apex_tpu_torch import checkpoint as ckpt
+
+    handle = _HangHandle()
+    real = ckpt._write_npz
+
+    def gated(path, manifest, arrays):
+        if str(path).startswith(path_prefix):
+            handle.entered.set()
+            handle._gate.wait()
+        return real(path, manifest, arrays)
+
+    ckpt._write_npz = gated
+    try:
+        yield handle
+    finally:
+        handle.release()
+        ckpt._write_npz = real
 
 
 # ---------------------------------------------------------------------------

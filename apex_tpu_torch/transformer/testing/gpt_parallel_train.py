@@ -137,8 +137,11 @@ def gpt3d_logical_folds(tree):
     annotation): ``2`` on every leaf of a :class:`GPT3DParams` ``layers``
     stack (its ``[vpp, pp]`` dims are one folded logical axis), ``0``
     elsewhere; works on any tree of dicts, lists and named tuples that
-    contains :class:`GPT3DParams` nodes."""
+    contains :class:`GPT3DParams` nodes (``None`` stays ``None``, an
+    empty subtree as in the JAX package)."""
     def mark(node):
+        if node is None:
+            return None
         if isinstance(node, GPT3DParams):
             return GPT3DParams(embedding=tree_map(lambda _: 0, node.embedding),
                                layers=tree_map(lambda _: 2, node.layers),

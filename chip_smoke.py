@@ -263,12 +263,42 @@ Phases (any failure exits non-zero; none is caught):
    simt or L1 launch, added to the kernels line's counts; and the same
    pair in fp32 over ``start_replica_server``, 8 requests; both pairs'
    routers demote a link as slow only past the 30 s heartbeat timeout,
-   so that every request migrates.
+   so that every request migrates;
+16. checkpoints, crash/resume and the serving restores at GPT-124M width
+   (``checkpoint_phase``; a temporary directory removed at the end, its
+   free space checked first): (a) ``apex_tpu_torch.testing.crash_resume``
+   as children on the card (``build_gpt_3d`` at pp = 1, 12 chunks, 2
+   microbatches of 2 x 1024, bf16 compute, fp32 parameters, the flash
+   core, FusedAdam at lr 1e-4, the dynamic-scale sentinel, deterministic
+   algorithms; an async sharded ``CheckpointManager`` save every 2 steps,
+   ``keep=2``): an uninterrupted 6-step run (F1 48 and F2, F3 24 a step,
+   all tc, from its summary line) and a run SIGKILLed after step 4's
+   commit, side by side; its ``--resume`` logs the uninterrupted run's
+   hex losses for steps 1-6 bit for bit and its final ``--fingerprint``
+   equals the uninterrupted one's; then ``corrupt_checkpoint`` flips a
+   bit in step 6 and a second resume falls back to step 4 (fallback depth
+   1) and ends bit for bit again; (b) beside the first resume, a run sent
+   SIGTERM after its third step exits 0 with that step committed (the
+   ``PreemptionGuard`` drain and final save) and verified; then, in this
+   process, the train state's GB and its sync save, async submit,
+   verify and restore ms and GB/s; (c) ``restore_gpt_for_serving`` of
+   the resumed run: the served params bit for bit the step-6 params
+   restored by ``restore_latest``, and phase 3's bf16 wave from each set
+   (K1 on split, K2 on tc, K3, 12 a call) with the streams bit for bit;
+   (d) four rank-8 adapters saved, a newer step torn, each restored past
+   it by ``restore_adapter_for_serving`` and served (8 requests over
+   them, L1 48 a call on cluster) bit for bit the same adapters from
+   memory; (e) a ``ReplicaProcess`` with ``ckpt_dir`` reports the newest
+   intact step past a corrupt one in its ready handshake, is rolled by
+   ``FleetRouter.rollout`` onto a newer committed step and reports it,
+   and serves 4 fp32 requests bit for bit an in-process engine on the
+   same restored weights; every timing printed with the card's name and
+   power limit.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
-``{"context_moe": {...}}``, a ``{"serving_tp": {...}}`` and a
-``{"kernels": [...]}`` JSON object and
+``{"context_moe": {...}}``, a ``{"serving_tp": {...}}``, a
+``{"checkpoint": {...}}`` and a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -4837,6 +4867,470 @@ def fleet_phase(torch, np, prompts):
     return total
 
 
+# the checkpoint phase (16): crash/resume children, the serving restores
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_KILL_AFTER = 6, 2, 4
+CKPT_FREE_GB = 16.0        # two keep=2 runs of a 1.49 GB state, and more
+CKPT_CHILD_S = 600.0       # the longest a crash/resume child may take
+# F1-F3 launches a step of the crash/resume trainer: pp = 1, 12 chunks,
+# 2 microbatches, each tick's stage recomputed in the backward
+CKPT_FLASH_PER_STEP = {"flash_fwd": 2 * 12 * 2, "flash_dq": 12 * 2,
+                       "flash_dkv": 12 * 2}
+
+
+def ckpt_child(root, name, ckpt_dir, *extra):
+    """One ``testing/crash_resume.py`` child (GPT-124M on the card), its
+    output in ``<root>/<name>.log``; returns the process."""
+    import os
+
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p)
+    out = open(os.path.join(root, f"{name}.log"), "wb")
+    args = [sys.executable, "-m", "apex_tpu_torch.testing.crash_resume",
+            "--config", "gpt124m", "--device", "cuda",
+            "--steps", str(CKPT_STEPS), "--save-every", str(CKPT_SAVE_EVERY),
+            "--keep", "2", "--ckpt-dir", ckpt_dir,
+            "--losses", os.path.join(root, f"{name}.losses"), *extra]
+    proc = subprocess.Popen(args, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, cwd=here)
+    out.close()
+    proc.log_path = os.path.join(root, f"{name}.log")
+    return proc
+
+
+def ckpt_wait(proc, what, rc=0):
+    """Wait for a child; check its exit code; its summary line (or None)."""
+    try:
+        got = proc.wait(timeout=CKPT_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        got = None
+    with open(proc.log_path) as f:
+        text = f.read()
+    check(got == rc, f"{what}: exit code {got}, want {rc}; its output's "
+          f"tail:\n{text[-3000:]}")
+    summary = None
+    for line in text.splitlines():
+        if line.startswith('{"crash_resume"'):
+            summary = json.loads(line)["crash_resume"]
+    return summary, text
+
+
+def ckpt_lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def ckpt_bytes(mgr, step):
+    """The bytes of one step's stored arrays (its manifest's leaves)."""
+    import numpy as np
+
+    dt = {"float32": 4, "int32": 4, "bool": 1, "bfloat16": 2, "int64": 8}
+    return sum(int(np.prod(rec["shape"])) * dt[rec["dtype"]]
+               for rec in mgr._manifest(step)["leaves"])
+
+
+def crash_resume_part(torch, root, card):
+    """(a) and (b): the trainer's runs as children, in two rounds of
+    processes side by side on the card: an uninterrupted run, a run
+    SIGKILLed after step 4's commit and one preempted by SIGTERM; then
+    the killed run's resume, and a resume of the uninterrupted run's
+    directory past its step 6 corrupted.  Returns the uninterrupted
+    run's F1-F3 launches, the directories and the record."""
+    import os
+    import shutil
+    import signal
+
+    from apex_tpu_torch.resilience import CheckpointManager
+    from apex_tpu_torch.testing import faults
+
+    dirs = {n: os.path.join(root, n) for n in ("uninterrupted", "killed",
+                                               "sigterm")}
+    t0 = time.perf_counter()
+    full = ckpt_child(root, "uninterrupted", dirs["uninterrupted"],
+                      "--fingerprint", os.path.join(root, "full.fp"))
+    killed = ckpt_child(root, "killed", dirs["killed"],
+                        "--step-delay", "0.5")
+    term = ckpt_child(root, "sigterm", dirs["sigterm"], "--step-delay",
+                      "0.5", "--save-every", str(2 * CKPT_STEPS))
+    term_losses = os.path.join(root, "sigterm.losses")
+    commit = os.path.join(dirs["killed"], f"step_{CKPT_KILL_AFTER:08d}",
+                          "manifest.json")
+    t_kill = t_term = None
+    while t_kill is None or t_term is None:
+        check(time.perf_counter() - t0 < CKPT_CHILD_S,
+              f"step {CKPT_KILL_AFTER} of the run to kill commits and the "
+              f"run to preempt logs its third step")
+        if t_kill is None and os.path.exists(commit):
+            killed.send_signal(signal.SIGKILL)
+            t_kill = time.perf_counter() - t0
+        if t_term is None and os.path.exists(term_losses) \
+                and len(ckpt_lines(term_losses)) >= 3:
+            faults.simulate_sigterm(term.pid)
+            t_term = time.perf_counter() - t0
+        for proc, what in ((killed, "kill"), (term, "preempt")):
+            check(proc.poll() is None or (proc is killed and t_kill)
+                  or (proc is term and t_term),
+                  f"the run to {what} exited early ({proc.returncode}): "
+                  f"{open(proc.log_path).read()[-2000:]}")
+        time.sleep(0.01)
+    killed.wait()
+    check(killed.returncode == -signal.SIGKILL, "the run was SIGKILLed")
+    summary, _ = ckpt_wait(full, "the uninterrupted run")
+    _, term_text = ckpt_wait(term, "the SIGTERMed run (exit 0)")
+    want = ckpt_lines(os.path.join(root, "uninterrupted.losses"))
+    check([ln.split()[0] for ln in want]
+          == [str(i) for i in range(1, CKPT_STEPS + 1)],
+          f"the uninterrupted run logged steps 1-{CKPT_STEPS}")
+    for name in ("killed", "sigterm"):
+        got = ckpt_lines(os.path.join(root, f"{name}.losses"))
+        check(got == want[:len(got)],
+              f"the {name} run's {len(got)} losses are the uninterrupted "
+              f"run's bit for bit (runs of the same steps agree)")
+    launches = {}
+    for name, per in CKPT_FLASH_PER_STEP.items():
+        tc, simt = summary["launches"][name]
+        check(tc == per * CKPT_STEPS and simt == 0,
+              f"{name}: {per} a step on tc over {CKPT_STEPS} steps "
+              f"(tc {tc}, simt {simt})")
+        launches[name] = tc
+    stopped = int(ckpt_lines(term_losses)[-1].split()[0])
+    tmgr = CheckpointManager(dirs["sigterm"], sharded=True)
+    committed = [s for s in tmgr.all_steps() if tmgr._is_committed(s)]
+    check(committed == [stopped] and stopped < CKPT_STEPS,
+          f"SIGTERM at step {stopped}: exit 0 with that step committed "
+          f"({committed}; {term_text.strip().splitlines()[-1]})")
+    tmgr.verify(stopped)
+    t_first = time.perf_counter() - t0
+
+    # the resume, past any save the kill cut short (an uncommitted step),
+    # and beside it a resume of the uninterrupted run's directory with
+    # its newest step corrupted
+    t1 = time.perf_counter()
+    kmgr = CheckpointManager(dirs["killed"], sharded=True)
+    artifacts = [s for s in kmgr.all_steps()
+                 if s > CKPT_KILL_AFTER and not kmgr._is_committed(s)]
+    resumed = ckpt_child(root, "killed", dirs["killed"], "--resume",
+                         "--fingerprint", os.path.join(root, "resumed.fp"))
+    umgr = CheckpointManager(dirs["uninterrupted"], sharded=True)
+    newest = umgr.all_steps()[-1]
+    faults.corrupt_checkpoint(umgr.step_path(newest))
+    shutil.copy(os.path.join(root, "uninterrupted.losses"),
+                os.path.join(root, "fallback.losses"))
+    again = ckpt_child(root, "fallback", dirs["uninterrupted"], "--resume",
+                       "--fingerprint", os.path.join(root, "fallback.fp"))
+    summary_r, _ = ckpt_wait(resumed, "the resumed run")
+    summary_f, _ = ckpt_wait(again, "the resume past a corrupt step")
+    check(summary_r["start"] == CKPT_KILL_AFTER + 1
+          and summary_r["fallback_depth"] == len(artifacts),
+          f"the resume went on from step {CKPT_KILL_AFTER}, past the "
+          f"uncommitted steps {artifacts} ({summary_r})")
+    check(ckpt_lines(os.path.join(root, "killed.losses")) == want,
+          "the resumed loss curve is the uninterrupted one bit for bit")
+    check(ckpt_lines(os.path.join(root, "resumed.fp"))
+          == ckpt_lines(os.path.join(root, "full.fp")),
+          "the resumed final checkpoint's fingerprint is the "
+          "uninterrupted one's")
+    check(summary_f["fallback_depth"] == 1
+          and summary_f["start"] == newest - CKPT_SAVE_EVERY + 1,
+          f"the resume fell back one step past corrupt step {newest} "
+          f"({summary_f})")
+    check(ckpt_lines(os.path.join(root, "fallback.losses")) == want
+          and ckpt_lines(os.path.join(root, "fallback.fp"))
+          == ckpt_lines(os.path.join(root, "full.fp")),
+          "after the fallback the losses and the final fingerprint are the "
+          "uninterrupted run's bit for bit")
+    t_second = time.perf_counter() - t1
+    rec = {"kill_after_s": t_kill, "uncommitted_at_kill": artifacts,
+           "first_round_s": t_first, "second_round_s": t_second,
+           "sigterm_at_step": stopped, "fallback_depth": 1,
+           "losses": want}
+    log(f"checkpoint (a) crash/resume [GPT-124M, {CKPT_STEPS} steps, "
+        f"saves every {CKPT_SAVE_EVERY}]: SIGKILL after step "
+        f"{CKPT_KILL_AFTER}'s commit at {t_kill:.1f} s (uncommitted then: "
+        f"{artifacts}); the resume from step {CKPT_KILL_AFTER} and, past a "
+        f"corrupt step {newest} of the uninterrupted run, from step "
+        f"{newest - CKPT_SAVE_EVERY} (fallback depth 1) log the "
+        f"uninterrupted losses bit for bit {want}; fingerprints equal; "
+        f"rounds {t_first:.1f} / {t_second:.1f} s; {card}")
+    log(f"checkpoint (b) SIGTERM at step {stopped} ({t_term:.1f} s): exit "
+        f"0, step {stopped} committed and verified; {card}")
+    return launches, dirs, rec
+
+
+def timed_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def save_breakdown(torch, root, state, spec):
+    """Where a sharded save's host time goes, each part timed alone on
+    the same state: the copy to the host, the manifest's crc32s, the npz
+    write (zipfile computes its own CRC-32 too), the fsync; and reading
+    every array back (the zip CRC checked) as verify and restore do."""
+    import json as _json
+    import os
+
+    import numpy as np
+
+    from apex_tpu_torch import checkpoint as ckpt
+
+    out = {}
+    (arrays, manifest, _), out["snapshot"] = timed_ms(
+        torch, lambda: ckpt._sharded_snapshot(state, 0, spec,
+                                              copy_host_leaves=True))
+    _, out["crc32"] = timed_ms(torch, lambda: {
+        k: ckpt._checksum(v) for k, v in arrays.items()})
+    path = os.path.join(root, "parts.npz")
+    f = open(path, "wb")
+    _, out["npz_write"] = timed_ms(torch, lambda: np.savez(
+        f, __manifest__=_json.dumps(manifest), **arrays))
+    _, out["fsync"] = timed_ms(torch, lambda: (f.flush(),
+                                               os.fsync(f.fileno())))
+    f.close()
+
+    def read_all():
+        with np.load(path, allow_pickle=False) as data:
+            for k in data.files:
+                data[k]
+    _, out["npz_read"] = timed_ms(torch, read_all)
+    os.unlink(path)
+    return {k: round(v, 1) for k, v in out.items()}
+
+
+def checkpoint_timings(torch, root, dirs, card):
+    """The host costs of a GPT-124M train state in this process: sync
+    save, async submit, verify, restore; returns the record and the
+    uninterrupted run's step-6 train state (restored here)."""
+    import os
+
+    from apex_tpu_torch.resilience import CheckpointManager
+    from apex_tpu_torch.testing import crash_resume as cr
+
+    pack, _, spec, opt, _ = cr.build_trainer("gpt124m", "cuda")
+    src = CheckpointManager(dirs["uninterrupted"], sharded=True, spec=spec)
+    nbytes = ckpt_bytes(src, CKPT_STEPS)
+    (state, at), restore_ms = timed_ms(
+        torch, lambda: src.restore_latest(pack, verify=False))
+    check(at == CKPT_STEPS, f"the uninterrupted run's newest step is "
+          f"{CKPT_STEPS} ({at})")
+    _, verify_ms = timed_ms(torch, lambda: src.verify(CKPT_STEPS))
+    mgr = CheckpointManager(os.path.join(root, "timed"), sharded=True,
+                            keep=1, spec=spec)
+    _, save_ms = timed_ms(torch, lambda: mgr.save(state, 1))
+    _, submit_ms = timed_ms(torch, lambda: mgr.save_async(state, 2))
+    _, drain_ms = timed_ms(torch, mgr.wait)
+    parts = save_breakdown(torch, root, state, spec)
+    gb = nbytes / 1e9
+    rec = {"state_gb": gb, "sync_save_ms": save_ms, "save_parts_ms": parts,
+           "async_submit_ms": submit_ms, "async_drain_ms": drain_ms,
+           "verify_ms": verify_ms, "verify_gb_s": gb / (verify_ms / 1e3),
+           "restore_ms": restore_ms, "restore_gb_s": gb / (restore_ms / 1e3)}
+    log(f"checkpoint timings [GPT-124M train state {gb:.3f} GB, sharded, "
+        f"one rank]: sync save {save_ms:.1f} ms; async submit "
+        f"{submit_ms:.1f} ms (then {drain_ms:.1f} ms to drain); verify "
+        f"{verify_ms:.1f} ms = {rec['verify_gb_s']:.2f} GB/s; restore "
+        f"(verify off) {restore_ms:.1f} ms = {rec['restore_gb_s']:.2f} GB/s; "
+        f"a save's parts (ms): {parts}; {card}")
+    del pack, opt
+    return rec, state
+
+
+def serving_restore_part(torch, np, pa, fo, lo, root, dirs, state, prompts,
+                         card):
+    """(c) ``restore_gpt_for_serving`` of the resumed run, bit for bit the
+    step-6 state, and phase 3's bf16 wave from it against an engine on
+    the in-memory params; (d) four adapters restored past a corrupt step
+    against the same in memory, through L1.  Returns the launches and
+    the record."""
+    import os
+
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.resilience import CheckpointManager
+    from apex_tpu_torch.serving import (
+        LoRAConfig,
+        SamplingParams,
+        ServingEngine,
+        restore_adapter_for_serving,
+        restore_gpt_for_serving,
+    )
+    from apex_tpu_torch.serving.lora import init_adapter_weights
+    from apex_tpu_torch.testing import faults
+
+    cfg = gpt124m(torch, torch.bfloat16)
+    mem = state["params"]
+    nbytes = ckpt_bytes(CheckpointManager(dirs["killed"], sharded=True),
+                        CKPT_STEPS)
+    (params, _, step), ms = timed_ms(torch, lambda: restore_gpt_for_serving(
+        dirs["killed"], cfg, with_step=True))
+    check(step == CKPT_STEPS, f"the serving restore took step {step}")
+    for a, b in zip(tree_leaves(params), tree_leaves(mem)):
+        check(a.shape == b.shape and torch.equal(a, b),
+              "the served params are the step-6 params bit for bit")
+    launches = {}
+    waves = {}
+    for label, p in (("restored", params), ("in memory", mem)):
+        counts, _, reqs, tps = engine_phase(torch, np, pa, fo, lo, p,
+                                            torch.bfloat16, prompts)
+        waves[label] = [r.output_tokens for r in reqs]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    check(waves["restored"] == waves["in memory"],
+          "the restored engine's streams are the in-memory engine's bit for "
+          "bit")
+    rec = {"serving_restore_ms": ms,
+           "serving_restore_gb_s": nbytes / 1e9 / (ms / 1e3)}
+    log(f"checkpoint (c) serving restore: restore_gpt_for_serving of the "
+        f"resumed run (step {step}, {nbytes / 1e9:.3f} GB read and "
+        f"verified) {ms:.1f} ms = {rec['serving_restore_gb_s']:.2f} GB/s; "
+        f"params bit for bit; the bf16 wave's {len(prompts)} streams bit "
+        f"for bit the in-memory engine's; {card}")
+
+    # (d) adapters: step 1 the four, step 2 others, then torn
+    lora = LoRAConfig(rank=RANK, max_adapters=ADAPTERS, alpha=16)
+    ids = [f"t{i}" for i in range(ADAPTERS)]
+    mem_w = {aid: init_adapter_weights(cfg, lora, seed=100 + i)
+             for i, aid in enumerate(ids)}
+
+    def tree(weights):
+        return {"adapters": {aid: {proj: {"a": torch.from_numpy(a),
+                                          "b": torch.from_numpy(b)}
+                                   for proj, (a, b) in w.items()}
+                             for aid, w in weights.items()}}
+
+    amgr = CheckpointManager(os.path.join(root, "adapters"), sharded=True)
+    amgr.save(tree(mem_w), 1)
+    amgr.save(tree({aid: init_adapter_weights(cfg, lora, seed=200 + i)
+                    for i, aid in enumerate(ids)}), 2)
+    faults.corrupt_checkpoint(amgr.step_path(2))
+    got_w = {}
+    for aid in ids:
+        got_w[aid], at = restore_adapter_for_serving(
+            amgr.directory, cfg, lora, key=f"adapters/{aid}", with_step=True)
+        check(at == 1, f"adapter {aid} fell back to step 1 past the torn "
+              f"step 2 ({at})")
+    sampling = [SamplingParams(adapter_id=ids[i % ADAPTERS])
+                for i in range(B)]
+    lora_waves = {}
+    for label, weights in (("restored", got_w), ("in memory", mem_w)):
+        eng = ServingEngine(cfg, serving_shape(torch, lora=lora), params)
+        for aid in ids:
+            eng.register_adapter(aid, weights=weights[aid])
+        serve(eng, [prompts[1][:64]], 4, stagger=False)      # warm-up
+        base = calls_of(eng)
+        zero_counts(pa, fo, lo)
+        reqs, _ = serve(eng, prompts[:B], 32, samplings=sampling)
+        counts = read_counts(pa, fo, lo)
+        check_path_counts(counts, calls_of(eng, base), cfg.num_layers,
+                          spec=False, lora=True)
+        check_prefill_routes(pa, "tc", f"adapters ({label})")
+        lora_waves[label] = [r.output_tokens for r in reqs]
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    check(lora_waves["restored"] == lora_waves["in memory"],
+          "the restored adapters' streams are the in-memory adapters' bit "
+          "for bit")
+    log(f"checkpoint (d) adapters: four rank-{RANK} adapters restored past "
+        f"a torn newest step (fallback to step 1), {B} requests over them "
+        f"through L1 bit for bit the in-memory adapters' streams; {card}")
+    return launches, rec
+
+
+def fleet_restore_part(torch, np, root, state, prompts, card):
+    """(e) a ``ReplicaProcess`` from a checkpoint directory reports the
+    newest intact step (past a corrupt newest), is rolled onto a newer
+    step by ``FleetRouter.rollout`` and reports it, and serves fp32
+    streams bit for bit an in-process engine's on the same weights."""
+    import os
+
+    from apex_tpu_torch.amp._tree import tree_map
+    from apex_tpu_torch.observability.metrics import MetricRegistry
+    from apex_tpu_torch.resilience import CheckpointManager
+    from apex_tpu_torch.serving import FleetRouter, ReplicaProcess
+    from apex_tpu_torch.testing import faults
+
+    fdir = os.path.join(root, "fleet")
+    mgr = CheckpointManager(fdir, sharded=True, keep=3)
+    params = state["params"]
+    mgr.save({"params": params}, 10)
+    mgr.save({"params": tree_map(lambda t: t * 0.5, params)}, 11)
+    faults.corrupt_checkpoint(mgr.step_path(11))
+    spec = fleet_spec(torch, torch.float32, ckpt_dir=fdir)
+    t0 = time.perf_counter()
+    rep = ReplicaProcess(spec, "c0")
+    meta = rep.wait_ready(timeout=FLEET_READY_S)
+    ready_s = time.perf_counter() - t0
+    check(meta["ckpt_step"] == 10, f"the replica serves step 10, the newest "
+          f"intact ({meta['ckpt_step']})")
+    router = FleetRouter([rep], registry=MetricRegistry(rank=0, world=1),
+                         heartbeat_timeout_s=30.0)
+    started = [rep]
+    try:
+        mgr.save({"params": tree_map(lambda t: t * 0.75, params)}, 12)
+
+        def factory(name):
+            started.append(ReplicaProcess(spec, name))
+            return started[-1]
+        t1 = time.perf_counter()
+        router.rollout(factory, ready_timeout_s=FLEET_READY_S)
+        roll_s = time.perf_counter() - t1
+        step2 = router.introspect()["replicas"]["c0"]["ckpt_step"]
+        check(step2 == 12, f"after the rollout the replica serves step 12 "
+              f"({step2})")
+        reqs, _ = fleet_wave(router, prompts[:4])
+        ref_reqs, _, ref_model = fleet_reference(torch, spec, prompts[:4])
+        fleet_streams(torch, "checkpoint (e) [rolled replica, fp32]", reqs,
+                      ref_reqs, ref_model, 0)
+    finally:
+        router.close()
+        for p in started:
+            p.close()
+    log(f"checkpoint (e) fleet: a replica from a checkpoint directory "
+        f"ready in {ready_s:.3f} s serving step 10 (past a corrupt step 11); "
+        f"rolled onto step 12 in {roll_s:.3f} s; 4 fp32 streams bit for bit "
+        f"an in-process engine's on the restored weights; {card}")
+    return {"replica_ready_s": ready_s, "rollout_s": roll_s}
+
+
+def checkpoint_phase(torch, np, pa, fo, lo, prompts):
+    """Phase 16: checkpoints, crash/resume and the serving restores at
+    GPT-124M width on the card; returns the launches of its main path."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="apex_ckpt_phase_")
+    try:
+        free = shutil.disk_usage(root).free / 1e9
+        check(free >= CKPT_FREE_GB, f"checkpoint phase: {free:.1f} GB free "
+              f"under {root}, {CKPT_FREE_GB} GB needed (two keep=2 runs of "
+              f"a 1.49 GB train state, a SIGTERM run, the fleet's)")
+        launches, dirs, rec = crash_resume_part(torch, root, card)
+        timing, state = checkpoint_timings(torch, root, dirs, card)
+        counts, serving = serving_restore_part(torch, np, pa, fo, lo, root,
+                                               dirs, state, prompts, card)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        fleet = fleet_restore_part(torch, np, root, state, prompts, card)
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec.update(timing, **serving, **fleet, card=card,
+               seconds=time.perf_counter() - t0)
+    rec.pop("losses")
+    log(json.dumps({"checkpoint": rec}))
+    log(f"phase 16 (checkpoints and the serving restores): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -5004,6 +5498,8 @@ def main():
                                  fused).items():
         launches[k] += v
     for k, v in fleet_phase(torch, np, prompts).items():
+        launches[k] += v
+    for k, v in checkpoint_phase(torch, np, pa, fo, lo, prompts).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

@@ -22,6 +22,15 @@ Over loopback sockets only the streams (each request's state, and a
 finished request's tokens) are compared: which replica takes a request,
 how many reconnects a fault costs, and how many tokens a request had
 when a fault cut it off depend on thread timing on one side alone.
+
+Both sides' ``ChaosProxy`` run with one change (:func:`_deferred_cut`):
+``drop_connections`` cuts a link at the next frame that crosses it and
+waits up to ``wait_s`` for that, but the scenario's one thread drives
+the router and the replicas, so nothing crosses while it waits; when
+the frames it aimed at had all crossed already (a loaded machine), the
+proxy gave up after ``wait_s`` and left the link whole, and the scenario
+saw no reconnect.  Here a link not cut in that time stays marked and is
+cut at the next frame that does cross, after the wait returns.
 """
 
 from __future__ import annotations
@@ -142,6 +151,37 @@ def _tapped_func(fn, name):
     return tap
 
 
+def _deferred_cut(cls):
+    """``cls`` (either side's ``ChaosProxy``) whose ``drop_connections``
+    still cuts, at their next frame, the links it could not cut while it
+    waited (see the module docstring)."""
+    class DeferredCut(cls):
+        def drop_connections(self, *, wait_s: float = 5.0) -> None:
+            with self._lock:
+                live = [p for p in self._pairs if not p.closed]
+            super().drop_connections(wait_s=wait_s)
+            with self._lock:
+                self._doomed = [p for p in getattr(self, "_doomed", [])
+                                + live if not p.closed]
+
+        def _fault_gate(self, pair) -> bool:
+            with self._lock:
+                doomed = any(p is pair for p in getattr(self, "_doomed", ()))
+                if doomed:
+                    self._doomed = [p for p in self._doomed if p is not pair]
+            if doomed:
+                pair.close()
+                with self._lock:
+                    self._pairs = [p for p in self._pairs if not p.closed]
+                return True
+            return super()._fault_gate(pair)
+
+    DeferredCut.__name__ = cls.__name__
+    DeferredCut.__qualname__ = cls.__qualname__
+    DeferredCut.__module__ = cls.__module__
+    return DeferredCut
+
+
 _CLASSES = {"FleetRouter": ("router", ()),
             "FakeReplica": ("replica", ()),
             "FleetAutopilot": ("autopilot", ()),
@@ -156,6 +196,12 @@ def _patched(side: str):
     for (_, s), mod in _LOADED.items():
         if s != side:
             continue
+        proxy = mod.__dict__.get("ChaosProxy")
+        if isinstance(proxy, type):
+            if proxy not in made:
+                made[proxy] = _deferred_cut(proxy)
+            saved.append((mod, "ChaosProxy", proxy))
+            mod.__dict__["ChaosProxy"] = made[proxy]
         for attr, (kind, methods) in _CLASSES.items():
             cls = mod.__dict__.get(attr)
             if isinstance(cls, type):

@@ -36,11 +36,7 @@ QUEUED = {
         "fused_dense": "A.4", "fused_dense_gelu_dense": "A.4",
         "mlp": "A.4", "MLP": "A.4", "mlp_forward": "A.4",
     },
-    "serving": {
-        # serving/loader.py and the engine's checkpoint restores
-        "restore_gpt_for_serving": "A.2",
-        "restore_adapter_for_serving": "A.2",
-    },
+    "serving": {},
     "amp": {},
     "parallel": {
         # parallel/sync_batchnorm.py and optimizers/larc.py
@@ -65,16 +61,8 @@ QUEUED = {
         "partial_train_stats": "A.3", "device_partial_norms": "A.3",
         "local_grad_stats": "A.3", "pack_local_stats": "A.3",
         "stats_from_reduced": "A.3", "stats_partition_specs": "A.3",
-        # observability/spans.py
-        "named_span": "A.2", "span": "A.2", "step_trace": "A.2",
-        "TraceWindow": "A.2",
     },
-    "resilience": {
-        # resilience/manager.py and reshard.py
-        "CheckpointManager": "A.2", "ShardingSpec": "A.2",
-        "build_spec": "A.2", "load_logical": "A.2",
-        "restore_resharded": "A.2",
-    },
+    "resilience": {},
 }
 
 # name -> why eager PyTorch has no counterpart
