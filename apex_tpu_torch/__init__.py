@@ -55,6 +55,14 @@ Ported so far:
   ``pallas_rms_norm``, whose forwards are the row LayerNorm and RMSNorm
   kernels (``csrc/row_norm.cu``).
 
+- ResNet training, the BASELINE workload: the ResNet family
+  (:mod:`apex_tpu_torch.models`), SyncBatchNorm
+  (:mod:`apex_tpu_torch.parallel`), the whole fused optimizer family on
+  the chunked buffers of :mod:`apex_tpu_torch.utils`, the synthetic
+  ImageNet batches (:mod:`apex_tpu_torch.data`) and the ``rn50_*`` L1
+  cells (:mod:`apex_tpu_torch.testing.l1`); plain PyTorch ops, as the
+  reference's are plain XLA.
+
 Every TPU kernel of the JAX package has its hand-written counterpart
 here, nine in all.  Entry points run on the CUDA device unless given
 ``device="cpu"`` or CPU tensors, where each kernel's plain PyTorch version
@@ -63,4 +71,4 @@ runs instead.
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
            "amp", "parallel", "resilience", "data", "testing",
-           "observability"]
+           "observability", "models", "utils"]

@@ -4,20 +4,17 @@ NamedTuples of tensors and other leaves, as the JAX package's pytrees.
 A path is the tuple of components from the root to a leaf: a dict key, a
 NamedTuple field name, or a list or tuple index.  Leaves come in the JAX
 order: dict keys sorted, sequences and NamedTuple fields in order.
+``tree_flatten`` is :func:`apex_tpu_torch.utils.tree.tree_flatten`, the
+port's one flatten (``None`` an empty subtree, as in JAX).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List
 
-import torch
+from apex_tpu_torch.utils.tree import _is_namedtuple, tree_flatten
 
-__all__ = ["tree_map_with_path", "tree_map", "tree_leaves", "tree_flatten",
-           "tree_l2_norm"]
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+__all__ = ["tree_map_with_path", "tree_map", "tree_leaves", "tree_flatten"]
 
 
 def tree_map_with_path(fn: Callable[..., Any], tree, *rest, path=()):
@@ -53,27 +50,3 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
-
-
-def tree_flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
-    """``(leaves, unflatten)``: the leaves in :func:`tree_map`'s visiting
-    order (dict keys as inserted), and the function that puts a list of
-    new leaves back into ``tree``'s structure in that order."""
-    leaves: List[Any] = []
-    tree_map(leaves.append, tree)
-
-    def unflatten(new: List[Any]):
-        it = iter(new)
-        return tree_map(lambda _: next(it), tree)
-
-    return leaves, unflatten
-
-
-def tree_l2_norm(tree) -> torch.Tensor:
-    """The global L2 norm of a tree's tensors in fp32 (0-d), as the JAX
-    package's ``utils.tree.tree_l2_norm``; 0 for a tree without one."""
-    leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
-    if not leaves:
-        return torch.tensor(0.0)
-    return torch.sqrt(torch.stack(
-        [x.detach().float().square().sum() for x in leaves]).sum())

@@ -20,13 +20,17 @@ a 0-d tensor on the lists' device.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["OptState", "adam_apply", "scale_grads", "resolve_master",
-           "finalize_params", "cast_like", "apply_skip", "advance_step",
-           "tree_map_flat"]
+from apex_tpu_torch.amp._tree import tree_leaves, tree_map
+from apex_tpu_torch.utils.tree import tree_flatten
+
+__all__ = ["OptState", "FusedOptimizer", "adam_apply", "scale_grads",
+           "resolve_master", "finalize_params", "cast_like", "apply_skip",
+           "advance_step", "bias_correction", "tree_map_flat", "tree_f32",
+           "tree_zeros_f32", "tree_map_multi"]
 
 Tensors = List[torch.Tensor]
 
@@ -124,6 +128,36 @@ def advance_step(step, skip_update):
     return step + torch.where(skip_update, 0, 1)
 
 
+def bias_correction(beta: float, t):
+    """``1 - beta ** t`` in fp32: a float from a host count, a 0-d tensor
+    from a device one."""
+    if isinstance(t, torch.Tensor):
+        return 1.0 - torch.pow(beta, t.float())
+    return float(1.0 - torch.tensor(beta) ** torch.tensor(float(t)))
+
+
+def tree_f32(tree):
+    """An fp32 copy of every leaf (a copy even of fp32 leaves, so a master
+    tree never aliases the parameters)."""
+    return tree_map(lambda x: torch.as_tensor(x).detach().to(
+        torch.float32, copy=True), tree)
+
+
+def tree_zeros_f32(tree):
+    """fp32 zeros shaped like every leaf (an optimizer slot's start)."""
+    return tree_map(lambda x: torch.zeros(
+        tuple(x.shape), dtype=torch.float32, device=x.device), tree)
+
+
+def tree_map_multi(fn: Callable, n_out: int, *trees) -> Tuple[Any, ...]:
+    """``fn`` (returning an ``n_out``-tuple) over the leaves of ``trees``
+    (all of the first tree's structure), as ``n_out`` trees."""
+    leaves0, unflatten = tree_flatten(trees[0])
+    rest = [tree_flatten(t)[0] for t in trees[1:]]
+    results = [fn(*args) for args in zip(leaves0, *rest)]
+    return tuple(unflatten([r[i] for r in results]) for i in range(n_out))
+
+
 def tree_map_flat(fn: Callable, *lists: Tensors) -> None:
     """Run the in-place list update ``fn`` once over one flat fp32 buffer
     per list (each a one-element list), then write every buffer back into
@@ -136,3 +170,138 @@ def tree_map_flat(fn: Callable, *lists: Tensors) -> None:
     for ts, buf in zip(lists, bufs):
         for t, piece in zip(ts, buf.split(sizes)):
             t.copy_(piece.view_as(t))
+
+
+class FusedOptimizer(torch.optim.Optimizer):
+    """The step every fused optimizer shares: per parameter group, the
+    fp32 working list (the masters with ``master_weights``, else the
+    parameters, through fp32 copies where they are not fp32), the fp32
+    gradients divided by ``grad_scale``, the slots, the subclass's
+    in-place ``_update``, the skip as a select on the device, the write
+    back into the parameters, and the group's step count (``group["step"]``,
+    advanced only by an applied update).
+
+    ``step(closure=None, *, lr=None, grad_scale=None, skip_update=None,
+    grads=None)``: ``lr`` is this step's rate, ``skip_update`` a bool or a
+    0-d bool tensor (the step count is then a device tensor), ``grads`` a
+    mapping from parameter to the gradient to use instead of its
+    ``.grad`` (LARC hands its fp32 gradients over so).
+
+    Subclasses set ``self.slots`` (the names of the fp32 slot tensors
+    kept per parameter) and implement ``_update(group, p32, g32, slots,
+    step, lr)``, where ``slots`` maps each name to the group's list and
+    ``step`` is the count before this update.  :meth:`opt_state` and
+    :meth:`load_opt_state` give and take the state as the reference's
+    :class:`OptState` in the structure of a tree of the parameters."""
+
+    slots: Tuple[str, ...] = ()
+
+    def __init__(self, params, defaults: Dict[str, Any],
+                 master_weights: bool = False):
+        super().__init__(params, defaults)
+        self.master_weights = master_weights
+
+    def _init_slot(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.preserve_format)
+
+    def _state(self, p):
+        state = self.state[p]
+        if not state:
+            for name in self.slots:
+                state[name] = self._init_slot(name, p)
+            if self.master_weights:
+                state["master"] = p.detach().to(torch.float32, copy=True)
+        return state
+
+    def _update(self, group, p32: Tensors, g32: Tensors,
+                slots: Dict[str, Tensors], step, lr) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None, *, lr=None, grad_scale=None,
+             skip_update=None, grads=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"]
+                      if (p.grad if grads is None else grads.get(p))
+                      is not None]
+            if not params:
+                continue
+            states = [self._state(p) for p in params]
+            skip = (None if skip_update is None else torch.as_tensor(
+                skip_update, dtype=torch.bool, device=params[0].device))
+            step = group.setdefault("step", 0)
+            p32 = resolve_master(params, [s.get("master") for s in states],
+                                 self.master_weights)
+            g32 = scale_grads([p.grad if grads is None else grads[p]
+                               for p in params], grad_scale)
+            slots = {n: [s[n] for s in states] for n in self.slots}
+            kept = p32 + [x for n in self.slots for x in slots[n]]
+            old = None if skip is None else [x.clone() for x in kept]
+            self._update(group, p32, g32, slots, step,
+                         group["lr"] if lr is None else lr)
+            if skip is not None:
+                apply_skip(skip, kept, old)
+            finalize_params(p32, params)
+            group["step"] = advance_step(step, skip)
+        return loss
+
+    def _group_of(self, params):
+        """The one parameter group holding every leaf of ``params``."""
+        leaves = tree_leaves(params)
+        ids = {id(p) for p in leaves}
+        groups = [g for g in self.param_groups
+                  if any(id(p) in ids for p in g["params"])]
+        held = {id(p) for g in groups for p in g["params"]}
+        if len(groups) != 1 or not ids <= held:
+            raise ValueError(
+                "opt_state/load_opt_state take the parameters of one "
+                f"parameter group (found {len(groups)} groups holding "
+                f"{len(ids & held)} of {len(ids)} leaves)")
+        return groups[0]
+
+    @torch.no_grad()
+    def opt_state(self, params) -> OptState:
+        """The state as the reference's ``OptState`` in the structure of
+        ``params`` (a tree of this optimizer's parameters): the step
+        count as an int32 0-d tensor, each slot (its initial value for a
+        parameter not stepped yet), and the fp32 masters with
+        ``master_weights`` (else ``None``).  The tensors are the
+        optimizer's own, not copies."""
+        group = self._group_of(params)
+        first = tree_leaves(params)[0]
+        step = torch.as_tensor(group.get("step", 0), device=first.device)
+        slots = {name: tree_map(lambda p, n=name: self._state(p)[n], params)
+                 for name in self.slots}
+        master = (tree_map(lambda p: self._state(p)["master"], params)
+                  if self.master_weights else None)
+        return OptState(step=step.to(torch.int32), slots=slots,
+                        master=master)
+
+    @torch.no_grad()
+    def load_opt_state(self, params, state: OptState, *,
+                       step_on_device: bool = True) -> None:
+        """Load an ``OptState`` (from :meth:`opt_state` or a checkpoint)
+        for ``params``, copying into the optimizer's own tensors.  The
+        step count becomes the group's: a device tensor (``step_on_device``,
+        as a run with a skip holds it after its first step, so what
+        depends on it is taken on the device as before), or a host int,
+        as a run without a skip holds it."""
+        group = self._group_of(params)
+        for name in self.slots:
+            tree_map(lambda p, x, n=name: self._state(p)[n].copy_(x),
+                     params, state.slots[name])
+        if self.master_weights:
+            if state.master is None:
+                raise ValueError("master_weights=True but the state has "
+                                 "no master params")
+            tree_map(lambda p, w: self._state(p)["master"].copy_(w),
+                     params, state.master)
+        first = tree_leaves(params)[0]
+        step = torch.as_tensor(state.step)
+        group["step"] = (step.to(device=first.device, dtype=torch.int64)
+                         if step_on_device else int(step))

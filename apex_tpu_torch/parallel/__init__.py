@@ -7,16 +7,19 @@ device mesh.  Here each process is one rank of ``torch.distributed``:
 the CPU), :func:`initialize_model_parallel` lays the ranks on the
 reference's ``(dcn, dp, pp, cp, tp)`` grid with a process group per set
 of axes, :mod:`~apex_tpu_torch.parallel.collectives` runs the
-collectives over those axes by name, and
+collectives over those axes by name,
 :class:`DistributedDataParallel` reduces the gradients over the data
-axes after the backward.
+axes after the backward, and :class:`SyncBatchNorm` sums its statistics
+(and their gradients) over them; ``LARC`` is
+:class:`apex_tpu_torch.optimizers.LARC`, as in the reference.
 
-Not ported yet (ROADMAP.md, section A.4): ``SyncBatchNorm``,
-``sync_batch_norm_stats`` and ``LARC``; and (section A.5) ``zero_init``
-and ``zero_data_parallel_train_step``.
+Not ported yet (ROADMAP.md, section A.5): ``zero_init`` and
+``zero_data_parallel_train_step``.
 """
 
+from apex_tpu_torch.optimizers.larc import LARC  # noqa: F401
 from apex_tpu_torch.parallel import collectives, launch  # noqa: F401
+from apex_tpu_torch.parallel import sync_batchnorm  # noqa: F401
 from apex_tpu_torch.parallel.distributed import (  # noqa: F401
     DistributedDataParallel,
     all_reduce_gradients,
@@ -45,4 +48,8 @@ from apex_tpu_torch.parallel.mesh import (  # noqa: F401
     initialize_model_parallel,
     model_parallel_is_initialized,
     set_virtual_pipeline_model_parallel_rank,
+)
+from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
+    SyncBatchNorm,
+    sync_batch_norm_stats,
 )

@@ -48,6 +48,7 @@ __all__ = [
     "destroy_model_parallel",
     "get_mesh",
     "get_group",
+    "get_subgroup",
     "group_ranks",
     "axis_names",
     "get_data_parallel_world_size",
@@ -135,6 +136,8 @@ class _State:
     # and the global ranks of that group, in group-rank order
     groups: Dict[Tuple[str, ...], object] = {}
     members: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+    # (axis tuple, index groups) -> this rank's sub-group of that axis
+    subgroups: Dict[Tuple, object] = {}
     virtual_pipeline_rank: Optional[int] = None
 
 
@@ -234,6 +237,7 @@ def destroy_model_parallel() -> None:
     _STATE.spec = None
     _STATE.groups = {}
     _STATE.members = {}
+    _STATE.subgroups = {}
     _STATE.virtual_pipeline_rank = None
 
 
@@ -252,6 +256,32 @@ def _key(axis: AxisName) -> Tuple[str, ...]:
 def get_group(axis: AxisName):
     """This rank's process group over ``axis`` (a name or a tuple)."""
     return _STATE.groups[_key(axis)]
+
+
+def get_subgroup(axis: AxisName, axis_index_groups):
+    """This rank's process group among ``axis_index_groups`` (lists of
+    indices along ``axis``, as JAX's collectives take them): the ranks of
+    its group over ``axis`` at the indices of the index group holding
+    this rank's index.  ``None`` gives :func:`get_group`.  Collective on
+    first use: every rank of the world makes every such group, in the
+    same order."""
+    if axis_index_groups is None:
+        return get_group(axis)
+    key = (_key(axis), tuple(tuple(int(i) for i in g)
+                             for g in axis_index_groups))
+    if key not in _STATE.subgroups:
+        mesh, axes = get_mesh(), key[0]
+        along = sorted({_ranks_along(mesh.ranks, dict(zip(_AXIS_ORDER, c)),
+                                     axes)
+                        for c in np.ndindex(mesh.ranks.shape)})
+        me = dist.get_rank()
+        for ranks in along:
+            for index_group in key[1]:
+                members = [ranks[i] for i in index_group]
+                group = dist.new_group(members)
+                if me in members:
+                    _STATE.subgroups[key] = group
+    return _STATE.subgroups[key]
 
 
 def group_ranks(axis: AxisName) -> Tuple[int, ...]:

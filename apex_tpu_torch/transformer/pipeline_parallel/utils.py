@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch.amp._tree import tree_l2_norm, tree_map
+from apex_tpu_torch.amp._tree import tree_map
+from apex_tpu_torch.utils.tree import tree_l2_norm
 from apex_tpu_torch.parallel import collectives as cc
 from apex_tpu_torch.transformer.microbatches import (
     build_num_microbatches_calculator,

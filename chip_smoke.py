@@ -293,12 +293,34 @@ Phases (any failure exits non-zero; none is caught):
    ``FleetRouter.rollout`` onto a newer committed step and reports it,
    and serves 4 fp32 requests bit for bit an in-process engine on the
    same restored weights; every timing printed with the card's name and
-   power limit.
+   power limit;
+17. ResNet-50 training, the BASELINE workload (``resnet_phase``; no TPU
+   kernel lies on this path, and none of the nine launches in it): (a)
+   ``bench.py``'s recipe, 1000 classes, 224 x 224, batch 128, amp O2 (bf16
+   compute, fp32 masters), ``FusedSGD(lr=0.1, momentum=0.9,
+   weight_decay=1e-4)``, channels-last, seeded weights, batches from
+   ``synthetic_image_batches`` normalized on the card inside the step
+   (``normalize_on_device``), cuDNN's autotuned algorithms: 2 warm-up and
+   8 timed steps, the losses finite with the first within 0.5 of ln 1000,
+   images/s, resident and peak GiB, and one profiled step's device busy
+   ms, busy share, device launches and top rows; (b) ``FusedLAMB(lr=1e-3,
+   weight_decay=1e-2)`` (flat) with SyncBatchNorm over dp under
+   ``DistributedDataParallel`` at world size 1 over NCCL, and its twin
+   with local BN and no process group, both with cuDNN's deterministic
+   algorithms: the same timings, and the two loss series bit for bit;
+   (c) ``rn50_O0`` and ``rn50_O2_dynamic`` at the L1 size (8 x 32 x 32, 10
+   classes; TF32 off, deterministic algorithms): the port's CPU trace's
+   state before each of its ten steps replayed as one step on the card,
+   fp32 within ``compare_traces``' default tolerances of the CPU step,
+   bf16 within a factor ``RN50_BF16_RMS_RATIO``, either way, of the CPU's
+   bf16 step's distance from the fp32 evaluation of the same weights,
+   the loss-scale series exactly.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
 ``{"context_moe": {...}}``, a ``{"serving_tp": {...}}``, a
-``{"checkpoint": {...}}`` and a ``{"kernels": [...]}`` JSON object and
+``{"checkpoint": {...}}``, a ``{"resnet": {...}}`` and a
+``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -307,6 +329,7 @@ false.
 import dataclasses
 import importlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3320,9 +3343,11 @@ def check_pipeline_launches(fa, want, what):
     return counts
 
 
-def profile_step(torch, label, step):
+def profile_step(torch, label, step, kinds=None):
     """One step under ``torch.profiler`` after ``reset_peak_memory_stats``:
-    wall and device busy ms, the resident and peak GiB, the top rows."""
+    wall and device busy ms, the resident and peak GiB, the top rows; with
+    ``kinds`` (name -> substrings of a kernel's name, the first match
+    wins, "other" the rest) also the device ms of each kind."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3339,7 +3364,15 @@ def profile_step(torch, label, step):
     check(busy_us > 0, "the profiler saw device time")
     rec = {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
            "resident_gib": resident / 2**30, "peak_gib": peak / 2**30,
-           "step_peak_gib": (peak - resident) / 2**30}
+           "step_peak_gib": (peak - resident) / 2**30,
+           "device_launches": sum(r[1] for r in rows)}
+    if kinds:
+        by_kind = dict.fromkeys([*kinds, "other"], 0.0)
+        for us, _, key in rows:
+            kind = next((k for k, subs in kinds.items()
+                         if any(sub in key for sub in subs)), "other")
+            by_kind[kind] += us / 1e3
+        rec["device_ms_by_kind"] = by_kind
     log(f"profile[{label}]: {json.dumps(rec)}")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
@@ -5331,6 +5364,222 @@ def checkpoint_phase(torch, np, pa, fo, lo, prompts):
     return launches
 
 
+# ------------------------------------------- phase 17: ResNet-50 training
+
+RN50_BATCH, RN50_SIZE, RN50_CLASSES = 128, 224, 1000   # bench.py's recipe
+RN50_BF16_RMS_RATIO = 2.5      # bf16: distance from fp32, card to CPU
+# the profiled step's device time by kind of kernel: cuDNN's convolutions
+# (and the head's GEMM), the reductions of the BN statistics and norms,
+# the multi-tensor (foreach) optimizer kernels, copies and casts
+RN50_KINDS = {"conv_gemm": ("xmma", "implicit", "conv", "cudnn", "gemm",
+                            "cutlass", "sm90"),
+              "reduce": ("reduce_kernel", "segment"),
+              "optimizer_foreach": ("multi_tensor", "foreach"),
+              "copy_cast": ("copy", "Memcpy", "Memset")}
+
+
+def rn50_batches(torch, np, n, seed=0):
+    """``n`` synthetic ImageNet batches (uint8 NHWC, int labels) on the
+    card, drawn by ``synthetic_image_batches`` as the reference draws
+    them."""
+    from apex_tpu_torch.data import synthetic_image_batches
+
+    stream = synthetic_image_batches(RN50_BATCH, RN50_SIZE, RN50_CLASSES,
+                                     seed=seed)
+    out = []
+    for _ in range(n):
+        x, y = next(stream)
+        out.append((torch.from_numpy(x).cuda(),
+                    torch.from_numpy(y).long().cuda()))
+    torch.cuda.synchronize()
+    return out
+
+
+def rn50_train(torch, label, tr, batches):
+    """``WARMUP_STEPS`` + ``TIMED_STEPS`` steps of the trainer ``tr`` on
+    ``batches`` (uint8 on the card, normalized on the card inside each
+    step) and one profiled step; returns the losses (floats) and the
+    record."""
+    from apex_tpu_torch.data import normalize_on_device
+
+    def step(i):
+        x, y = batches[i % len(batches)]
+        return tr.step(tr.images(normalize_on_device(x)), y)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses = [step(i) for i in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(i) for i in range(WARMUP_STEPS,
+                                      WARMUP_STEPS + TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: the losses are finite: {losses}")
+    first = abs(losses[0] - math.log(RN50_CLASSES))
+    check(first <= 0.5, f"{label}: the first loss {losses[0]:.4f} within "
+          f"0.5 of ln {RN50_CLASSES} ({first:.4f} away)")
+    prof = profile_step(torch, label, lambda: step(0), kinds=RN50_KINDS)
+    card = card_line()
+    rec = {"step_ms": dt * 1e3, "images_per_s": RN50_BATCH / dt,
+           "losses": losses, "resident_gib": resident / 2**30,
+           "peak_gib": peak / 2**30, "profile": prof,
+           "busy_share": prof["busy_ms"] / prof["wall_ms"], "card": card}
+    log(f"train[{label}, batch {RN50_BATCH} x {RN50_SIZE}^2, "
+        f"{RN50_CLASSES} classes, channels-last]: step {dt * 1e3:.2f} ms = "
+        f"{RN50_BATCH / dt:.1f} images/s over {TIMED_STEPS} timed steps; "
+        f"resident {resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; "
+        f"profiled step busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} "
+        f"ms ({rec['busy_share']:.3f}), {prof['device_launches']} device "
+        f"launches; losses {losses}; card {card}")
+    return losses, rec
+
+
+def rn50_replay(torch, tr, snaps):
+    """Each snapshot replayed as one step of the trainer ``tr`` (on its
+    device; an O0 trainer gives the fp32 evaluation of a bf16 cell's
+    weights): ``[(loss, grad norm, scale)]``."""
+    from apex_tpu_torch.testing import l1
+
+    x_np, y_np = l1.rn50_batch()
+    x, y = tr.images(x_np), torch.as_tensor(y_np, device=tr.device)
+    rows = []
+    for snap in snaps:
+        tr.restore(dict(snap, scaler=snap["scaler"] if tr.scaler else None))
+        loss, grad_norm = tr.step(x, y)
+        rows.append((float(loss), float(grad_norm),
+                     float(tr.sstate.scale) if tr.scaler else None))
+    return rows
+
+
+def rn50_card_vs_cpu(torch, np):
+    """(c): ``rn50_O0`` and ``rn50_O2_dynamic`` at the L1 size: the CPU
+    trace's state before each step replayed as one step on the card (TF32
+    off, deterministic algorithms), held to the CPU step: fp32 at
+    ``compare_traces``' defaults, bf16 by its RMS distance from the fp32
+    evaluation (within a factor ``RN50_BF16_RMS_RATIO`` of the CPU's,
+    either way: a bf16 step that computed in fp32 sits near 0), the
+    loss-scale
+    series exactly.  The ten-step trace is chaotic (one ulp of the
+    weights moves the loss by 1e-1 within two steps), so the steps are
+    compared from the same state, not run free."""
+    from apex_tpu_torch.testing import l1
+
+    out = {}
+    for name in ("rn50_O0", "rn50_O2_dynamic"):
+        trace, snaps = l1.run_trace(name, device="cpu", snapshots=True)
+        card = rn50_replay(torch, l1.RN50Trainer(name, device="cuda",
+                                                 seed=None), snaps)
+        got = {"loss": [r[0] for r in card], "grad_norm": [r[1] for r in card]}
+        if name == "rn50_O2_dynamic":
+            scales = [r[2] for r in card]
+            check(scales == trace["loss_scale"],
+                  f"card vs CPU {name}: the loss-scale series {scales} is "
+                  f"the CPU's {trace['loss_scale']}")
+            fp32 = rn50_replay(torch, l1.RN50Trainer(
+                "rn50_O0", device="cpu", seed=None), snaps)
+            rec = {}
+            for k, key in enumerate(("loss", "grad_norm")):
+                f = np.asarray([r[k] for r in fp32])
+                rms = lambda a: float(np.sqrt(np.mean(np.square(  # noqa
+                    (np.asarray(a) - f) / f))))
+                rec[key] = {"card_rms": rms(got[key]),
+                            "cpu_rms": rms(trace[key])}
+                check(rec[key]["cpu_rms"] / RN50_BF16_RMS_RATIO
+                      <= rec[key]["card_rms"] <= RN50_BF16_RMS_RATIO
+                      * rec[key]["cpu_rms"],
+                      f"card vs CPU {name} {key}: RMS distance from fp32 "
+                      f"{rec[key]}")
+        else:
+            problems = l1.compare_traces(got, trace)
+            check(not problems, f"card vs CPU {name}: {problems}")
+            rec = {key: max(abs(a - b) / abs(b) for a, b in zip(
+                got[key], trace[key])) for key in ("loss", "grad_norm")}
+        out[name] = dict(rec, cpu=trace, card=got)
+        log(f"card vs CPU[{name}, 8 x 32^2, 10 classes, replayed steps]: "
+            f"{json.dumps(rec)}; card {card_line()}")
+    return out
+
+
+def resnet_phase(torch, np, fa, pa, fo, lo, pn):
+    """Phase 17: ResNet-50 training at ImageNet width (the BASELINE
+    workload): (a) amp O2 + FusedSGD, (b) FusedLAMB + SyncBatchNorm
+    under DDP at world size 1 over NCCL, bit for bit its local-BN twin,
+    (c) the L1 cells card against CPU.  No TPU kernel lies on this path:
+    the nine kernels are checked to launch no time in it."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import launch
+    from apex_tpu_torch.testing import l1
+
+    t0 = time.perf_counter()
+    zero_counts(pa, fo, lo)
+    zero_flash_counts(fa)
+    pn.LAYER_NORM_LAUNCHES = pn.RMS_NORM_LAUNCHES = 0
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    batches = rn50_batches(torch, np, 4)
+    rec = {"card": card_line()}
+    try:
+        # (a) bench.py's recipe: cuDNN picks its fastest algorithms
+        cudnn.benchmark, cudnn.deterministic = True, False
+        tr = l1.RN50Trainer("rn50_smoke", device="cuda",
+                            num_classes=RN50_CLASSES,
+                            optimizer_kw=dict(lr=0.1))
+        _, rec["o2_sgd"] = rn50_train(torch, "RN50 O2 FusedSGD", tr,
+                                      batches)
+        del tr
+        # (b) deterministic algorithms, so that the two runs may agree in
+        # every bit
+        cudnn.benchmark, cudnn.deterministic = False, True
+        twin = l1.RN50Trainer(("O2", None, False, "lamb"), device="cuda",
+                              num_classes=RN50_CLASSES)
+        local, rec["lamb_local"] = rn50_train(
+            torch, "RN50 O2 FusedLAMB local BN (deterministic)", twin,
+            batches)
+        del twin
+        launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1,
+                                      0, backend="nccl")
+        try:
+            check(dist.get_backend() == "nccl", "an NCCL process group")
+            parallel.initialize_model_parallel(1, 1)
+            tr = l1.RN50Trainer(("O2", None, True, "lamb"), device="cuda",
+                                num_classes=RN50_CLASSES)
+            check(tr.ddp is not None and tr.model.bn_init.axis_name == "dp",
+                  "SyncBN over dp under DistributedDataParallel")
+            synced, rec["lamb_syncbn"] = rn50_train(
+                torch, "RN50 O2 FusedLAMB SyncBN + DDP at one NCCL rank "
+                "(deterministic)", tr, batches)
+            del tr
+        finally:
+            parallel.destroy_model_parallel()
+            dist.destroy_process_group()
+        check(synced == local, f"LAMB + SyncBN at one rank: the losses "
+              f"{synced} are bit for bit the local-BN twin's {local}")
+        # (c) TF32 is off for the whole script
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            rec["card_vs_cpu"] = rn50_card_vs_cpu(torch, np)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    counts = {**read_counts(pa, fo, lo), **flash_counts(fa),
+              "pallas_layer_norm": pn.LAYER_NORM_LAUNCHES,
+              "pallas_rms_norm": pn.RMS_NORM_LAUNCHES}
+    check(not any(counts.values()),
+          f"the ResNet path launches none of the nine kernels: {counts}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"resnet": rec}))
+    log(f"phase 17 (ResNet-50 training): {rec['seconds']:.1f} s")
+    return {}
+
+
 def main():
     import torch
 
@@ -5501,6 +5750,7 @@ def main():
         launches[k] += v
     for k, v in checkpoint_phase(torch, np, pa, fo, lo, prompts).items():
         launches[k] += v
+    resnet_phase(torch, np, fa, pa, fo, lo, pn)
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {

@@ -4,9 +4,11 @@ For every public name of ``apex_tpu.ops``, ``apex_tpu.serving``,
 ``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer``,
 ``apex_tpu.transformer.tensor_parallel``,
 ``apex_tpu.transformer.context_parallel``, ``apex_tpu.transformer.moe``,
-``apex_tpu.transformer.testing``, ``apex_tpu.observability`` and
-``apex_tpu.resilience`` (its ``__all__``, or else every name without a
-leading underscore), the port's package of the same place holds an object
+``apex_tpu.transformer.testing``, ``apex_tpu.observability``,
+``apex_tpu.resilience``, ``apex_tpu.optimizers``, ``apex_tpu.models``,
+``apex_tpu.utils`` and ``apex_tpu.data`` (its ``__all__``, or else every
+name without a leading underscore once its submodules are imported), the
+port's package of the same place holds an object
 of the same kind: a function stays a function, a class a class, a module a
 module, a dtype a dtype.  Names whose modules are still queued in
 ``ROADMAP.md`` section A are left out, each with its item, and so are
@@ -16,6 +18,7 @@ only shrink.
 """
 
 import importlib
+import pkgutil
 import types
 
 import numpy as np
@@ -26,7 +29,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
          "transformer.tensor_parallel", "transformer.context_parallel",
          "transformer.moe", "transformer.testing", "observability",
-         "resilience"]
+         "resilience", "optimizers", "models", "utils", "data"]
 
 # name -> the ROADMAP.md section A item that ports its module
 QUEUED = {
@@ -39,9 +42,6 @@ QUEUED = {
     "serving": {},
     "amp": {},
     "parallel": {
-        # parallel/sync_batchnorm.py and optimizers/larc.py
-        "SyncBatchNorm": "A.4", "sync_batch_norm_stats": "A.4",
-        "sync_batchnorm": "A.4", "LARC": "A.4",
         # the ZeRO pair of distributed.py
         "zero_init": "A.5", "zero_data_parallel_train_step": "A.5",
     },
@@ -63,6 +63,26 @@ QUEUED = {
         "stats_from_reduced": "A.3", "stats_partition_specs": "A.3",
     },
     "resilience": {},
+    "optimizers": {},
+    "models": {},
+    "utils": {
+        # utils/random.py, utils/timers.py and utils/flatten.py
+        "random": "A.6", "RngPolicy": "A.6", "model_parallel_rngs": "A.6",
+        "fold_in_axis": "A.6", "timers": "A.6", "Timers": "A.6",
+        "get_timers": "A.6", "flatten": "A.6",
+    },
+    "data": {
+        # the rest of data/image_folder.py, data/packed.py,
+        # data/prefetch.py, data/service.py and data/sequence.py
+        "ImageFolder": "A.4", "ImageFolderLoader": "A.4",
+        "center_crop_resize": "A.4", "random_resized_crop": "A.4",
+        "sample_crop_box": "A.4", "PackedImageDataset": "A.4",
+        "PackedLoader": "A.4", "pack_image_folder": "A.4",
+        "DevicePrefetcher": "A.4", "prefetch_to_device": "A.4",
+        "DataService": "A.4", "PackedSequenceDataset": "A.4",
+        "PackedSequenceLoader": "A.4", "pack_token_documents": "A.4",
+        "synthetic_token_documents": "A.4",
+    },
 }
 
 # name -> why eager PyTorch has no counterpart
@@ -72,12 +92,25 @@ NO_COUNTERPART = {
                           "program; the serving engine counts its FLOPs "
                           "from its shapes",
     },
+    "utils": {
+        "platform": "probes JAX backends (the TPU plugin, the CPU "
+                    "platform's device count); the port's device rule is "
+                    "apex_tpu_torch._device.resolve_device",
+        "tuning": "adopts tuned Pallas block sizes recorded for a TPU "
+                  "generation; the port's kernels tile by fixed sizes",
+    },
 }
 
 
 def _public(module):
+    """``__all__``, or every name without a leading underscore after each
+    submodule of the package is imported: a submodule becomes a name of
+    its package when anything imports it, so without that the names
+    would depend on what other tests of the worker imported first."""
     names = getattr(module, "__all__", None)
     if names is None:
+        for sub in pkgutil.iter_modules(getattr(module, "__path__", [])):
+            importlib.import_module(f"{module.__name__}.{sub.name}")
         names = [n for n in dir(module) if not n.startswith("_")]
     return sorted(names)
 
