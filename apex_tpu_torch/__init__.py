@@ -62,6 +62,13 @@ Ported so far:
   ImageNet batches (:mod:`apex_tpu_torch.data`) and the ``rn50_*`` L1
   cells (:mod:`apex_tpu_torch.testing.l1`); plain PyTorch ops, as the
   reference's are plain XLA.
+- BERT pretraining (:class:`apex_tpu_torch.transformer.testing.BertModel`
+  with the pooler; its padding rides the flash kernels as segment ids),
+  cross attention and decoder layers, the fused dense and MLP ops
+  (:mod:`apex_tpu_torch.ops.dense`, :mod:`apex_tpu_torch.ops.mlp`), the
+  contrib multihead attention (:mod:`apex_tpu_torch.contrib`), the
+  Megatron pretraining samplers (:mod:`apex_tpu_torch.transformer._data`)
+  and the harness's ``global_vars``.
 
 Every TPU kernel of the JAX package has its hand-written counterpart
 here, nine in all.  Entry points run on the CUDA device unless given
@@ -71,4 +78,4 @@ runs instead.
 
 __all__ = ["serving", "transformer", "normalization", "ops", "optimizers",
            "amp", "parallel", "resilience", "data", "testing",
-           "observability", "models", "utils"]
+           "observability", "models", "utils", "contrib"]

@@ -36,6 +36,17 @@ SwitchMLP` keeps, so they pass through every function here as they are.
 and, for LayerNorm, ``bias``) into the state dict of the port's module
 of the same name (:mod:`apex_tpu_torch.normalization`).
 
+:func:`from_flax_bert` turns a Flax ``BertModel``'s ``params`` into the
+state dict of :class:`~apex_tpu_torch.transformer.testing.BertModel`:
+the parallel linears, norms and embeddings pass through under their
+names (``layers_<i>`` becomes ``layers.<i>``), while the Flax
+``nn.Dense`` layers, the pooler's ``dense``, ``lm_head/dense`` and
+``binary_head``, store ``kernel [in, out]`` and become ``nn.Linear``
+weights ``[out, in]``, transposed.  :func:`from_flax_multihead_attn`
+does the same for :mod:`apex_tpu_torch.contrib.multihead_attn`'s
+modules, whose projections are all ``nn.Dense`` and whose ``lyr_nrm``
+keeps ``scale`` and ``bias``.
+
 :func:`from_flax_fp8_meta` turns the ``"fp8_meta"`` collection of an fp8
 Flax model (its ``{"metas": {"x", "w"}}`` of ``Fp8Meta(amax_history,
 scale)`` per layer) into the port's fp8 buffers by layer path, for
@@ -57,7 +68,8 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
 )
 
 __all__ = ["from_jax_params", "from_flax_gpt", "from_flax_gpt_cp",
-           "from_flax_norm", "from_flax_fp8_meta"]
+           "from_flax_norm", "from_flax_fp8_meta", "from_flax_bert",
+           "from_flax_multihead_attn"]
 
 
 def _tree(tree) -> dict:
@@ -151,3 +163,43 @@ def from_flax_fp8_meta(collection: Any) -> dict:
 
     walk(collection, [])
     return out
+
+
+# the Flax ``nn.Dense`` scopes of a BertModel, by their path
+_BERT_DENSE = ("language_model.pooler.dense", "lm_head.dense", "binary_head")
+
+
+def _flax_state(tree, dense) -> dict:
+    """A Flax parameter tree as a flat state dict: scope names through
+    :func:`_module_name`, and in the scopes ``dense(path)`` names,
+    ``kernel [in, out]`` as ``weight [out, in]``."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + [_module_name(str(k))])
+            return
+        scope, leaf = ".".join(path[:-1]), path[-1]
+        t = _tree(node)
+        if dense(scope) and leaf == "kernel":
+            leaf, t = "weight", t.t().contiguous()
+        out[".".join(filter(None, [scope, leaf]))] = t
+
+    walk(tree, [])
+    return out
+
+
+def from_flax_bert(params: Any) -> dict:
+    """The state dict of the port's ``BertModel`` from a Flax
+    ``BertModel``'s ``params`` tree (numpy leaves, or anything
+    ``numpy.asarray`` reads)."""
+    return _flax_state(params, lambda scope: scope in _BERT_DENSE)
+
+
+def from_flax_multihead_attn(params: Any) -> dict:
+    """The state dict of the port's ``SelfMultiheadAttn`` or
+    ``EncdecMultiheadAttn`` from the Flax module's ``params`` tree (its
+    ``in_proj`` or ``q_proj``/``kv_proj``, ``out_proj`` and, with
+    ``include_norm_add``, ``lyr_nrm``)."""
+    return _flax_state(params, lambda scope: scope.endswith("_proj"))

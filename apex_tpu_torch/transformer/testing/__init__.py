@@ -1,7 +1,6 @@
 """Model definitions of the port (counterpart of
-:mod:`apex_tpu.transformer.testing`), re-exporting the reference's names;
-the pooler and the BERT model are not ported yet (ROADMAP.md, section
-A.4)."""
+:mod:`apex_tpu.transformer.testing`), re-exporting the reference's
+names: the transformer LM and its parts, the pooler, GPT and BERT."""
 
 from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     CoreAttention,
@@ -10,6 +9,7 @@ from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
     ParallelMLP,
     ParallelTransformer,
     ParallelTransformerLayer,
+    Pooler,
     TransformerConfig,
     TransformerLanguageModel,
     parallel_lm_logits,
@@ -20,6 +20,10 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     gpt_next_token_loss,
     init_gpt_layer_stack,
 )
+from apex_tpu_torch.transformer.testing.standalone_bert import (
+    BertModel,
+    bert_extended_attention_mask,
+)
 
 __all__ = [
     "TransformerConfig",
@@ -29,10 +33,13 @@ __all__ = [
     "ParallelTransformerLayer",
     "ParallelTransformer",
     "Embedding",
+    "Pooler",
     "TransformerLanguageModel",
     "parallel_lm_logits",
     "GPTModel",
     "gpt_loss",
     "gpt_next_token_loss",
     "init_gpt_layer_stack",
+    "BertModel",
+    "bert_extended_attention_mask",
 ]

@@ -1,10 +1,11 @@
 """Standalone Megatron-style transformer language model.
 
 Port of :mod:`apex_tpu.transformer.testing.standalone_transformer_lm`:
-the configuration, the MLP, the attention (fused group-major QKV, RoPE,
-grouped-query K/V, and both cores: the default fused-softmax one and the
-flash one), the pre-LN transformer layer and stack, the embedding and
-the tied LM head.
+the configuration, the MLP, the attention (self-attention with a fused
+group-major QKV, RoPE and grouped-query K/V; cross attention over an
+encoder's output; both cores: the default fused-softmax one and the
+flash one), the pre-LN encoder and decoder layers and the stack, the
+embedding, the pooler and the tied LM head.
 Activations keep the JAX package's ``[s, b, h]`` (sequence-major) layout
 and the modules its parameter names.
 
@@ -62,8 +63,14 @@ Mixture of experts (``num_experts``): the MLP position holds a
 ``expert_axis``), whose load-balancing loss the caller adds through
 :func:`~apex_tpu_torch.transformer.moe.collect_moe_aux`.
 
-Not ported yet (ROADMAP.md, section A): cross attention and the decoder
-layer, and the pooler.
+Cross attention (``AttnType.cross_attn``, the decoder layer's
+``inter_attention``) takes its queries from the decoder stream and its
+keys and values from ``encoder_output`` and passes no segment ids, so it
+always runs the default core over ``enc_dec_mask``, as the reference's
+does.  The pooler's dense layer is a Flax ``nn.Dense`` in the reference;
+here it is a :class:`Dense`, an ``nn.Linear`` (``weight [out, in]``)
+with Flax's dtype rule, which
+:func:`apex_tpu_torch.serving.bridge.from_flax_bert` transposes.
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import divide
 __all__ = ["TransformerConfig", "ParallelMLP", "CoreAttention",
            "ParallelAttention", "ParallelTransformerLayer",
            "ParallelTransformer", "Embedding", "TransformerLanguageModel",
-           "parallel_lm_logits", "dropout"]
+           "parallel_lm_logits", "Pooler", "dropout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +225,25 @@ def _mark_sequence_parallel(module: nn.Module) -> None:
     parallelism: their gradients are summed over the tensor axis."""
     for p in module.parameters():
         p.sequence_parallel = True
+
+
+class Dense(nn.Linear):
+    """An ``nn.Linear`` (``weight [out, in]``, held in ``param_dtype``)
+    with Flax ``nn.Dense``'s dtype rule: the input and the parameters are
+    cast to ``dtype``, or with ``dtype=None`` to their promoted dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, *, dtype=None,
+                 param_dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                       self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
@@ -382,18 +408,21 @@ class ParallelAttention(nn.Module):
     With ``context_axis`` the RoPE positions are the shard's global ones
     (``axis_index(cp) * s_local + arange(s_local)``) and grouped K/V pass
     to the core compact: the context-parallel core sends the ``g``-head
-    K/V between ranks and broadcasts it locally."""
+    K/V between ranks and broadcasts it locally.
+
+    Cross attention (``attention_type=AttnType.cross_attn``): a ``query``
+    column linear on ``x`` and a ``key_value`` one (never sequence
+    parallel) on ``encoder_output [sk, b, h]``, split per local head into
+    K and V; no RoPE, no grouped K/V, no segment ids."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  attention_type: AttnType = AttnType.self_attn,
                  attn_mask_type: AttnMaskType = AttnMaskType.padding, *,
                  device=None):
         super().__init__()
-        if attention_type != AttnType.self_attn:
-            raise NotImplementedError(
-                "cross attention is not ported yet (ROADMAP.md, section A)")
         cfg = config
         self.config = cfg
+        self.attention_type = attention_type
         n, g, d = cfg.num_attention_heads, cfg.query_groups, cfg.head_dim
         self.hpg = divide(n, g)
         # this rank's heads and K/V groups
@@ -401,13 +430,22 @@ class ParallelAttention(nn.Module):
         self.g_local = divide(g, cfg.tp_world)
         kw = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, fp8=cfg.fp8,
                   device=device, **cfg.parallel_kw())
-        self.query_key_value = ColumnParallelLinear(
-            cfg.hidden_size, (n + 2 * g) * d, **kw)
+        if attention_type == AttnType.self_attn:
+            self.query_key_value = ColumnParallelLinear(
+                cfg.hidden_size, (n + 2 * g) * d, **kw)
+        else:
+            self.query = ColumnParallelLinear(cfg.hidden_size, n * d, **kw)
+            self.key_value = ColumnParallelLinear(
+                cfg.hidden_size, 2 * n * d,
+                **dict(kw, sequence_parallel=False))
         self.core_attention = CoreAttention(cfg, layer_number, attn_mask_type)
         self.dense = RowParallelLinear(n * d, cfg.hidden_size,
                                        skip_bias_add=True, **kw)
 
-    def forward(self, x, mask=None, generator=None, segment_ids=None):
+    def forward(self, x, mask=None, generator=None, segment_ids=None, *,
+                encoder_output=None):
+        if self.attention_type != AttnType.self_attn:
+            return self._cross(x, mask, generator, encoder_output)
         cfg = self.config
         d, hpg = cfg.head_dim, self.hpg
         qkv = self.query_key_value(x)
@@ -430,32 +468,47 @@ class ParallelAttention(nn.Module):
         ctx = self.core_attention(q, k, v, mask, generator, segment_ids)
         return self.dense(ctx)
 
+    def _cross(self, x, mask, generator, encoder_output):
+        d = self.config.head_dim
+        q = self.query(x)
+        kv = self.key_value(encoder_output)
+        s, b = q.shape[0], q.shape[1]
+        q = q.reshape(s, b, self.n_local, d)
+        k, v = kv.reshape(kv.shape[0], b, self.n_local, 2 * d).split(d, -1)
+        return self.dense(self.core_attention(q, k, v, mask, generator))
+
 
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block: LN -> attention -> bias-dropout-residual -> LN ->
     MLP -> bias-dropout-residual (optionally with the post-LN residual
-    source).  Encoder (self-attention) layers only.  With ``num_experts``
-    the MLP is a :class:`~apex_tpu_torch.transformer.moe.SwitchMLP` with
-    a zero bias of shape ``(1,)``; its load-balancing loss is recorded on
-    it (:func:`~apex_tpu_torch.transformer.moe.collect_moe_aux`)."""
+    source).  A decoder layer (``LayerType.decoder``) puts LN -> cross
+    attention over ``encoder_output`` and ``enc_dec_mask`` ->
+    bias-dropout-residual between the two, under the same residual rule.
+    With ``num_experts`` the MLP is a
+    :class:`~apex_tpu_torch.transformer.moe.SwitchMLP` with a zero bias of
+    shape ``(1,)``; its load-balancing loss is recorded on it
+    (:func:`~apex_tpu_torch.transformer.moe.collect_moe_aux`)."""
 
     def __init__(self, config: TransformerConfig, layer_number: int = 1,
                  layer_type: LayerType = LayerType.encoder,
                  self_attn_mask_type: AttnMaskType = AttnMaskType.padding, *,
                  device=None):
         super().__init__()
-        if layer_type != LayerType.encoder:
-            raise NotImplementedError(
-                "decoder layers (cross attention) are not ported yet "
-                "(ROADMAP.md, section A)")
         cfg = config
         self.config = cfg
+        self.layer_type = layer_type
         ln = dict(param_dtype=cfg.param_dtype, device=device)
         self.input_layernorm = FusedLayerNorm(cfg.hidden_size,
                                               cfg.layernorm_epsilon, **ln)
         self.self_attention = ParallelAttention(
             cfg, layer_number, attn_mask_type=self_attn_mask_type,
             device=device)
+        if layer_type == LayerType.decoder:
+            self.post_inter_attention_layernorm = FusedLayerNorm(
+                cfg.hidden_size, cfg.layernorm_epsilon, **ln)
+            self.inter_attention = ParallelAttention(
+                cfg, layer_number, attention_type=AttnType.cross_attn,
+                attn_mask_type=AttnMaskType.padding, device=device)
         self.post_attention_layernorm = FusedLayerNorm(
             cfg.hidden_size, cfg.layernorm_epsilon, **ln)
         if cfg.num_experts is not None:
@@ -474,10 +527,13 @@ class ParallelTransformerLayer(nn.Module):
         else:
             self.mlp = ParallelMLP(cfg, device=device)
         if cfg.sp:
-            _mark_sequence_parallel(self.input_layernorm)
-            _mark_sequence_parallel(self.post_attention_layernorm)
+            for name in ("input_layernorm", "post_inter_attention_layernorm",
+                         "post_attention_layernorm"):
+                if hasattr(self, name):
+                    _mark_sequence_parallel(getattr(self, name))
 
-    def forward(self, x, mask=None, generator=None, segment_ids=None):
+    def forward(self, x, mask=None, generator=None, segment_ids=None, *,
+                encoder_output=None, enc_dec_mask=None):
         cfg = self.config
         post = cfg.apply_residual_connection_post_layernorm
         ln1 = self.input_layernorm(x)
@@ -485,6 +541,13 @@ class ParallelTransformerLayer(nn.Module):
                                                   segment_ids)
         h = (ln1 if post else x) + dropout(attn_out + attn_bias,
                                            cfg.hidden_dropout, generator)
+        if self.layer_type == LayerType.decoder:
+            ln_cross = self.post_inter_attention_layernorm(h)
+            cross_out, cross_bias = self.inter_attention(
+                ln_cross, enc_dec_mask, generator,
+                encoder_output=encoder_output)
+            h = (ln_cross if post else h) + dropout(
+                cross_out + cross_bias, cfg.hidden_dropout, generator)
         ln2 = self.post_attention_layernorm(h)
         if cfg.num_experts is not None:
             mlp_out, _ = self.mlp(ln2)
@@ -586,22 +649,42 @@ class Embedding(nn.Module):
         return dropout(x, cfg.hidden_dropout, generator)
 
 
+class Pooler(nn.Module):
+    """Tanh pooler: ``tanh(dense(hidden[sequence_index]))``, ``hidden
+    [s, b, h]`` -> ``[b, h]`` in the compute dtype."""
+
+    def __init__(self, config: TransformerConfig, *, device=None):
+        super().__init__()
+        cfg = config
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size, dtype=cfg.dtype,
+                           param_dtype=cfg.param_dtype, device=device)
+
+    def forward(self, hidden, sequence_index: int = 0):
+        return torch.tanh(self.dense(hidden[sequence_index]))
+
+
 class TransformerLanguageModel(nn.Module):
     """Embedding + transformer stack: ``token_ids [b, s]`` -> hidden
-    ``[s, b, h]``."""
+    ``[s, b, h]``; with ``add_pooler`` ``(hidden, pooled)``, ``pooled``
+    the :class:`Pooler` at ``pooling_sequence_index``."""
 
     def __init__(self, config: TransformerConfig,
-                 self_attn_mask_type: AttnMaskType = AttnMaskType.causal, *,
-                 device=None):
+                 self_attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 add_pooler: bool = False, *, device=None):
         super().__init__()
         self.embedding = Embedding(config, device=device)
         self.encoder = ParallelTransformer(
             config, self_attn_mask_type=self_attn_mask_type, device=device)
+        self.pooler = Pooler(config, device=device) if add_pooler else None
 
     def forward(self, token_ids, position_ids=None, attention_mask=None,
-                generator=None, segment_ids=None):
+                generator=None, segment_ids=None,
+                pooling_sequence_index: int = 0):
         x = self.embedding(token_ids, position_ids, generator)
-        return self.encoder(x, attention_mask, generator, segment_ids)
+        hidden = self.encoder(x, attention_mask, generator, segment_ids)
+        if self.pooler is None:
+            return hidden
+        return hidden, self.pooler(hidden, pooling_sequence_index)
 
 
 def parallel_lm_logits(hidden, word_embeddings, config: TransformerConfig,

@@ -314,13 +314,42 @@ Phases (any failure exits non-zero; none is caught):
    fp32 within ``compare_traces``' default tolerances of the CPU step,
    bf16 within a factor ``RN50_BF16_RMS_RATIO``, either way, of the CPU's
    bf16 step's distance from the fp32 evaluation of the same weights,
-   the loss-scale series exactly.
+   the loss-scale series exactly;
+18. BERT-large pretraining (``bert_phase``): (a) ``bench.py``'s
+   ``bench_bert_large`` at its card widths (hidden 1024, 24 layers, 16
+   heads, vocabulary 30592, 512 positions, dropout off, flash
+   attention), bf16 compute over fp32 parameters, batch 8 x 512,
+   ``FusedAdam(lr=1e-4)``, the bench's loss (the fused cross entropy over
+   the ``[s * b, V]`` logits against ``tokens.T`` plus the sentence-order
+   term), seeded weights and token ids, once with the bench's all-ones
+   mask and once with per-row real lengths drawn from [128, 512]: 2
+   warm-up and 8 timed steps each and one profiled step, the losses
+   finite and falling, F1, F2 and F3 launched 24 times a step each
+   (non-causal, BERT's padding as segment ids), all on tc; step ms,
+   tokens/s (pad tokens counted), MFU (``bench.py::_lm_train_flops`` over
+   989 TFLOP/s dense bf16), busy share, device launches, resident and
+   peak GiB; (b) at the bench's CPU widths (hidden 64, 2 layers, batch 2
+   x 32, a padded mask) the fp32 card (simt) against the CPU, the bf16
+   kernels (tc) against the card's own plain versions of F1-F3 on the
+   same weights, and flash against the default core at the real
+   positions, lm and binary logits and every gradient; (c)
+   ``EncdecMultiheadAttn`` (128 queries over 512 keys, batch 8, 1024
+   channels, 16 heads, bf16, key padding with one row all padding) and
+   ``SelfMultiheadAttn`` (key padding, dropout 0.1), forward and
+   backward, kernels against plain; ``SelfMultiheadAttn`` with an
+   additive mask (no flash launch) in bf16, and card against CPU in fp32;
+   a decoder ``ParallelTransformerLayer`` at BERT-large width, card
+   against CPU in fp32; (d) F1-F3 at ``[8, 16, 512, 64]`` bf16,
+   non-causal with padding segments, timed as in phase 2 beside SDPA with
+   the equivalent boolean mask, then at ``BERT_FLASH_EDGES`` (the padded
+   tail at BERT's shape, contrib's key padding with Sq != Sk and a row of
+   all padding keys, with dropout, ragged, and in fp32).
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
 ``{"context_moe": {...}}``, a ``{"serving_tp": {...}}``, a
-``{"checkpoint": {...}}``, a ``{"resnet": {...}}`` and a
-``{"kernels": [...]}`` JSON object and
+``{"checkpoint": {...}}``, a ``{"resnet": {...}}``, a ``{"bert":
+{...}}`` and a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -334,6 +363,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
@@ -1390,27 +1420,41 @@ def check_lora_edges(torch, lo):
 # ----------------------------------------- phase 2: the flash kernels
 
 
-def flash_inputs(torch, dtype, seed, segments):
-    """q, k, v, do at the training shape; with ``segments``, 4 packed
-    documents per sequence at random boundaries."""
+def pad_segments(torch, gen, b, s, low):
+    """BERT's flash segment ids ``1 - mask`` for a padded tail: per row a
+    real length drawn from [low, s], id 0 before it and 1 after."""
+    lengths = torch.randint(low, s + 1, (b, 1), generator=gen, device="cuda")
+    return (torch.arange(s, device="cuda")[None, :] >= lengths).int()
+
+
+def flash_inputs(torch, dtype, seed, segments,
+                 shape=(TRAIN_BATCH, N_HEADS, SEQ, HEAD_DIM)):
+    """q, k, v, do at ``shape`` (the training shape); with ``segments``,
+    4 packed documents per sequence at random boundaries, or with
+    ``segments="pad"`` BERT's padded tail (real lengths from a quarter of
+    the sequence to all of it)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (TRAIN_BATCH, N_HEADS, SEQ, HEAD_DIM)
+    b, _, s, _ = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     seg = None
-    if segments:
-        cuts = torch.sort(torch.randint(1, SEQ, (TRAIN_BATCH, 3),
-                                        generator=gen, device="cuda")).values
-        pos = torch.arange(SEQ, device="cuda")
+    if segments == "pad":
+        seg = pad_segments(torch, gen, b, s, s // 4)
+    elif segments:
+        cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
+                                        device="cuda")).values
+        pos = torch.arange(s, device="cuda")
         seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1).int()
     return q, k, v, do, seg
 
 
-def causal_mask(torch, seg):
+def attention_mask(torch, seg, s, causal=True):
     """The [b or 1, 1, s, s] boolean mask the kernels apply (True =
     attend)."""
-    pos = torch.arange(SEQ, device="cuda")
-    mask = (pos[:, None] >= pos[None, :])[None, None]
+    pos = torch.arange(s, device="cuda")
+    mask = torch.ones((1, 1, s, s), dtype=torch.bool, device="cuda")
+    if causal:
+        mask = mask & (pos[:, None] >= pos[None, :])[None, None]
     if seg is not None:
         mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
     return mask
@@ -1554,11 +1598,14 @@ FLASH_EDGES = (
 )
 
 
-def check_flash_edges(torch, fa):
+def check_flash_edges(torch, fa, edges=FLASH_EDGES, label="edge"):
     """F1, F2 and F3 against their plain versions at the shapes of
-    ``FLASH_EDGES`` (correctness only, no timing); a bf16 case runs F2/F3
-    on both routes."""
-    for i, (b, h, sq, sk, d, kind, case) in enumerate(FLASH_EDGES):
+    ``edges`` (correctness only, no timing); a bf16 case runs F2/F3 on
+    both routes.  A case's ``segments`` is ``True`` (three equal
+    segments), ``"pad"`` (BERT's padded tail, the same ids for queries
+    and keys) or ``"keypad"`` (contrib's key padding: every query id 0,
+    the keys' 1 after a real length, the last batch row all padding)."""
+    for i, (b, h, sq, sk, d, kind, case) in enumerate(edges):
         kw = dict(case)
         dkv_exact = kw.pop("dkv_exact", True)
         dtype = torch.float32 if kind == "fp32" else torch.bfloat16
@@ -1568,7 +1615,14 @@ def check_flash_edges(torch, fa):
         k, v = (torch.randn((b, h, sk, d), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
         seg_q = seg_k = seed = None
-        if kw.pop("segments", False):
+        segments = kw.pop("segments", False)
+        if segments == "pad":
+            seg_q = seg_k = pad_segments(torch, gen, b, sq, 1)
+        elif segments == "keypad":
+            seg_q = torch.zeros((b, sq), dtype=torch.int32, device="cuda")
+            seg_k = pad_segments(torch, gen, b, sk, 1)
+            seg_k[-1] = 1
+        elif segments:
             seg_q = (torch.arange(sq, device="cuda") * 3 // sq).repeat(b, 1).int()
             seg_k = (torch.arange(sk, device="cuda") * 3 // sk).repeat(b, 1).int()
         if kw.get("dropout_rate"):
@@ -1578,12 +1632,12 @@ def check_flash_edges(torch, fa):
         route = fa.fwd_route(q, k, v)
         check(route == ("tc" if kind == "bf16" else "simt")
               and fa.bwd_route(q, k, v, do) == route,
-              f"flash edge {i}: {kind} takes the {route} route")
+              f"flash {label} {i}: {kind} takes the {route} route")
         before = fwd_route_counts(fa)
         with torch.no_grad():
             out, lse = fa.flash_attention_with_lse(q, k, v, **skw)
             check_one_launch(fwd_route_counts(fa), before, route,
-                             f"flash edge {i}")
+                             f"flash {label} {i}")
             ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, seg_q, seg_k,
                                                   seed, **kw)
             delta = (do.float() * ref_out.float()).sum(-1)
@@ -1592,7 +1646,7 @@ def check_flash_edges(torch, fa):
             dq = fa.dq_chunk(*args, **skw)
             dk, dv = fa.dkv_chunk(*args, **skw)
             check_bwd_launches(bwd_route_counts(fa), before, route,
-                               f"flash edge {i}")
+                               f"flash {label} {i}")
             ref_dq = fa.flash_dq_plain(*args, seg_q, seg_k, seed, **kw)
             ref_dk, ref_dv = fa.flash_dkv_plain(*args, seg_q, seg_k, seed,
                                                 **kw)
@@ -1606,13 +1660,19 @@ def check_flash_edges(torch, fa):
                 grads["simt route"] = (fa._dq(*bargs, route="simt", **bkw),
                                        *fa._dkv(*bargs, route="simt", **bkw))
         torch.cuda.synchronize()
-        label = f"edge [b{b} h{h} sq{sq} sk{sk} d{d} {kind} {case}]"
+        what = f"{label} [b{b} h{h} sq{sq} sk{sk} d{d} {kind} {case}]"
         refs = (ref_out, ref_lse, ref_dq, ref_dk, ref_dv)
-        flash_close(torch, f"{label} ({route} route)", (out, lse, dq, dk, dv),
+        flash_close(torch, f"{what} ({route} route)", (out, lse, dq, dk, dv),
                     refs, dkv_exact, exact)
         if "simt route" in grads:
-            flash_close(torch, f"{label} (F2/F3 simt route)",
+            flash_close(torch, f"{what} (F2/F3 simt route)",
                         (out, lse, *grads["simt route"]), refs, dkv_exact)
+        if segments == "keypad":
+            check(not out[-1].any() and not ref_out[-1].any()
+                  and all(not g[0][-1].any() for g in grads.values())
+                  and bool((lse[-1] == fa.NEG_INF).all()),
+                  f"{what}: the all-padding key row gives every query "
+                  f"output 0, lse -1e30 and dq 0, as plain")
         blind = kw.get("kv_offset", 0) - kw.get("q_offset", 0)
         if kw.get("causal") and blind > 0:
             check(not out[:, :, :blind].any()
@@ -1638,15 +1698,16 @@ def check_bwd_launches(now, before, route, what):
 
 
 def check_flash(torch, F, fa, timer, label, dtype, segments=False,
-                dropout=0.0):
+                dropout=0.0, shape=(TRAIN_BATCH, N_HEADS, SEQ, HEAD_DIM),
+                causal=True):
     """F1, F2 and F3 against their plain versions on the card; returns
     each kernel's record.  F2/F3 take the plain forward's lse and delta,
     so each kernel is held alone.  A bf16 case also holds and times the
     simt route of each on the same operands."""
-    q, k, v, do, seg = flash_inputs(torch, dtype, 11, segments)
+    q, k, v, do, seg = flash_inputs(torch, dtype, 11, segments, shape)
     seed = (torch.tensor([1234], dtype=torch.int32, device="cuda")
             if dropout else None)
-    kw = dict(causal=True, dropout_rate=dropout)
+    kw = dict(causal=causal, dropout_rate=dropout)
     skw = dict(kw, segment_ids_q=seg, segment_ids_kv=seg, dropout_seed=seed)
     bkw = dict(kw, scale=None, q_offset=0, kv_offset=0)
     with torch.no_grad():
@@ -1699,17 +1760,19 @@ def check_flash(torch, F, fa, timer, label, dtype, segments=False,
 
     # yardstick: SDPA with the same mask (not with dropout: its mask is
     # another function), forward and backward (dq, dk, dv together)
+    b, h, s, _ = shape
     library = library_bwd = None
     if not dropout:
-        mask = causal_mask(torch, seg) if segments else None
-        sdpa_kw = (dict(attn_mask=mask) if segments else dict(is_causal=True))
+        mask = attention_mask(torch, seg, s, causal) if segments else None
+        sdpa_kw = (dict(attn_mask=mask) if segments
+                   else dict(is_causal=causal))
         library = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)  # noqa: E731
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
         library_bwd = lambda: torch.autograd.grad(  # noqa: E731
             sdpa_out, leaves, do, retain_graph=True)
-    pairs = int(causal_mask(torch, seg).sum()) * N_HEADS * (
-        1 if segments else TRAIN_BATCH)
+    pairs = int(attention_mask(torch, seg, s, causal).sum()) * h * (
+        1 if segments else b)
     seg_bytes = 2 * seg.numel() * 4 if segments else 0
     kind = "fp32" if dtype == torch.float32 else "bf16"
     costs = flash_costs(q, seg_bytes, pairs)
@@ -4778,12 +4841,20 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted, per_round):
                          heartbeat_timeout_s=FLEET_SILENT_S,
                          link_degraded_rtt_s=FLEET_SILENT_S,
                          replica_queue_limit=B)
-    dropped = []
+    dropped, cutters = [], []
 
     def drop_once(live):
         if proxy is not None and not dropped and sum(
                 len(r.output_tokens) for r in live) >= 2 * B:
-            proxy.drop_connections()
+            # the proxy cuts the link at the next frame that crosses it and
+            # gives up after 5 s; this thread drives the router, so the cut
+            # waits in another one: the router's pings keep crossing (once
+            # its requests have migrated the prefill replica may send
+            # nothing for longer, and a card run saw the link stay whole)
+            cutter = threading.Thread(target=proxy.drop_connections,
+                                      daemon=True)
+            cutter.start()
+            cutters.append(cutter)
             dropped.append(time.monotonic())
     try:
         # rounds of at most B requests: the decode replica has B slots,
@@ -4821,6 +4892,9 @@ def fleet_socket_part(torch, np, prompts, dtype, ref, counted, per_round):
         n_out = {m[1]: m[2]["n_out"] for m in metas}
         left = sorted(FLEET_NEW - v for v in n_out.values())
         unmigrated = sorted(r.rid for r in reqs if r.rid not in n_out)
+        for cutter in cutters:
+            cutter.join(10.0)
+            check(not cutter.is_alive(), "the proxy's cut returned")
         if proxy is not None:
             check(bool(dropped) and snap.get("fleet/reconnects", 0) >= 1
                   and not snap.get("fleet/failovers"),
@@ -5580,6 +5654,457 @@ def resnet_phase(torch, np, fa, pa, fo, lo, pn):
     return {}
 
 
+# ------------------------------------- phase 18: BERT-large pretraining
+
+BERT_BATCH, BERT_SEQ = 8, 512         # bench.py::bench_bert_large's step
+BERT_MIN_LEN = 128                    # the padded mask's shortest real row
+# bf16 kernels against the card's own plain versions on the same operands:
+# the RMS of the difference over the plain result's RMS (the kernels' out
+# differs from plain by a few bf16 steps in single elements, see
+# flash_close; carried through the model it stays below this)
+BERT_BF16_RMS = 2e-2
+# fp32 card against CPU, and flash against the default core: the largest
+# difference over the largest element of the tensor (TF32 off; the GEMMs
+# sum in other orders)
+BERT_FP32_REL = 1e-4
+# the F1-F3 edges of BERT's and contrib's modes: the padded tail at BERT's
+# shape, contrib's Sq != Sk key padding with a row of all padding keys
+# (its shape and a ragged one), dropout over key padding, and fp32 (simt)
+BERT_FLASH_EDGES = (
+    (BERT_BATCH, 16, BERT_SEQ, BERT_SEQ, 64, "bf16",
+     dict(causal=False, segments="pad")),
+    (BERT_BATCH, 16, 128, BERT_SEQ, 64, "bf16",
+     dict(causal=False, segments="keypad")),
+    (2, 4, 100, 300, 64, "bf16",
+     dict(causal=False, segments="keypad", dropout_rate=0.1)),
+    (2, 2, 70, 37, 64, "bf16", dict(causal=False, segments="keypad")),
+    (2, 4, 130, 130, 64, "fp32",
+     dict(causal=False, segments="pad", dropout_rate=0.1)),
+    (2, 4, 77, 200, 64, "fp32", dict(causal=False, segments="keypad")),
+)
+
+
+def bert_config(torch, large, dtype, **kw):
+    """``bench.py::bench_bert_large``'s configuration (``large``: its
+    card widths, else its CPU widths), flash on, dropout off."""
+    from apex_tpu_torch.transformer.testing import TransformerConfig
+
+    widths = (dict(hidden_size=1024, num_layers=24, num_attention_heads=16,
+                   padded_vocab_size=30592, max_position_embeddings=512)
+              if large else
+              dict(hidden_size=64, num_layers=2, num_attention_heads=4,
+                   padded_vocab_size=512, max_position_embeddings=64))
+    return TransformerConfig(**{
+        **widths, "hidden_dropout": 0.0, "attention_dropout": 0.0,
+        "tensor_axis": None, "use_flash_attention": True, "dtype": dtype,
+        **kw})
+
+
+def bert_loss(torch, lm, binary, tokens):
+    """``bench.py::bench_bert_large``'s loss: the mean fused cross entropy
+    over the ``[s * b, V]`` logits in their own order against
+    ``tokens.T`` (no padding label, half logits kept half, fp32 losses),
+    plus the sentence-order term ``-log_softmax(binary)[:, 0]``."""
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+
+    ce = softmax_cross_entropy_loss(lm.reshape(-1, lm.shape[-1]),
+                                    tokens.t().reshape(-1), padding_idx=-1,
+                                    half_to_float=True)
+    return ce.mean() + (-torch.log_softmax(binary, dim=-1)[:, 0]).mean()
+
+
+def bert_inputs(torch, cfg, batch, seq, padded, seed, device="cuda"):
+    """Token ids from ``seed`` and the padding mask: all ones (the
+    bench's), or per row a real length drawn from [seq / 4, seq] (BERT-
+    large: [``BERT_MIN_LEN``, 512])."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg.padded_vocab_size, (batch, seq),
+                           generator=gen, device=device)
+    if not padded:
+        return tokens, torch.ones((batch, seq), dtype=torch.int32,
+                                  device=device)
+    low = min(BERT_MIN_LEN, seq // 4)
+    lengths = torch.randint(low, seq + 1, (batch, 1), generator=gen,
+                            device=device)
+    mask = (torch.arange(seq, device=device)[None, :] < lengths).int()
+    return tokens, mask
+
+
+def lm_train_flops(cfg, n_params, batch, seq):
+    """``bench.py::_lm_train_flops``: 6 N tokens + 12 L h B S^2."""
+    return (6.0 * n_params * batch * seq
+            + 12.0 * cfg.num_layers * cfg.hidden_size * batch * seq * seq)
+
+
+def bert_train(torch, label, cfg, padded):
+    """``WARMUP_STEPS`` + ``TIMED_STEPS`` FusedAdam steps of BERT-large
+    from seeded weights on one batch, then one profiled step; returns the
+    losses and the record."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    model = BertModel(cfg, device="cuda", seed=0)
+    opt = FusedAdam(model.parameters(), lr=1e-4)
+    tokens, mask = bert_inputs(torch, cfg, BERT_BATCH, BERT_SEQ, padded, 5)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        lm, binary = model(tokens, mask)
+        loss = bert_loss(torch, lm, binary, tokens)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: the losses are finite: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss falls: {losses}")
+    prof = profile_step(torch, label, step)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = lm_train_flops(cfg, n_params, BERT_BATCH, BERT_SEQ)
+    card = card_line()
+    tokens_per_s = BERT_BATCH * BERT_SEQ / dt
+    rec = {"step_ms": dt * 1e3, "tokens_per_s": tokens_per_s,
+           "parameters": n_params, "flops_per_step": flops,
+           "mfu": flops / dt / PEAK_OPS["bf16"],
+           "mfu_rule": "bench.py::_lm_train_flops over 989e12 (H100 SXM "
+                       "dense bf16)",
+           "real_tokens": int(mask.sum()), "losses": losses,
+           "peak_gib": peak / 2**30, "profile": prof,
+           "busy_share": prof["busy_ms"] / prof["wall_ms"], "card": card}
+    log(f"train[{label}, {n_params} parameters, batch {BERT_BATCH} x "
+        f"{BERT_SEQ}, {rec['real_tokens']} real tokens, bf16 compute]: step "
+        f"{dt * 1e3:.3f} ms = {tokens_per_s:.1f} tokens/s (pad tokens "
+        f"counted) over {TIMED_STEPS} timed steps; MFU {rec['mfu']:.4f} "
+        f"({flops:.4g} FLOP a step over 989 TFLOP/s bf16); peak "
+        f"{peak / 2**30:.2f} GiB, profiled step resident "
+        f"{prof['resident_gib']:.2f} GiB, busy {prof['busy_ms']:.2f} of "
+        f"{prof['wall_ms']:.2f} ms ({rec['busy_share']:.3f}), "
+        f"{prof['device_launches']} device launches; loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} ({losses}); card {card}")
+    del model, opt
+    return rec
+
+
+class plain_flash:
+    """F1-F3 through their plain versions on the card's tensors (the
+    wrappers run them only for CPU tensors), the yardstick for a module's
+    kernel run on the same operands; nothing is launched or counted."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        fa = self.fa
+        self.saved = fa._fwd, fa._dq, fa._dkv
+
+        def strip(kw):
+            return {k: v for k, v in kw.items() if k != "route"}
+
+        fa._fwd = lambda *a, **kw: fa.flash_fwd_plain(*a, **strip(kw))
+        fa._dq = lambda *a, **kw: fa.flash_dq_plain(*a, **strip(kw))
+        fa._dkv = lambda *a, **kw: fa.flash_dkv_plain(*a, **strip(kw))
+
+    def __exit__(self, *exc):
+        self.fa._fwd, self.fa._dq, self.fa._dkv = self.saved
+
+
+def forward_backward(torch, module, args, kwargs, g, seed=None):
+    """``module(*args, **kwargs)`` and its gradients under the cotangent
+    ``g`` (``out.backward(g)``, or for a BERT model, ``args`` its tokens
+    and mask, the bench's loss): ``{"out": ..., "d<i>": input
+    gradients, name: parameter gradients}``, detached.  ``seed`` draws
+    a dropout generator on the card."""
+    module.zero_grad(set_to_none=True)
+    def floating(a):
+        return a is not None and a.is_floating_point()
+
+    leaves = [a.detach().requires_grad_() if floating(a) else a for a in args]
+    if seed is not None:
+        kwargs = dict(kwargs, generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+    out = module(*leaves, **kwargs)
+    res = {}
+    if isinstance(out, tuple):                   # BERT: the bench's loss
+        res["lm"], res["binary"] = (o.detach() for o in out)
+        bert_loss(torch, *out, args[0]).backward()
+    else:
+        res["out"] = out.detach()
+        out.backward(g)
+    for i, t in enumerate(leaves):
+        if floating(t):
+            res[f"d{i}"] = t.grad
+    res.update({n: p.grad for n, p in module.named_parameters()})
+    return res
+
+
+def close_rel(torch, what, got, want, limit, real=None):
+    """Each tensor's largest difference over its largest element, within
+    ``limit`` (the LM logits at the ``real`` positions only); returns the
+    largest."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].to(w.device).float()
+        w = w.float()
+        if name == "lm" and real is not None:
+            g, w = g * real, w * real
+        err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        check(err <= limit, f"{what}: {name} within {limit:g} of the largest "
+              f"element ({err:.3g})")
+        worst = max(worst, err)
+    log(f"{what}: every tensor within {worst:.3g} of its largest element "
+        f"(limit {limit:g})")
+    return worst
+
+
+def close_rms(torch, what, got, want, real=None):
+    """Each tensor's RMS of the difference over its RMS, within
+    ``BERT_BF16_RMS`` (the LM logits at the ``real`` positions only);
+    returns the largest."""
+    worst = 0.0
+    for name, w in want.items():
+        g, w = got[name].float(), w.float()
+        if name == "lm" and real is not None:
+            g, w = g * real, w * real
+        check(bool(torch.isfinite(g).all()), f"{what}: {name} is finite")
+        rms = w.square().mean().sqrt().clamp_min(1e-30)
+        err = ((g - w).square().mean().sqrt() / rms).item()
+        check(err <= BERT_BF16_RMS, f"{what}: {name}'s RMS difference "
+              f"{err:.3g} of its RMS (limit {BERT_BF16_RMS:g})")
+        worst = max(worst, err)
+    log(f"{what}: every tensor's RMS difference within {worst:.3g} of its "
+        f"RMS (limit {BERT_BF16_RMS:g})")
+    return worst
+
+
+def check_routes(fa, want, what):
+    """The per-route launches of F1, F2 and F3 since the counts were
+    zeroed are ``want`` (``{"tc": (F1, F2, F3), "simt": ...}``)."""
+    routes = flash_route_counts(fa)
+    check(routes == want, f"{what}: F1/F2/F3 launches per route {routes}, "
+          f"want {want}")
+
+
+def bert_card_vs_cpu(torch, fa):
+    """(b) at ``bench_bert_large``'s CPU widths with a padded mask: the
+    card in fp32 (simt) against the CPU, the bf16 kernels (tc) against
+    the card's plain versions, and flash against the default core."""
+    from apex_tpu_torch.transformer.testing import BertModel
+
+    out = {}
+    cfg = bert_config(torch, False, torch.float32)
+    tokens, mask = bert_inputs(torch, cfg, 2, 32, True, 8, device="cpu")
+    real = mask.t().bool()[:, :, None]
+    cpu = BertModel(cfg, device="cpu", seed=7)
+    state = cpu.state_dict()
+
+    def card_model(c):
+        m = BertModel(c, device="cuda", seed=None)
+        m.load_state_dict(state)
+        return m
+
+    args = (tokens.cuda(), mask.cuda())
+    want = forward_backward(torch, cpu, (tokens, mask), {}, None)
+    zero_flash_counts(fa)
+    got = forward_backward(torch, card_model(cfg), args, {}, None)
+    check_routes(fa, {"tc": (0, 0, 0), "simt": (2, 2, 2)}, "BERT fp32 card")
+    out["fp32_card_vs_cpu"] = close_rel(
+        torch, "BERT card vs CPU (fp32, simt)", got, want, BERT_FP32_REL,
+        real)
+
+    bf16 = card_model(bert_config(torch, False, torch.bfloat16))
+    zero_flash_counts(fa)
+    got = forward_backward(torch, bf16, args, {}, None)
+    check_routes(fa, {"tc": (2, 2, 2), "simt": (0, 0, 0)}, "BERT bf16 card")
+    with plain_flash(fa):
+        want = forward_backward(torch, bf16, args, {}, None)
+    check_routes(fa, {"tc": (2, 2, 2), "simt": (0, 0, 0)},
+                 "BERT bf16 plain versions (no launch)")
+    out["bf16_kernels_vs_plain"] = close_rms(
+        torch, "BERT bf16 kernels (tc) vs the card's plain versions", got,
+        want, real.cuda())
+
+    flat = {}
+    for flash in (True, False):
+        m = card_model(bert_config(torch, False, torch.float32,
+                                   use_flash_attention=flash,
+                                   apply_query_key_layer_scaling=False))
+        with torch.no_grad():
+            flat[flash] = dict(zip(("lm", "binary"), m(*args)))
+    out["flash_vs_default_core"] = close_rel(
+        torch, "BERT flash vs the default core (fp32, real positions)",
+        flat[True], flat[False], BERT_FP32_REL, real.cuda())
+    pad_gap = ((flat[True]["lm"] - flat[False]["lm"]).abs()
+               * ~real.cuda()).max().item()
+    check(pad_gap > 1e-3, f"the pad rows differ between the cores, as "
+          f"their rule says ({pad_gap:.3g})")
+    return out
+
+
+def seeded_(torch, module, seed):
+    """Normal(0, 0.02) weights, 1 +- 0.1 norm scales, small biases from
+    ``seed`` (drawn on the CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            x = torch.randn(p.shape, generator=gen)
+            p.copy_(1 + 0.1 * x if name.endswith("scale")
+                    else 0.02 * x if p.dim() > 1 else 0.01 * x)
+    return module
+
+
+def contrib_decoder_checks(torch, fa):
+    """(c) contrib's modules at BERT-large width in bf16, kernels (tc)
+    against the card's plain versions, the additive mask with no flash
+    launch, and a decoder layer card against CPU in fp32."""
+    from apex_tpu_torch.contrib import EncdecMultiheadAttn, SelfMultiheadAttn
+    from apex_tpu_torch.ops.softmax import AttnMaskType
+    from apex_tpu_torch.transformer.enums import LayerType
+    from apex_tpu_torch.transformer.testing import ParallelTransformerLayer
+
+    bf16, out = torch.bfloat16, {}
+    c, heads, b = 1024, 16, BERT_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def kernels_vs_plain(label, m, args, kw, g, seed=None, zero_rows=False):
+        zero_flash_counts(fa)
+        got = forward_backward(torch, m, args, kw, g, seed)
+        check_routes(fa, {"tc": (1, 1, 1), "simt": (0, 0, 0)}, label)
+        with plain_flash(fa):
+            want = forward_backward(torch, m, args, kw, g, seed)
+        if zero_rows:            # the last batch row's keys are all padding
+            check(not got["out"][:, -1].any() and not want["out"][:, -1].any(),
+                  f"{label}: the all-padding row's output is 0")
+        return close_rms(torch, f"{label} kernels (tc) vs plain", got, want)
+
+    key_pad = pad_segments(torch, gen, b, BERT_SEQ, 1)
+    key_pad[-1] = 1
+    m = EncdecMultiheadAttn(c, heads, device="cuda", seed=1).to(bf16)
+    out["encdec_key_padding"] = kernels_vs_plain(
+        f"EncdecMultiheadAttn [Tq 128, Tk {BERT_SEQ}, B {b}, C {c}, {heads} "
+        f"heads, bf16, key padding, one row all padding]", m,
+        (randn(128, b, c), randn(BERT_SEQ, b, c)),
+        dict(key_padding_mask=key_pad), randn(128, b, c), zero_rows=True)
+    m = SelfMultiheadAttn(c, heads, dropout=0.1, device="cuda",
+                          seed=2).to(bf16)
+    out["self_key_padding_dropout"] = kernels_vs_plain(
+        f"SelfMultiheadAttn [T {BERT_SEQ}, B {b}, C {c}, key padding, "
+        f"dropout 0.1]", m, (randn(BERT_SEQ, b, c),),
+        dict(key_padding_mask=key_pad), randn(BERT_SEQ, b, c), seed=9)
+
+    # the additive mask takes the plain softmax core: no flash launch; fp32
+    # card against CPU at a small size
+    causal = torch.triu(torch.full((BERT_SEQ, BERT_SEQ), -1e9,
+                                   device="cuda"), 1)[None, None]
+    m = SelfMultiheadAttn(c, heads, mask_additive=True, device="cuda",
+                          seed=3).to(bf16)
+    zero_flash_counts(fa)
+    res = forward_backward(torch, m, (randn(BERT_SEQ, b, c),),
+                           dict(attn_mask=causal.to(bf16)),
+                           randn(BERT_SEQ, b, c))
+    check(all(bool(torch.isfinite(t.float()).all()) for t in res.values()),
+          "SelfMultiheadAttn additive mask: finite output and gradients")
+    check_routes(fa, {"tc": (0, 0, 0), "simt": (0, 0, 0)},
+                 "SelfMultiheadAttn additive mask (no flash launch)")
+    small = torch.randn((64, 2, c), generator=torch.Generator().manual_seed(4))
+    g = torch.randn((64, 2, c), generator=torch.Generator().manual_seed(5))
+    mask = torch.triu(torch.full((64, 64), -1e9), 1)[None, None]
+    cpu = SelfMultiheadAttn(c, heads, mask_additive=True, device="cpu",
+                            seed=3)
+    card = SelfMultiheadAttn(c, heads, mask_additive=True, device="cuda",
+                             seed=3)
+    out["self_additive_card_vs_cpu"] = close_rel(
+        torch, "SelfMultiheadAttn additive mask, card vs CPU (fp32)",
+        forward_backward(torch, card, (small.cuda(),),
+                         dict(attn_mask=mask.cuda()), g.cuda()),
+        forward_backward(torch, cpu, (small,), dict(attn_mask=mask), g),
+        BERT_FP32_REL)
+
+    # a decoder layer at BERT-large width, card against CPU in fp32: the
+    # causal self attention through flash (simt), the cross attention
+    # through the default core over the encoder's padding
+    cfg = bert_config(torch, True, torch.float32)
+    c, heads = cfg.hidden_size, cfg.num_attention_heads
+    kw = dict(layer_type=LayerType.decoder,
+              self_attn_mask_type=AttnMaskType.causal)
+    cpu = seeded_(torch, ParallelTransformerLayer(cfg, 2, device="cpu", **kw),
+                  6)
+    card = ParallelTransformerLayer(cfg, 2, device="cuda", **kw)
+    card.load_state_dict(cpu.state_dict())
+    cg = torch.Generator().manual_seed(7)
+    x, enc, g = (torch.randn(shape, generator=cg) for shape in (
+        (128, 2, c), (256, 2, c), (128, 2, c)))
+    enc_dec = torch.zeros((2, 1, 128, 256), dtype=torch.bool)
+    enc_dec[1, :, :, 200:] = True
+    zero_flash_counts(fa)
+    got = forward_backward(torch, card, (x.cuda(), None),
+                           dict(encoder_output=enc.cuda(),
+                                enc_dec_mask=enc_dec.cuda()), g.cuda())
+    check_routes(fa, {"tc": (0, 0, 0), "simt": (1, 1, 1)},
+                 "decoder layer (fp32 card)")
+    want = forward_backward(torch, cpu, (x, None),
+                            dict(encoder_output=enc, enc_dec_mask=enc_dec), g)
+    out["decoder_card_vs_cpu"] = close_rel(
+        torch, f"decoder ParallelTransformerLayer [hidden {c}, {heads} heads, "
+        f"128 over 256 encoder tokens, batch 2], card vs CPU (fp32)", got,
+        want, BERT_FP32_REL)
+    return out
+
+
+def bert_phase(torch, F, fa, timer):
+    """Phase 18: BERT-large pretraining at ``bench_bert_large``'s width
+    with the bench's all-ones mask and a padded one (F1-F3 non-causal over
+    padding segments, 24 launches each a step, all tc), then (b) card
+    against CPU, (c) contrib's modules and a decoder layer, (d) F1-F3 at
+    BERT's shape timed beside SDPA with the same mask, and the F1-F3
+    edges of the new modes.  Returns the main path's launches and the
+    kernels' records."""
+    t0 = time.perf_counter()
+    cfg = bert_config(torch, True, torch.bfloat16)
+    rec = {"card": card_line()}
+    zero_flash_counts(fa)
+    for name, padded in (("ones_mask", False), ("padded_mask", True)):
+        rec[name] = bert_train(
+            torch, f"BERT-large {name.replace('_', ' ')}", cfg, padded)
+    counts = flash_counts(fa)
+    steps = 2 * (WARMUP_STEPS + TIMED_STEPS + 1)    # and the profiled steps
+    n = cfg.num_layers * steps
+    check(counts == {"flash_fwd": n, "flash_dq": n, "flash_dkv": n},
+          f"BERT-large: F1/F2/F3 launched {cfg.num_layers} times a step: "
+          f"{counts}")
+    check_routes(fa, {"tc": (n, n, n), "simt": (0, 0, 0)},
+                 "BERT-large: every F1-F3 launch on tc")
+    rec["launches"] = counts
+    rec["card_vs_cpu"] = bert_card_vs_cpu(torch, fa)
+    rec["contrib_decoder"] = contrib_decoder_checks(torch, fa)
+    shape = (BERT_BATCH, 16, BERT_SEQ, 64)
+    recs = {}
+    for name, r in check_flash(torch, F, fa, timer, "bf16 bert",
+                               torch.bfloat16, segments="pad", shape=shape,
+                               causal=False).items():
+        recs[(name, "bf16 bert")] = r
+        log(f"kernel {name}[bf16, b{BERT_BATCH} h16 s{BERT_SEQ} d64, "
+            f"non-causal, BERT padding segments]: {json.dumps(r)}")
+    check_flash_edges(torch, fa, BERT_FLASH_EDGES, "bert edge")
+    rec["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"bert": rec}))
+    log(f"phase 18 (BERT-large pretraining, contrib, decoder): "
+        f"{rec['seconds']:.1f} s")
+    return counts, recs
+
+
 def main():
     import torch
 
@@ -5751,6 +6276,10 @@ def main():
     for k, v in checkpoint_phase(torch, np, pa, fo, lo, prompts).items():
         launches[k] += v
     resnet_phase(torch, np, fa, pa, fo, lo, pn)
+    counts, recs = bert_phase(torch, F, fa, timer)
+    for k, v in counts.items():
+        launches[k] += v
+    results.update(recs)
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {
@@ -5785,6 +6314,8 @@ def main():
                if k != "err_over_rms"}
         if name == "paged_prefill_attention":      # and at the verify width
             rec["verify"] = results[(name, "bf16 verify")]
+        if name.startswith("flash_"):              # and at BERT's shape
+            rec["bert"] = results[(name, "bf16 bert")]
         if name == "paged_attention_decode":       # and per route
             rec["launches_by_route"] = {
                 r: launches[f"{name}/{r}"] for r in ("split", "simt")}

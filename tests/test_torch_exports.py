@@ -4,9 +4,10 @@ For every public name of ``apex_tpu.ops``, ``apex_tpu.serving``,
 ``apex_tpu.amp``, ``apex_tpu.parallel``, ``apex_tpu.transformer``,
 ``apex_tpu.transformer.tensor_parallel``,
 ``apex_tpu.transformer.context_parallel``, ``apex_tpu.transformer.moe``,
-``apex_tpu.transformer.testing``, ``apex_tpu.observability``,
-``apex_tpu.resilience``, ``apex_tpu.optimizers``, ``apex_tpu.models``,
-``apex_tpu.utils`` and ``apex_tpu.data`` (its ``__all__``, or else every
+``apex_tpu.transformer.testing``, ``apex_tpu.transformer._data``,
+``apex_tpu.observability``, ``apex_tpu.resilience``,
+``apex_tpu.optimizers``, ``apex_tpu.models``, ``apex_tpu.utils``,
+``apex_tpu.data`` and ``apex_tpu.contrib`` (its ``__all__``, or else every
 name without a leading underscore once its submodules are imported), the
 port's package of the same place holds an object
 of the same kind: a function stays a function, a class a class, a module a
@@ -28,17 +29,13 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = ["ops", "serving", "amp", "parallel", "transformer",
          "transformer.tensor_parallel", "transformer.context_parallel",
-         "transformer.moe", "transformer.testing", "observability",
-         "resilience", "optimizers", "models", "utils", "data"]
+         "transformer.moe", "transformer.testing", "transformer._data",
+         "observability", "resilience", "optimizers", "models", "utils",
+         "data", "contrib"]
 
 # name -> the ROADMAP.md section A item that ports its module
 QUEUED = {
-    "ops": {
-        # ops/dense.py and ops/mlp.py
-        "dense": "A.4", "FusedDense": "A.4", "FusedDenseGeluDense": "A.4",
-        "fused_dense": "A.4", "fused_dense_gelu_dense": "A.4",
-        "mlp": "A.4", "MLP": "A.4", "mlp_forward": "A.4",
-    },
+    "ops": {},
     "serving": {},
     "amp": {},
     "parallel": {
@@ -49,11 +46,8 @@ QUEUED = {
     "transformer.tensor_parallel": {},
     "transformer.context_parallel": {},
     "transformer.moe": {},
-    "transformer.testing": {
-        # standalone_transformer_lm.py's pooler and standalone_bert.py
-        "Pooler": "A.4", "BertModel": "A.4",
-        "bert_extended_attention_mask": "A.4",
-    },
+    "transformer.testing": {},
+    "transformer._data": {},
     "observability": {
         # observability/trainstats.py
         "TrainStats": "A.3", "PartialTrainStats": "A.3",
@@ -82,6 +76,14 @@ QUEUED = {
         "DataService": "A.4", "PackedSequenceDataset": "A.4",
         "PackedSequenceLoader": "A.4", "pack_token_documents": "A.4",
         "synthetic_token_documents": "A.4",
+    },
+    "contrib": {
+        # contrib/optimizers (ZeRO), and the long tail of contrib
+        "optimizers": "A.5",
+        "focal_loss": "A.6", "GroupNorm": "A.6", "group_norm": "A.6",
+        "group_norm_nhwc": "A.6", "index_mul_2d": "A.6", "spatial": "A.6",
+        "sparsity": "A.6", "transducer": "A.6", "TransducerJoint": "A.6",
+        "transducer_joint": "A.6", "transducer_loss": "A.6",
     },
 }
 
