@@ -10,10 +10,12 @@ endpoint (:mod:`.debug_server`).
 The serving engine records into a :class:`MetricRegistry` and, when a
 recorder is armed, logs every request's lifecycle to the timeline.  The
 spans (:mod:`.spans`: ``span``, ``named_span``, ``step_trace`` and
-``TraceWindow``, over ``torch.profiler``) time the checkpoint layer.  Not
-ported yet: the training stats (ROADMAP.md, section A.3);
-``compiled_flops`` has no counterpart, since eager
-PyTorch compiles no program whose cost analysis it could read.
+``TraceWindow``, over ``torch.profiler``) time the checkpoint layer and
+the input pipeline's stall.  The training statistics (:mod:`.trainstats`:
+:class:`TrainStats`, its rank-partial form and the every-``n`` logger)
+ride the 3D GPT step (``build_gpt_3d``'s ``collect_stats``).
+``compiled_flops`` has no counterpart, since eager PyTorch compiles no
+program whose cost analysis it could read.
 """
 
 from apex_tpu_torch.observability.debug_server import (
@@ -52,6 +54,18 @@ from apex_tpu_torch.observability.trace import (
     merge_dir,
     stitch_traces,
     summarize_traces,
+)
+from apex_tpu_torch.observability.trainstats import (
+    PartialTrainStats,
+    TrainStats,
+    TrainStatsLogger,
+    device_partial_norms,
+    local_grad_stats,
+    pack_local_stats,
+    partial_train_stats,
+    stats_from_reduced,
+    stats_partition_specs,
+    train_stats,
 )
 from apex_tpu_torch.observability.writers import (
     JsonlWriter,
@@ -92,4 +106,14 @@ __all__ = [
     "match_series",
     "SLOPolicy",
     "SLOEvaluator",
+    "TrainStats",
+    "PartialTrainStats",
+    "train_stats",
+    "partial_train_stats",
+    "device_partial_norms",
+    "local_grad_stats",
+    "pack_local_stats",
+    "stats_from_reduced",
+    "stats_partition_specs",
+    "TrainStatsLogger",
 ]

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import queue
 import socket
 import subprocess
@@ -103,9 +104,10 @@ def initialize_distributed(
         timeout=datetime.timedelta(seconds=timeout))
 
 
-def _child(fn, rank, world_size, address, backend, num_threads, args,
+def _child(fn, rank, world_size, address, backend, num_threads, inbox,
            results):
     try:
+        args = pickle.loads(inbox.get())
         if num_threads is not None:
             torch.set_num_threads(num_threads)
         initialize_distributed(address, world_size, rank, backend=backend)
@@ -122,8 +124,10 @@ class RankJob:
     """Spawned ranks running (:func:`start_multiprocess`); :meth:`join`
     waits for their results, and kills them when the deadline passes."""
 
-    def __init__(self, procs, results, world_size: int, timeout: float):
-        self._procs, self._results = procs, results
+    def __init__(self, procs, results, world_size: int, timeout: float,
+                 inbox=None):
+        # the arguments' queue lives until the children have read it
+        self._procs, self._results, self._inbox = procs, results, inbox
         self._world_size, self._timeout = world_size, timeout
         self._deadline = time.monotonic() + timeout
 
@@ -180,15 +184,26 @@ def start_multiprocess(fn: Callable, world_size: int, *,
     group and return at once (:func:`run_multiprocess`'s arguments; the
     deadline runs from now)."""
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, inbox = ctx.Queue(), ctx.Queue()
     address = f"127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=_child, daemon=True,
                          args=(fn, rank, world_size, address, backend,
-                               num_threads, tuple(args), results))
+                               num_threads, inbox, results))
              for rank in range(world_size)]
     for p in procs:
         p.start()
-    return RankJob(procs, results, world_size, timeout)
+    # the arguments go through a queue, whose feeder thread writes them
+    # while the children import: passed with the process object, a
+    # payload past the pipe's buffer would hold each start() until that
+    # child had imported torch, so the children would start one by one.
+    # They are pickled here, before the call returns: the feeder thread
+    # would pickle them later, after the caller may have changed them
+    payload = pickle.dumps(tuple(args), protocol=pickle.HIGHEST_PROTOCOL)
+    for _ in procs:
+        inbox.put(payload)
+    inbox.close()
+    inbox.cancel_join_thread()   # a child killed unread must not hang us
+    return RankJob(procs, results, world_size, timeout, inbox)
 
 
 def run_multiprocess(fn, world_size: int = 2,

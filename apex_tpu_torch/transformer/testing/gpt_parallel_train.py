@@ -162,8 +162,9 @@ class _Loss:
     make its gradients whole; see :func:`build_gpt_3d`."""
 
     def __init__(self, local_loss, param_specs, cfg, dp_axis, tp_axis,
-                 packed_inputs, moe_aux_coeff):
+                 packed_inputs, moe_aux_coeff, with_aux=False):
         self._local_loss = local_loss
+        self._with_aux = with_aux
         self._specs = param_specs
         self._sp = cfg.sp
         self._dp_axis, self._tp_axis = dp_axis, tp_axis
@@ -174,23 +175,32 @@ class _Loss:
     def __call__(self, params, batch):
         """The loss over the whole global batch (every rank holds the
         same value); ``batch`` is this rank's data-parallel slice (with
-        ``packed_inputs`` the ``(tokens, segment_ids)`` pair)."""
-        vec = self._local_loss(params, batch)
+        ``packed_inputs`` the ``(tokens, segment_ids)`` pair).  With
+        ``with_aux`` (the telemetry variant) ``(loss, aux_mb)``: the
+        dp-mean per-microbatch MoE aux ``[m]`` (zeros for dense configs,
+        detached), which rode the same dp reduction as extra elements."""
+        vec = self._local_loss(params, batch, self._with_aux)
         dp = cc.bound_axis_size(self._dp_axis)
         if dp > 1:
             # the shards' sum, its gradient each shard's own: the dp sum of
             # the parameters' gradients (reduce_gradients) completes it
             vec = mappings.reduce_from_tensor_model_parallel_region(
                 vec, self._dp_axis) / dp
+        base = 1
         if self._packed:
             # mean of sums over mean of counts: the exact masked mean,
             # however unevenly the padding falls on the shards; the MoE
             # aux term rides as a third element, added after the division
             loss = vec[0] / vec[1]
+            base = 2
             if self._aux_coeff is not None:
                 loss = loss + self._aux_coeff * vec[2]
-            return loss
-        return vec[0]
+                base = 3
+        else:
+            loss = vec[0]
+        if self._with_aux:
+            return loss, vec[base:].detach()
+        return loss
 
     def _not_split_over(self, params, axis):
         """The leaves of ``params`` whose spec does not name ``axis``."""
@@ -266,7 +276,19 @@ def build_gpt_3d(
       parameters and optimizer state keep their bits) on an overflow and
       ``sentinel.skipped_steps`` counted (:mod:`apex_tpu_torch.
       resilience.sentinel`); ``grad_tap`` (``grads -> grads``) runs
-      between the backward and that check.
+      between the backward and that check.  ``collect_stats`` appends a
+      :class:`~apex_tpu_torch.observability.trainstats.PartialTrainStats`
+      to what the step returns: ``step(params, tokens) -> (loss,
+      stats)``, ``step(params, tokens, sentinel) -> (sentinel, loss,
+      stats)`` (``loss_scale``, ``grad_scale`` and ``skipped_steps``
+      filled in).  Its norms are this rank's partial sums
+      (:func:`~apex_tpu_torch.observability.trainstats.
+      device_partial_norms`, no collective), taken from the gradients and
+      the pre-update parameters under ``torch.no_grad()``, and the
+      per-microbatch MoE aux rides the loss's own reductions as extra
+      elements, so the step makes the bare step's collectives and no host
+      sync, and its parameters and optimizer state are the bare step's
+      bit for bit.
 
     ``config.num_layers`` must be ``pp * num_chunks``.  The batch splits
     into ``num_microbatches`` microbatches; the layers run through
@@ -294,9 +316,6 @@ def build_gpt_3d(
     parallelism (each tensor rank routes its own sequence shard; without
     it the value is the same on every tensor rank), and under
     ``packed_inputs`` after the masked division.
-
-    Not ported (ROADMAP.md): ``collect_stats`` (the observability stats,
-    section A.3) in ``make_train_step`` raises.
     """
     from apex_tpu_torch.data.sequence import segment_loss_mask
     from apex_tpu_torch.normalization.fused_layer_norm import FusedLayerNorm
@@ -394,10 +413,12 @@ def build_gpt_3d(
             out.append(seg)
         return tuple(out)
 
-    def local_loss(p: GPT3DParams, batch):
+    def local_loss(p: GPT3DParams, batch, with_aux: bool = False):
         """This dp shard's loss as a ``(1,)`` vector (packed: ``[masked
         sum, masked count]``); every pipeline and tensor rank holds the
-        same value."""
+        same value.  ``with_aux`` appends the per-microbatch MoE aux
+        ``[m]`` (detached; zeros for dense configs, which never read the
+        pipeline's aux carry)."""
         tokens, segments = batch if packed_inputs else (batch, None)
         mbs = split_into_microbatches(tokens, m)
         # the embedding of the whole batch, its batch dim then split into
@@ -418,15 +439,27 @@ def build_gpt_3d(
                               params_already_local=True,
                               remat_ticks=remat_ticks)
         out = outs[0]
-        aux_term = None
+        aux_term = aux_mb = None
+        if with_aux:
+            # telemetry rider: observational only, cut from the graph so
+            # the backward (and the gradients, bit for bit) is the bare one
+            aux_mb = (outs[1].detach().reshape(m) if moe else
+                      torch.zeros((m,), dtype=torch.float32, device=h.device))
         if moe:
             aux_term = outs[1].mean().reshape(1)
             if cfg.sp:
                 # each tensor rank routed its own sequence shard: the
                 # mean over tp, its gradient each rank's share (the
-                # router's and experts' gradients are then summed over tp)
-                aux_term = mappings.reduce_from_tensor_model_parallel_region(
-                    aux_term, tp_axis) / cfg.tp_world
+                # router's and experts' gradients are then summed over tp);
+                # the telemetry vector rides the same reduction
+                if with_aux:
+                    red = mappings.reduce_from_tensor_model_parallel_region(
+                        torch.cat([aux_term, aux_mb]), tp_axis) / cfg.tp_world
+                    aux_term, aux_mb = red[:1], red[1:].detach()
+                else:
+                    aux_term = \
+                        mappings.reduce_from_tensor_model_parallel_region(
+                            aux_term, tp_axis) / cfg.tp_world
 
         def logits_of(hid):
             hid = functional_layer(final_ln, p.final_ln, hid)
@@ -446,33 +479,75 @@ def build_gpt_3d(
                      .reshape(1)]
             if moe:
                 parts.append(aux_term)
+            if with_aux:
+                parts.append(aux_mb)
             return torch.cat(parts)
         losses = torch.stack([
             gpt_next_token_loss(logits_of(out[i]), mbs[i], cfg).mean()
             for i in range(m)])
         ce = losses.mean().reshape(1)
-        return ce if aux_term is None else ce + moe_aux_coeff * aux_term
+        if aux_term is not None:
+            ce = ce + moe_aux_coeff * aux_term
+        return ce if aux_mb is None else torch.cat([ce, aux_mb])
 
     def make_loss_fn(param_specs):
         return _Loss(local_loss, param_specs, cfg, dp_axis, tp_axis,
                      packed_inputs, moe_aux_coeff)
 
+    def make_aux_loss_fn(param_specs):
+        """Telemetry variant of ``make_loss_fn``: ``loss_fn(params,
+        tokens) -> (loss, aux_mb)`` with ``aux_mb`` the dp-mean
+        per-microbatch MoE aux ``[m]`` (zeros for dense configs).  The
+        same collectives as the bare loss: the aux vector widens the
+        existing dp (and, under sequence parallelism, tp) reductions, and
+        is cut from the graph, so the gradients are the bare ones."""
+        return _Loss(local_loss, param_specs, cfg, dp_axis, tp_axis,
+                     packed_inputs, moe_aux_coeff, with_aux=True)
+
+    def stats_norms(param_specs):
+        """This rank's norm partials (``trainstats.device_partial_norms``):
+        the layer stack is split over ``pp`` (each pipeline rank holds its
+        own stages) though its specs do not name it."""
+        from apex_tpu_torch.observability import trainstats as ts
+        from apex_tpu_torch.transformer.tensor_parallel.partition import (
+            PartitionSpec,
+        )
+
+        split = GPT3DParams(
+            embedding=_map(param_specs.embedding,
+                           lambda _: PartitionSpec()),
+            layers=_map(param_specs.layers,
+                        lambda _: PartitionSpec(pp_axis)),
+            final_ln=_map(param_specs.final_ln, lambda _: PartitionSpec()))
+        return ts.device_partial_norms(mesh, param_specs, split_leaves=split)
+
     def make_train_step(opt, param_specs, scaler=None, grad_tap=None,
                         collect_stats: bool = False):
+        from apex_tpu_torch.observability import trainstats as ts
+
         if collect_stats:
-            raise NotImplementedError(
-                "make_train_step(collect_stats=True): the training stats "
-                "of the observability package are not ported yet "
-                "(ROADMAP.md, section A.3)")
-        loss_fn = make_loss_fn(param_specs)
+            loss_fn = make_aux_loss_fn(param_specs)
+            partial_norms = stats_norms(param_specs)
+        else:
+            loss_fn = make_loss_fn(param_specs)
 
         if scaler is None:
             def step(params, tokens):
                 opt.zero_grad(set_to_none=True)
                 loss = loss_fn(params, tokens)
+                if collect_stats:
+                    loss, aux_mb = loss
                 loss.backward()
                 loss_fn.reduce_gradients(params)
+                if collect_stats:
+                    # the norms of the pre-update parameters
+                    grads = tree_map(lambda p: p.grad, params)
+                    stats = ts.partial_train_stats(
+                        loss.detach(), partial_norms(grads, params),
+                        moe_aux=aux_mb)
                 opt.step()
+                if collect_stats:
+                    return loss.detach(), stats
                 return loss.detach()
 
             return step
@@ -483,6 +558,8 @@ def build_gpt_3d(
             scale_used = sent.scaler.scale
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(params, tokens)
+            if collect_stats:
+                loss, aux_mb = loss
             (loss * scale_used).backward()
             loss_fn.reduce_gradients(params)
             grads = tree_map(lambda p: p.grad, params)
@@ -490,10 +567,18 @@ def build_gpt_3d(
                 grads = grad_tap(grads)
                 for p, g in zip(tree_leaves(params), tree_leaves(grads)):
                     p.grad = g
+            if collect_stats:
+                scale = torch.as_tensor(scale_used).detach().clone()
+                partials = partial_norms(grads, params)
             new_sent = sentinel_guarded_apply(
                 scaler, opt, grads, sent, axes=(dp_axis, pp_axis, tp_axis),
                 grad_scale=scale_used)
-            return new_sent, loss.detach()
+            if not collect_stats:
+                return new_sent, loss.detach()
+            stats = ts.partial_train_stats(
+                loss.detach(), partials, grad_scale=scale, loss_scale=scale,
+                skipped_steps=new_sent.skipped_steps, moe_aux=aux_mb)
+            return new_sent, loss.detach(), stats
 
         return guarded_step
 

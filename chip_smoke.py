@@ -344,12 +344,40 @@ Phases (any failure exits non-zero; none is caught):
    the equivalent boolean mask, then at ``BERT_FLASH_EDGES`` (the padded
    tail at BERT's shape, contrib's key padding with Sq != Sk and a row of
    all padding keys, with dropout, ragged, and in fp32).
+19. the input pipeline and the training statistics (``data_phase``): (a)
+   ``build_gpt_3d``'s step at pp = 1 (phase 12's chunks and
+   microbatches, ``packed_inputs`` with block-diagonal flash, so F1-F3
+   run with segment ids) at phase 5's widths, fed from a shard of
+   ``pack_token_documents(synthetic_token_documents(...))`` through
+   ``PackedSequenceLoader`` -> ``prefetch_to_device``: 10 steps without
+   and 10 with ``collect_stats`` from the same weights and batches, the
+   parameters, optimizer state and losses bit for bit, each step's
+   synchronizing calls counted (``torch.cuda.set_sync_debug_mode``) and
+   none in a step with stats beyond the bare step's, the last step's
+   stats against the host's fp64 norms of the same gradients and
+   pre-update parameters within ``NORM_RTOL``, 96 / 48 / 48 launches of
+   F1 / F2 / F3 a step, all tc; the step times (CUDA events around the
+   step) and the mean stall, then the cost of the stats from four more
+   runs, bare and with stats alternated (``STATS_AB_RUNS``); (b)
+   ``bench_real_data_rn50``'s recipe: 8 classes x 256 JPEGs of side 300
+   written from ``RandomState(0)`` at quality 90, packed once at side 232
+   (timed), then ``apex_tpu_torch.examples.imagenet_amp.main`` (O2 +
+   FusedSGD, batch 128 x 224^2, 40 steps, the crop and flip on the card)
+   for images/s beside phase 17's synthetic images/s, the mean
+   ``data/next_wait`` stall, one profiled step's busy share; then the
+   online decode (``ImageFolderLoader`` with thread and process workers,
+   and a ``DataService``): images/s, the decoder that ran (the native
+   libjpeg kernel, or PIL with the reason the kernel did not build) and
+   the workers' start, no child left after ``close()``; (c)
+   ``testing/data_resume.py``'s reference, SIGKILLed and resumed runs as
+   child processes for both loader families, the resumed stream of
+   batch hashes the reference's.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
 ``{"context_moe": {...}}``, a ``{"serving_tp": {...}}``, a
 ``{"checkpoint": {...}}``, a ``{"resnet": {...}}``, a ``{"bert":
-{...}}`` and a ``{"kernels": [...]}`` JSON object and
+{...}}``, a ``{"data": {...}}`` and a ``{"kernels": [...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -5584,7 +5612,8 @@ def resnet_phase(torch, np, fa, pa, fo, lo, pn):
     workload): (a) amp O2 + FusedSGD, (b) FusedLAMB + SyncBatchNorm
     under DDP at world size 1 over NCCL, bit for bit its local-BN twin,
     (c) the L1 cells card against CPU.  No TPU kernel lies on this path:
-    the nine kernels are checked to launch no time in it."""
+    the nine kernels are checked to launch no time in it.  Returns the
+    record."""
     import torch.distributed as dist
 
     from apex_tpu_torch import parallel
@@ -5651,7 +5680,7 @@ def resnet_phase(torch, np, fa, pa, fo, lo, pn):
     rec["seconds"] = time.perf_counter() - t0
     log(json.dumps({"resnet": rec}))
     log(f"phase 17 (ResNet-50 training): {rec['seconds']:.1f} s")
-    return {}
+    return rec
 
 
 # ------------------------------------- phase 18: BERT-large pretraining
@@ -6105,6 +6134,425 @@ def bert_phase(torch, F, fa, timer):
     return counts, recs
 
 
+# ------------------ phase 19: the input pipeline and the training stats
+
+DATA_DOCS, DATA_DOC_LEN = 1400, 128       # ~180k tokens: 170 rows of 1024
+DATA_STEPS = 10                           # each run of (a)
+STATS_AB_RUNS = (True, False, False, True)  # (a)'s timing runs after the
+                                          # gated bare / with-stats pair
+NORM_RTOL = 1e-5                          # stats against the host, fp32
+JPEG_CLASSES, JPEG_PER_CLASS, JPEG_SIDE = 8, 256, 300  # bench_real_data_rn50
+RECIPE_STEPS = 40
+DECODE_BATCHES = 6                        # timed batches of each decode leg
+RESUME_FAMILIES = ("sequence", "image")
+
+
+def sync_warnings(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the number of synchronizing calls it made (each one a
+    warning; the transfer thread's count as well)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in seen)
+    return out, n
+
+
+def packed_gpt_run(torch, fa, prefix, collect):
+    """``DATA_STEPS`` steps of the 3D GPT-124M step (pp = 1, phase 12's
+    chunks and microbatches, packed inputs with block-diagonal flash
+    attention) fed by ``PackedSequenceLoader`` -> ``prefetch_to_device``
+    from the shard at ``prefix``; with ``collect`` the step returns its
+    stats, the last of which is held against a host recomputation.  A
+    step's time is the device's, between CUDA events around the step
+    call (the batch's wait is the stall, apart), the median after
+    ``WARMUP_STEPS``.  Returns the record, the parameters and the
+    optimizer state."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.data import (
+        PackedSequenceDataset,
+        PackedSequenceLoader,
+        prefetch_to_device,
+    )
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        build_gpt_3d,
+    )
+
+    init_fn, _, make_train_step = build_gpt_3d(
+        gpt124m_train(torch, torch.bfloat16), num_chunks=PIPE_CHUNKS,
+        num_microbatches=PIPE_MICROBATCHES, packed_inputs=True,
+        block_diagonal=True)
+    params, specs = init_fn(0)
+    leaves = tree_leaves(params)
+    opt = FusedAdam(leaves, lr=1e-4)
+    step = make_train_step(opt, specs, collect_stats=collect)
+    reg = MetricRegistry(rank=0, world=1)
+    loader = PackedSequenceLoader(PackedSequenceDataset(prefix),
+                                  local_batch=TRAIN_BATCH)
+    dev = prefetch_to_device(loader, depth=2, registry=reg)
+    losses, syncs, stats, snap, events = [], [], None, None, []
+    try:
+        for i in range(DATA_STEPS):
+            if collect and i == DATA_STEPS - 1:
+                # the pre-update parameters of the held step, on the host
+                torch.cuda.synchronize()
+                snap = [p.detach().double().cpu() for p in leaves]
+            tokens, segments = next(dev)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+            def timed():
+                ev[0].record()
+                out = step(params, (tokens.long(), segments))
+                ev[1].record()
+                return out
+
+            out, n = sync_warnings(torch, timed)
+            events.append(ev)
+            syncs.append(n)
+            loss, stats = out if collect else (out, None)
+            losses.append(loss)
+    finally:
+        dev.close()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"packed GPT: the losses are finite: {losses}")
+    hist = reg.histogram("span_ms/data/next_wait")
+    rec = {"step_ms": statistics.median(step_ms[WARMUP_STEPS:]),
+           "step_ms_each": step_ms, "losses": losses,
+           "syncs_per_step": syncs,
+           "stall_ms_mean": hist.mean, "stall_ms_max": hist.max,
+           "consumed_samples": dev.consumed_samples}
+    if collect:
+        rec["stats"] = check_stats(torch, stats, losses[-1], leaves, snap)
+    state = opt.opt_state(dict(enumerate(leaves)))
+    return rec, leaves, state
+
+
+def check_stats(torch, stats, loss, leaves, snap):
+    """Every field of the last step's ``PartialTrainStats``, finalized,
+    against the host: the gradients' and the pre-update parameters'
+    norms in fp64, the non-finite leaves, the loss the step returned,
+    scale 1, no skip, a zero MoE aux a microbatch."""
+    import numpy as np
+
+    got = stats.finalize()
+    grads = [p.grad.detach().double().cpu() for p in leaves]
+    want = {
+        "loss": loss,
+        "grad_norm": math.sqrt(sum(float((g * g).sum()) for g in grads)),
+        "param_norm": math.sqrt(sum(float((p * p).sum()) for p in snap)),
+        "nonfinite_leaves": sum(int(not torch.isfinite(g).all())
+                                for g in grads),
+        "loss_scale": 1.0, "skipped_steps": 0}
+    rec = {}
+    for name, value in want.items():
+        mine = float(getattr(got, name))
+        rel = abs(mine - value) / max(abs(value), 1e-30)
+        rec[name] = {"stats": mine, "host": value, "rel": rel}
+        check(rel <= NORM_RTOL, f"stats {name}: {mine!r} against the "
+              f"host's {value!r} (relative {rel:.3e}, limit {NORM_RTOL})")
+    check(np.array_equal(got.moe_aux, np.zeros(PIPE_MICROBATCHES,
+                                               np.float32)),
+          f"stats moe_aux: zeros a microbatch for a dense model "
+          f"({got.moe_aux})")
+    return rec
+
+
+def packed_gpt_part(torch, np, fa, root):
+    """(a): the packed shard, then the bare and the instrumented runs from
+    the same weights and batches; returns the record and the launches."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.data import (
+        pack_token_documents,
+        synthetic_token_documents,
+    )
+
+    t0 = time.perf_counter()
+    docs = synthetic_token_documents(DATA_DOCS, vocab=50257,
+                                     mean_len=DATA_DOC_LEN, seed=0)
+    prefix = f"{root}/lm/train"
+    ds = pack_token_documents(docs, prefix, seq_len=SEQ, eos_id=50256)
+    pack_s = time.perf_counter() - t0
+    check(len(ds) >= TRAIN_BATCH * DATA_STEPS,
+          f"the token shard holds {len(ds)} rows of {SEQ}")
+    zero_flash_counts(fa)
+    bare, p_bare, s_bare = packed_gpt_run(torch, fa, prefix, False)
+    instr, p_instr, s_instr = packed_gpt_run(torch, fa, prefix, True)
+    counts = flash_counts(fa)
+    same = (all(torch.equal(a, b) for a, b in zip(p_bare, p_instr))
+            and all(a is None and b is None or torch.equal(
+                torch.as_tensor(a), torch.as_tensor(b))
+                for a, b in zip(tree_leaves(s_bare), tree_leaves(s_instr))))
+    check(same and bare["losses"] == instr["losses"],
+          f"packed GPT: after {DATA_STEPS} steps the parameters, the "
+          f"optimizer state and the losses with collect_stats are bit for "
+          f"bit the bare run's ({bare['losses']} / {instr['losses']})")
+    check(all(i <= b for i, b in zip(instr["syncs_per_step"],
+                                      bare["syncs_per_step"])),
+          f"packed GPT: no synchronizing call in a step with stats beyond "
+          f"the bare step's: bare {bare['syncs_per_step']}, with stats "
+          f"{instr['syncs_per_step']}")
+    want = {k: 2 * v for k, v in pipeline_launches(DATA_STEPS).items()}
+    check_pipeline_launches(fa, want, f"2 x {DATA_STEPS} packed steps")
+    del p_bare, p_instr, s_bare, s_instr
+    # the cost of the stats, bare and with-stats runs alternated (the
+    # gated pair above first): each run's median step, and their medians
+    ab = {"bare": [bare["step_ms"]], "with_stats": [instr["step_ms"]]}
+    order = ["bare", "with_stats"]
+    for collect in STATS_AB_RUNS:
+        key = "with_stats" if collect else "bare"
+        more, *_ = packed_gpt_run(torch, fa, prefix, collect)
+        ab[key].append(more["step_ms"])
+        order.append(key)
+    ab = {"order": order, "run_medians_ms": ab,
+          **{f"{k}_ms": statistics.median(v) for k, v in ab.items()},
+          **{f"{k}_spread_ms": max(v) - min(v) for k, v in ab.items()}}
+    ab["overhead"] = ab["with_stats_ms"] / ab["bare_ms"] - 1.0
+    rec = {"pack_s": pack_s, "rows": len(ds), "bare": bare,
+           "with_stats": instr, "launches": counts, "bit_for_bit": same,
+           "stats_ab": ab}
+    log(f"data(a)[stats cost, runs alternated {' '.join(order)}]: median "
+        f"step {ab['bare_ms']:.3f} ms bare (runs "
+        f"{ab['run_medians_ms']['bare']}), {ab['with_stats_ms']:.3f} ms "
+        f"with stats (runs {ab['run_medians_ms']['with_stats']}): "
+        f"{100 * ab['overhead']:+.2f}%; card {card_line()}")
+    log(f"data(a)[GPT-124M pp 1 from a packed shard, batch {TRAIN_BATCH} x "
+        f"{SEQ}, block-diagonal flash]: step {bare['step_ms']:.2f} ms bare, "
+        f"{instr['step_ms']:.2f} ms with stats; stall mean "
+        f"{bare['stall_ms_mean']:.3f} / {instr['stall_ms_mean']:.3f} ms; "
+        f"syncs a step {bare['syncs_per_step']} / "
+        f"{instr['syncs_per_step']}; bit for bit {same}; launches {counts}; "
+        f"card {card_line()}")
+    return rec, counts
+
+
+def write_jpeg_tree(np, root):
+    """``bench.py::_make_synth_jpeg_tree``: ``JPEG_CLASSES`` x
+    ``JPEG_PER_CLASS`` JPEGs of side ``JPEG_SIDE`` from ``RandomState(0)``
+    at quality 90."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for c in range(JPEG_CLASSES):
+        d = os.path.join(root, f"class_{c}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(JPEG_PER_CLASS):
+            arr = rng.randint(0, 256, (JPEG_SIDE, JPEG_SIDE, 3),
+                              dtype=np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"{i}.jpg"),
+                                      quality=90)
+
+
+def decode_service_loader(root, consumed):
+    """Spawn-side factory of the decode leg's ``DataService``."""
+    from apex_tpu_torch.data import ImageFolder, ImageFolderLoader
+
+    return ImageFolderLoader(ImageFolder(root), local_batch=RN50_BATCH,
+                             workers=8, consumed_samples=consumed)
+
+
+def decode_leg(label, make):
+    """Images/s of ``DECODE_BATCHES`` batches after the first from the
+    source ``make()`` builds, and its start (a loader's ``warm_up``, the
+    service's handshake and first batch)."""
+    t0 = time.perf_counter()
+    src = make()
+    try:
+        if hasattr(src, "warm_up"):
+            src.warm_up()
+        it = iter(src)
+        first = next(it)
+        start_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(DECODE_BATCHES):
+            x, _ = next(it)
+        ips = DECODE_BATCHES * len(x) / (time.perf_counter() - t1)
+    finally:
+        src.close()
+    check(first[0].shape == (RN50_BATCH, RN50_SIZE, RN50_SIZE, 3)
+          and first[0].dtype.name == "uint8",
+          f"decode {label}: uint8 batches of {RN50_BATCH} x {RN50_SIZE}^2")
+    return {"images_per_s": ips, "start_s": start_s}
+
+
+def jpeg_part(torch, np, root, synthetic_ips):
+    """(b): ResNet-50 from JPEG files through the recipe (beside
+    ``synthetic_ips``, phase 17's O2 + FusedSGD images/s), the decode
+    legs."""
+    import functools
+    import multiprocessing as mp
+
+    from apex_tpu_torch.data import (
+        DataService,
+        ImageFolder,
+        ImageFolderLoader,
+        pack_image_folder,
+    )
+    from apex_tpu_torch.data import _jpeg_native
+    from apex_tpu_torch.examples import imagenet_amp
+    from apex_tpu_torch.observability import default_registry
+
+    rec = {"card": card_line()}
+    jpegs = f"{root}/jpegs"
+    t0 = time.perf_counter()
+    write_jpeg_tree(np, jpegs)
+    rec["write_s"] = time.perf_counter() - t0
+    native = _jpeg_native.native_available()
+    rec["decoder"] = "native libjpeg" if native else "PIL"
+    rec["native_error"] = _jpeg_native.build_error()
+    log(f"data(b): decoder {rec['decoder']}"
+        + ("" if native else f" (the native kernel did not build: "
+           f"{rec['native_error']})"))
+    t0 = time.perf_counter()
+    pds = pack_image_folder(jpegs, f"{root}/pack", side=232, workers=8)
+    rec["pack_s"] = time.perf_counter() - t0
+    check(len(pds) == JPEG_CLASSES * JPEG_PER_CLASS and pds.side == 232,
+          f"the packed shard holds {len(pds)} images at side {pds.side}")
+    argv = ["--data", jpegs, "--packed", f"{root}/pack",
+            "--batch-size", str(RN50_BATCH), "--num-classes",
+            str(JPEG_CLASSES), "--steps", str(RECIPE_STEPS),
+            "--workers", "8"]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = True, False
+    hist = default_registry().histogram("span_ms/data/next_wait")
+    try:
+        n0, total0 = hist.count, hist.total
+        rec["images_per_s"] = imagenet_amp.main(argv)
+        rec["stall_ms_mean"] = (hist.total - total0) / max(
+            hist.count - n0, 1)
+        recipe = imagenet_amp.Recipe(argv)
+        try:
+            for _ in range(WARMUP_STEPS):
+                recipe.step()
+            prof = profile_step(torch, "RN50 recipe step from the packed "
+                                "JPEG shard", recipe.step, kinds=RN50_KINDS)
+        finally:
+            recipe.close()
+        del recipe
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    rec["profile"] = prof
+    rec["busy_share"] = prof["busy_ms"] / prof["wall_ms"]
+    rec["phase17_images_per_s"] = synthetic_ips
+    check(math.isfinite(rec["images_per_s"]) and rec["images_per_s"] > 0,
+          f"the recipe trains: {rec['images_per_s']} images/s")
+    ds = ImageFolder(jpegs)
+    legs = {
+        "thread": lambda: ImageFolderLoader(
+            ds, local_batch=RN50_BATCH, workers=8, backend="thread"),
+        "process": lambda: ImageFolderLoader(
+            ds, local_batch=RN50_BATCH, workers=8, backend="process"),
+        "service": lambda: DataService(
+            functools.partial(decode_service_loader, jpegs)),
+    }
+    rec["decode"] = {}
+    for label, make in legs.items():
+        rec["decode"][label] = dict(decode_leg(label, make),
+                                    decoder=rec["decoder"])
+        log(f"data(b) decode[{label}]: {json.dumps(rec['decode'][label])}")
+    deadline = time.monotonic() + 15.0
+    while mp.active_children() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    check(not mp.active_children(),
+          f"no child left after close(): {mp.active_children()}")
+    log(f"data(b)[ResNet-50 O2 FusedSGD from {JPEG_CLASSES} x "
+        f"{JPEG_PER_CLASS} JPEGs of {JPEG_SIDE}^2, packed at 232, batch "
+        f"{RN50_BATCH} x {RN50_SIZE}^2]: {rec['images_per_s']:.1f} images/s "
+        f"(phase 17 synthetic {rec['phase17_images_per_s']}); stall mean "
+        f"{rec['stall_ms_mean']:.3f} ms; busy share {rec['busy_share']:.3f};"
+        f" pack {rec['pack_s']:.2f} s, write {rec['write_s']:.2f} s; "
+        f"decoder {rec['decoder']}; card {rec['card']}")
+    return rec
+
+
+def resume_part(root):
+    """(c): ``testing/data_resume.py``'s phases as child processes on the
+    card, both families at once: the reference and the run (SIGKILLed
+    mid-epoch), then the resume; the resumed stream of hashes is the
+    reference's."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+
+    def start(family, phase, work, stream):
+        return subprocess.Popen(
+            [sys.executable, "-m", "apex_tpu_torch.testing.data_resume",
+             "--family", family, "--work", f"{root}/{work}", "--phase",
+             phase, "--stream", f"{root}/{stream}"], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait(proc, rc, what):
+        out, _ = proc.communicate(timeout=300)
+        check(proc.returncode == rc, f"data_resume {what}: exit "
+              f"{proc.returncode} (want {rc}): {out[-1500:]}")
+
+    t0 = time.perf_counter()
+    rec = {}
+    procs = {f: (start(f, "ref", f"ref_{f}", f"{f}.ref"),
+                 start(f, "run", f"run_{f}", f"{f}.run"))
+             for f in RESUME_FAMILIES}
+    for f, (ref, run) in procs.items():
+        wait(ref, 0, f"{f} ref")
+        wait(run, -9, f"{f} run (SIGKILLed)")
+    resumes = {f: start(f, "resume", f"run_{f}", f"{f}.run")
+               for f in RESUME_FAMILIES}
+    for f, proc in resumes.items():
+        wait(proc, 0, f"{f} resume")
+        with open(f"{root}/{f}.ref") as a, open(f"{root}/{f}.run") as b:
+            ref, got = a.read(), b.read()
+        n = ref.count("\n")
+        check(n == 13 and got == ref,
+              f"data_resume {f}: the resumed stream of {got.count(chr(10))} "
+              f"hashes is the uninterrupted run's {n}")
+        rec[f] = {"batches": n, "equal": got == ref,
+                  "last": ref.splitlines()[-1]}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"data(c)[mid-epoch SIGKILL and resume on the card]: "
+        f"{json.dumps(rec)}")
+    return rec
+
+
+def data_phase(torch, np, fa, synthetic_ips):
+    """Phase 19: the input pipeline and the training statistics: (a)
+    GPT-124M fed from a packed shard with and without ``collect_stats``,
+    (b) ResNet-50 trained from JPEG files through the recipe (beside
+    ``synthetic_ips``, phase 17's images/s) and the decode legs, (c) the
+    mid-epoch resume.  Returns (a)'s launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="apex_data_phase_")
+    rec = {"card": card_line()}
+    try:
+        rec["packed_gpt"], counts = packed_gpt_part(torch, np, fa, root)
+        rec["jpeg_rn50"] = jpeg_part(torch, np, root, synthetic_ips)
+        rec["resume"] = resume_part(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"data": rec}))
+    log(f"phase 19 (input pipeline and training stats): "
+        f"{rec['seconds']:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -6275,11 +6723,14 @@ def main():
         launches[k] += v
     for k, v in checkpoint_phase(torch, np, pa, fo, lo, prompts).items():
         launches[k] += v
-    resnet_phase(torch, np, fa, pa, fo, lo, pn)
+    rn50 = resnet_phase(torch, np, fa, pa, fo, lo, pn)
     counts, recs = bert_phase(torch, F, fa, timer)
     for k, v in counts.items():
         launches[k] += v
     results.update(recs)
+    for k, v in data_phase(torch, np, fa,
+                           rn50["o2_sgd"]["images_per_s"]).items():
+        launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"
     meta = {

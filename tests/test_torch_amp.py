@@ -8,6 +8,7 @@ step for bf16 parameters (their fp32 masters at 1e-6).
 """
 
 import copy
+import functools
 import warnings
 
 import numpy as np
@@ -74,11 +75,15 @@ def _assert_same_state(got, want):
         assert g.item() == w.item(), (field, g.item(), w.item())
 
 
+@functools.lru_cache(maxsize=None)
 def _flax_gpt_params():
+    """The Flax GPT's config, tokens and parameters (its init jitted once
+    for the module: op by op it costs seconds a call)."""
     cfg = JaxConfig(**GPT, tensor_axis=None)
     tokens = jax.random.randint(jax.random.PRNGKey(1), (4, 32), 0, VOCAB)
-    return cfg, tokens, JaxGPTModel(cfg).init(jax.random.PRNGKey(2),
-                                              tokens)["params"]
+    params = jax.jit(JaxGPTModel(cfg).init)(jax.random.PRNGKey(2),
+                                            tokens)["params"]
+    return cfg, tokens, params
 
 
 # finite flags: growth at every 3rd clean step, single overflows absorbed

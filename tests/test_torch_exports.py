@@ -48,14 +48,7 @@ QUEUED = {
     "transformer.moe": {},
     "transformer.testing": {},
     "transformer._data": {},
-    "observability": {
-        # observability/trainstats.py
-        "TrainStats": "A.3", "PartialTrainStats": "A.3",
-        "TrainStatsLogger": "A.3", "train_stats": "A.3",
-        "partial_train_stats": "A.3", "device_partial_norms": "A.3",
-        "local_grad_stats": "A.3", "pack_local_stats": "A.3",
-        "stats_from_reduced": "A.3", "stats_partition_specs": "A.3",
-    },
+    "observability": {},
     "resilience": {},
     "optimizers": {},
     "models": {},
@@ -65,18 +58,7 @@ QUEUED = {
         "fold_in_axis": "A.6", "timers": "A.6", "Timers": "A.6",
         "get_timers": "A.6", "flatten": "A.6",
     },
-    "data": {
-        # the rest of data/image_folder.py, data/packed.py,
-        # data/prefetch.py, data/service.py and data/sequence.py
-        "ImageFolder": "A.4", "ImageFolderLoader": "A.4",
-        "center_crop_resize": "A.4", "random_resized_crop": "A.4",
-        "sample_crop_box": "A.4", "PackedImageDataset": "A.4",
-        "PackedLoader": "A.4", "pack_image_folder": "A.4",
-        "DevicePrefetcher": "A.4", "prefetch_to_device": "A.4",
-        "DataService": "A.4", "PackedSequenceDataset": "A.4",
-        "PackedSequenceLoader": "A.4", "pack_token_documents": "A.4",
-        "synthetic_token_documents": "A.4",
-    },
+    "data": {},
     "contrib": {
         # contrib/optimizers (ZeRO), and the long tail of contrib
         "optimizers": "A.5",

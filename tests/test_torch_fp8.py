@@ -327,8 +327,8 @@ def test_from_flax_fp8_meta_round_trips_a_gpt_init():
     the metas appear in ``state_dict()``; a wrong set of names raises."""
     jcfg = JaxConfig(**GPT, tensor_axis=None, fp8=True)
     tokens = jnp.zeros((2, 8), jnp.int32)
-    collection = JaxGPTModel(jcfg).init(jax.random.PRNGKey(0),
-                                        tokens)["fp8_meta"]
+    collection = jax.jit(JaxGPTModel(jcfg).init)(jax.random.PRNGKey(0),
+                                                 tokens)["fp8_meta"]
     collection = _perturbed(collection, np.random.default_rng(5))
     metas = from_flax_fp8_meta(collection)
     # 2 layers x 4 linears x {x, w} x {amax_history, scale}
@@ -391,9 +391,9 @@ def test_serving_config_serves_an_fp8_checkpoint_unchanged():
     cfg = dataclasses.replace(cfg8, fp8=False)
     assert serving_config(cfg8) == serving_config(cfg) == cfg
     jcfg = JaxConfig(**GPT, tensor_axis=None)
-    params = from_flax_gpt(jax.tree_util.tree_map(np.asarray, JaxGPTModel(
-        jcfg).init(jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))[
-            "params"]))
+    params = from_flax_gpt(jax.tree_util.tree_map(np.asarray, jax.jit(
+        JaxGPTModel(jcfg).init)(jax.random.PRNGKey(3),
+                                jnp.zeros((1, 8), jnp.int32))["params"]))
     cache = KVCacheConfig(n_layers=2, n_blocks=4, block_size=4, kv_heads=4,
                           head_dim=16, max_seq=16, dtype=torch.float32)
     rng = np.random.default_rng(6)

@@ -385,9 +385,11 @@ def test_moe_3d_collectives(run):
 
 @pytest.mark.parametrize("what", ["num_experts", "collect_stats"])
 def test_unported_options_raise_naming_the_roadmap_item(what):
-    """``collect_stats`` still raises, naming its item.  ``num_experts``
-    is ported: without a grid the MoE step is the serial MoE model's mean
-    over the microbatches of ``loss + 1e-2 * aux``."""
+    """Both options are ported now.  ``num_experts``: without a grid the
+    MoE step is the serial MoE model's mean over the microbatches of
+    ``loss + 1e-2 * aux``.  ``collect_stats``: the step returns the bare
+    step's loss with its ``PartialTrainStats`` (held against JAX in
+    ``test_torch_trainstats.py``)."""
     if what == "num_experts":
         from apex_tpu_torch.transformer.moe import collect_moe_aux
 
@@ -408,11 +410,26 @@ def test_unported_options_raise_naming_the_roadmap_item(what):
         ref = torch.stack(ce).mean() + 1e-2 * torch.stack(aux).mean()
         torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
         return
-    init_fn, _, make_train_step = build_gpt_3d(_small(), num_chunks=4,
-                                               device="cpu")
-    _, specs = init_fn(0)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        make_train_step(None, specs, collect_stats=True)
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.observability.trainstats import PartialTrainStats
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    tokens = torch.randint(0, 64, (8, 16),
+                           generator=torch.Generator().manual_seed(2))
+    losses = []
+    for collect in (False, True):
+        init_fn, _, make_train_step = build_gpt_3d(_small(), num_chunks=4,
+                                                   device="cpu")
+        params, specs = init_fn(0)
+        step = make_train_step(FusedAdam(tree_leaves(params), lr=1e-3),
+                               specs, collect_stats=collect)
+        out = step(params, tokens)
+        if collect:
+            loss, stats = out
+            assert isinstance(stats, PartialTrainStats)
+            assert torch.equal(stats.loss, loss)
+        losses.append(out if not collect else loss)
+    assert torch.equal(*losses)
 
 
 def test_without_a_grid_the_step_is_the_serial_model():

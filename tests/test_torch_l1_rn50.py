@@ -55,11 +55,13 @@ import os
 import tempfile
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
+from apex_tpu.models import resnet as jresnet
 from apex_tpu.parallel import mesh as jmesh
 from apex_tpu.testing import l1 as jl1
 from apex_tpu_torch.amp.scaler import LossScaleState, all_finite
@@ -112,11 +114,43 @@ def _snapshot(p, stats, state, sstate, with_opt=True):
                 *(torch.tensor(np.asarray(v)) for v in sstate))}
 
 
-def _live(name, on_step):
+_INITS = {}
+
+
+def _jitted_init(orig_init, jit):
+    """Flax ``ResNet.init`` as ``_trace_rn50`` calls it (``init(key, x,
+    train=True)``), jitted once and shared by every cell: the initial
+    variables depend on neither the compute dtype nor the BN axis, so
+    each cell's model is initialized as its fp32 twin without an axis
+    (bit for bit the eager init of every cell here, in 11 s for all of
+    them against 46 s op by op); any other call is the eager one."""
+    def init(self, rngs, *args, **kwargs):
+        if len(args) != 1 or kwargs != {"train": True}:
+            return orig_init(self, rngs, *args, **kwargs)
+        twin = self.clone(dtype=jnp.float32, axis_name=None, parent=None)
+        x = args[0]
+        key = (repr(twin), x.shape, str(x.dtype))
+        if key not in _INITS:
+            _INITS[key] = jit(
+                lambda k, x: orig_init(twin, k, x, train=True))
+        return _INITS[key](rngs, x)
+
+    return init
+
+
+class _Enough(Exception):
+    """Ends a live JAX run once the test holds the steps it reads."""
+
+
+def _live(name, on_step, steps=None):
     """The JAX package's ``run_trace(name)``, with ``on_step(i, inputs,
-    outputs)`` called after each jitted step with its inputs and outputs;
-    also returns the jitted step and its first inputs."""
-    orig, seen = jax.jit, {}
+    outputs)`` called after each jitted step with its inputs and outputs
+    (and the model's init jitted, ``_jitted_init``); also returns the
+    jitted step and its first inputs.  With ``steps`` the run stops after
+    that many steps, its trace those steps' (``run_trace``'s loss, grad
+    norm and scale of each): the tests read no later step but of
+    ``rn50_O2_dynamic``'s."""
+    orig, seen, outs = jax.jit, {}, []
 
     def spy(fn, *a, **kw):
         jitted = orig(fn, *a, **kw)
@@ -136,15 +170,27 @@ def _live(name, on_step):
             if i == 0:
                 seen["out"] = out
             on_step(i, args, out)
+            outs.append((out[3], out[4], out[5]))
+            if steps is not None and i + 1 >= steps:
+                raise _Enough
             return out
 
         return call
 
+    orig_init = jresnet.ResNet.init
     jax.jit = spy
+    jresnet.ResNet.init = _jitted_init(orig_init, orig)
     try:
         trace = jl1.run_trace(name)
+    except _Enough:
+        # what run_trace records of each step, from the same outputs
+        trace = {"loss": [float(loss) for _, loss, _ in outs],
+                 "grad_norm": [jl1._global_grad_norm(g) for *_, g in outs]}
+        if outs[0][0] is not None:
+            trace["loss_scale"] = [float(s.scale) for s, _, _ in outs]
     finally:
         jax.jit = orig
+        jresnet.ResNet.init = orig_init
     return trace, seen
 
 
@@ -272,7 +318,7 @@ def _run(jax_name):
                 torch.save(snap, os.path.join(state_dir, f"{i}.pt"))
             on_step(i, args, out)
 
-        trace, seen = _live(jax_name, save)
+        trace, seen = _live(jax_name, save, REPLAY_STEPS)
         job = start_multiprocess(ranks.syncbn_steps, 8,
                                  args=(state_dir, cells, SYNCBN_STEPS),
                                  timeout=240.0, num_threads=1)
@@ -287,7 +333,9 @@ def _run(jax_name):
         rows.update({c: per_rank[0][c] for c in cells})
         _GROUPS.extend(r["groups"] for r in per_rank)
     else:
-        trace, seen = _live(jax_name, on_step)
+        trace, seen = _live(jax_name, on_step,
+                            None if jax_name == "rn50_O2_dynamic"
+                            else REPLAY_STEPS)
     if jax_name not in ("rn50_O0", "rn50_O2_dynamic"):
         seen = None               # only these two runs' steps are used again
     _RUNS[jax_name] = (trace, rows, seen, errors)

@@ -6,9 +6,9 @@ spawns four ranks (``run_multiprocess``, dp2 x tp2 on the port's rank
 grid), runs every rank-side check of ``torch_parallel_ranks.
 module_checks`` in that one run, and returns numpy results; each test
 then asserts one of them.  The JAX side runs in this process on a
-four-device sub-mesh of the same shape under ``cc.shard_over``, from the
-same numpy inputs; rank ``r`` of the port holds what device ``r`` of the
-mesh holds.
+four-device sub-mesh of the same shape under ``cc.shard_over``, jitted,
+from the same numpy inputs; rank ``r`` of the port holds what device
+``r`` of the mesh holds.
 
 Each check's global function is chosen so that its gradient is what the
 reference's autograd pairs give each rank: a value that is the same on
@@ -32,7 +32,10 @@ from apex_tpu.transformer import tensor_parallel as jtp
 from apex_tpu.transformer.layers.layer_norm import (
     allreduce_sequence_parallel_gradients as j_sp_grads,
 )
-from apex_tpu_torch.parallel.launch import run_multiprocess
+from apex_tpu_torch.parallel.launch import (
+    run_multiprocess,
+    start_multiprocess,
+)
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -134,7 +137,7 @@ def _jax_value_and_grad(fn, x, g, x_sh, g_sh, y_sh, loss_over_tp):
         total, y = f(x, g)
         return total[0], y
 
-    (_, y), dx = jax.value_and_grad(loss, has_aux=True)(x, g)
+    (_, y), dx = jax.jit(jax.value_and_grad(loss, has_aux=True))(x, g)
     return np.asarray(y), np.asarray(dx)
 
 
@@ -208,7 +211,8 @@ def test_vocab_parallel_cross_entropy_matches_jax(run, mesh, smoothing):
         t, loss = f(logits, c["target"], c["g"])
         return t[0], loss
 
-    (_, loss), dlogits = jax.value_and_grad(total, has_aux=True)(c["logits"])
+    (_, loss), dlogits = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        c["logits"])
     v = c["logits"].shape[-1] // TP
     for d in range(DP):
         for t in range(TP):
@@ -256,7 +260,8 @@ def test_vocab_parallel_embedding_matches_jax(run, mesh):
         t, y = f(table, c["tokens"], c["g"])
         return t[0], y
 
-    (_, y), dtable = jax.value_and_grad(total, has_aux=True)(c["table"])
+    (_, y), dtable = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        c["table"])
     for d in range(DP):
         for t in range(TP):
             got_y, got_d = results[_rank(d, t)]["embedding"]
@@ -264,7 +269,18 @@ def test_vocab_parallel_embedding_matches_jax(run, mesh):
             _close(got_d, np.asarray(dtable)[t * 4:(t + 1) * 4])
 
 
+_COLUMN_ROW = {}
+
+
 def _column_row_jax(c, sp):
+    """JAX's Column then Row on the inputs ``c`` (one evaluation a value
+    of ``sp``, shared by the tests that read it)."""
+    if sp not in _COLUMN_ROW:
+        _COLUMN_ROW[sp] = _column_row_eval(c, sp)
+    return _COLUMN_ROW[sp]
+
+
+def _column_row_eval(c, sp):
     col = jtp.ColumnParallelLinear(input_size=4, output_size=8,
                                    sequence_parallel=sp, axis="tp")
     row = jtp.RowParallelLinear(input_size=8, output_size=4,
@@ -290,8 +306,8 @@ def _column_row_jax(c, sp):
         t, y = f(params, x, c["g"])
         return t[0], y
 
-    (_, y), (dp_, dx) = jax.value_and_grad(total, argnums=(0, 1),
-                                           has_aux=True)(params, c["x"])
+    (_, y), (dp_, dx) = jax.jit(jax.value_and_grad(
+        total, argnums=(0, 1), has_aux=True))(params, c["x"])
     return np.asarray(y), jax.tree_util.tree_map(np.asarray, dp_), \
         np.asarray(dx)
 
@@ -336,7 +352,7 @@ def test_allreduce_sequence_parallel_gradients(run, mesh):
             lambda v: v[None, None],
             j_sp_grads(jax.tree_util.tree_map(lambda v: v[0, 0], g), "tp")),
         in_specs=(spec,), out_specs=spec)
-    want = jax.tree_util.tree_map(np.asarray, f(tree))
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(f)(tree))
     for d in range(DP):
         for t in range(TP):
             got = results[_rank(d, t)]["sp_grads_dict"]
@@ -353,7 +369,7 @@ def test_broadcast_data_takes_tensor_rank_zero(run, mesh):
         lambda x: jtp.broadcast_data(["text"], {"text": x[0, 0]}, jnp.int32,
                                      "tp")["text"][None, None],
         in_specs=P("dp", "tp"), out_specs=P("dp", "tp"))
-    want = np.asarray(f(data))
+    want = np.asarray(jax.jit(f)(data))
     for d in range(DP):
         for t in range(TP):
             got = results[_rank(d, t)]["broadcast"]
@@ -486,7 +502,7 @@ def test_update_meta_over_the_tensor_axis_matches_jax_pmax(run, mesh):
 
     f = jcc.shard_over(per, in_specs=P("dp", "tp"),
                        out_specs=(P("dp", "tp"), P("dp", "tp")))
-    hist, scale = (np.asarray(a) for a in f(m["amax"]))
+    hist, scale = (np.asarray(a) for a in jax.jit(f)(m["amax"]))
     for d in range(DP):
         for t in range(TP):
             got_hist, got_scale = results[_rank(d, t)]["update_meta"]
@@ -529,7 +545,7 @@ def test_fp8_parallel_linears_share_the_amax_over_tp_as_jax(run, mesh):
              "b2": P()}
     f = jcc.shard_over(per, in_specs=(specs, P("dp")),
                        out_specs=(P("dp"), P("dp", "tp")))
-    y, metas = f({k: c[k] for k in specs}, c["x"])
+    y, metas = jax.jit(f)({k: c[k] for k in specs}, c["x"])
     y = np.asarray(y)
     for d in range(DP):
         for t in range(TP):
@@ -575,7 +591,7 @@ def test_all_reduce_gradients_predivide_matches_jax(run, mesh, average):
             j_arg(jax.tree_util.tree_map(lambda v: v[0, 0], g), "dp",
                   gradient_average=average, gradient_predivide_factor=2.0)),
         in_specs=(spec,), out_specs=spec)
-    want = jax.tree_util.tree_map(np.asarray, f(g))
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(f)(g))
     for d in range(DP):
         for t in range(TP):
             got = results[_rank(d, t)][f"all_reduce_gradients/avg={average}"]
@@ -617,7 +633,7 @@ def _jax_collective_outputs(x):
 
     f = jcc.shard_over(per, in_specs=P("dp", "tp"),
                        out_specs={k: P("dp", "tp") for k in calls})
-    return {k: np.asarray(v) for k, v in f(x).items()}
+    return {k: np.asarray(v) for k, v in jax.jit(f)(x).items()}
 
 
 @pytest.fixture(scope="module")
@@ -788,3 +804,18 @@ def test_launcher_reports_a_rank_that_raises():
     with pytest.raises(RuntimeError, match="rank one fails on purpose"):
         run_multiprocess(ranks.fail_on_rank_one, 2, timeout=60.0,
                          num_threads=1)
+
+
+def test_launcher_sends_the_arguments_as_they_were_at_the_call():
+    """The arguments are pickled before ``start_multiprocess`` returns: a
+    caller that changes one afterwards does not change what the ranks
+    get."""
+    cells = [1, 2]
+    inputs = {"x": np.arange(3.0)}
+    job = start_multiprocess(ranks.echo, 2, args=(cells, inputs),
+                             timeout=60.0, num_threads=1)
+    cells.append(3)
+    inputs["x"][:] = -1.0
+    for got_cells, got_inputs in job.join():
+        assert got_cells == [1, 2]
+        np.testing.assert_array_equal(got_inputs["x"], np.arange(3.0))

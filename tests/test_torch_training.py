@@ -99,7 +99,8 @@ def _check_gpt_against_jax(shape, use_flash_attention):
     jcfg = JaxConfig(**shape, hidden_dropout=0.0, attention_dropout=0.0,
                      tensor_axis=None)
     jmodel = JaxGPTModel(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(tokens))["params"]
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  jnp.asarray(tokens))["params"]
     # non-trivial biases and norm affines, so their grads are checked too
     params = jax.tree_util.tree_map(
         lambda x: jnp.asarray(np.asarray(x) + 0.05 * rng.standard_normal(

@@ -323,6 +323,11 @@ def hang(seconds):
     time.sleep(seconds)
 
 
+def echo(*args):
+    """This rank's arguments, as it received them."""
+    return args
+
+
 def fail_on_rank_one():
     """A rank that raises (the launcher's error report)."""
     if dist.get_rank() == 1:
