@@ -36,8 +36,9 @@ restores give each rank its own slice of a template placed by the same
 ``spec``.  The barriers are the process group's; none runs at world
 size 1 or without a group.
 
-Not ported: :func:`gather_zero_state` / :func:`scatter_zero_state`
-raise until ZeRO lands (ROADMAP.md, section A.5).
+:func:`gather_zero_state` / :func:`scatter_zero_state` turn a ZeRO
+optimizer's sharded state into the reference's portable form and back,
+at any data-parallel world size.
 """
 
 from __future__ import annotations
@@ -354,9 +355,14 @@ def _gather_full(x: torch.Tensor, place: _Place) -> torch.Tensor:
     from apex_tpu_torch.parallel import collectives as cc
 
     t = x.detach()
+    # 16-bit integers (the ZeRO remainders) cross as bf16 bit patterns:
+    # gloo moves no int16; a gather copies bytes and computes nothing
+    wire = torch.bfloat16 if t.dtype in (torch.int16, torch.uint16) else None
+    if wire is not None:
+        t = t.view(wire)
     for d, names in sorted(place.split.items()):
         t = cc.all_gather(t.contiguous(), names, concat_axis=d)
-    return t
+    return t if wire is None else t.view(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1023,20 +1029,172 @@ def _assemble_slice(shards, leaf_i, index, shape):
 
 
 # ---------------------------------------------------------------------------
-# ZeRO portability (not ported)
+# ZeRO (DistributedFusedAdam/LAMB) portability
 # ---------------------------------------------------------------------------
 
 
+def _gather_zero_flat(opt, state, params):
+    """The flat-bucket gather: bucket ``k``'s shards, all-gathered over
+    the scatter axes, are rows ``[k * rpb, (k + 1) * rpb)`` of the group
+    buffer, so the whole buffer is their concatenation, unflattened in
+    fp32 (with ``store_param_remainders`` each shard is first joined with
+    its rows of the bf16 parameters' high bits)."""
+    from apex_tpu_torch.contrib.optimizers import _flat_bucket as fbk
+    from apex_tpu_torch.contrib.optimizers.distributed_fused_adam import (
+        join_fp32,
+    )
+    from apex_tpu_torch.utils.tree import unflatten_from_chunked
+
+    cfg, lay = opt._cfg_now, opt._lay
+    own = opt._params()
+
+    def unpack(groups_bufs, transform=None):
+        out: List[Any] = [None] * len(own)
+        for group, bufs in zip(lay.groups, groups_bufs):
+            if transform is not None:
+                bufs = transform(bufs, group)
+            buf = fbk.bucket_all_gather(bufs, group, cfg)
+            meta = group.meta._replace(
+                dtypes=(torch.float32,) * len(group.indices))
+            for i, leaf in zip(group.indices,
+                               unflatten_from_chunked(buf, meta)):
+                out[i] = leaf
+        return opt._as_tree(params, out)
+
+    slots = {name: unpack(tree) for name, tree in state.slots.items()}
+    master = None
+    if state.master is not None:
+        if getattr(opt, "store_param_remainders", False):
+            # joined on each rank, so the gather moves fp32, not uint16
+            def join(lo_bufs, group):
+                hi = fbk.flatten_group(lay, group, own, dtype=torch.bfloat16)
+                return [join_fp32(h, lo) for h, lo in zip(
+                    fbk.local_slices(hi, group, lay.n_buckets,
+                                     fbk.flat_rank(cfg)), lo_bufs)]
+            master = unpack(state.master, transform=join)
+        else:
+            master = unpack(state.master)
+    return {"step": state.step, "slots": slots, "master": master}
+
+
+def _scatter_zero_flat(opt, portable, state_like, params):
+    """The inverse of :func:`_gather_zero_flat` into this rank's layout
+    (the world size of the optimizer's grid, which may differ from the
+    one that gathered): each group's full buffer packed from the portable
+    leaves, and this rank's rows of each bucket taken."""
+    from apex_tpu_torch.contrib.optimizers import _flat_bucket as fbk
+    from apex_tpu_torch.contrib.optimizers.distributed_fused_adam import (
+        split_fp32,
+    )
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    cfg, lay = opt._cfg_now, opt._lay
+    rank = fbk.flat_rank(cfg)
+    order = opt._leaf_index(params)
+
+    def pack(full_tree, groups_like, transform=None):
+        by_param: List[Any] = [None] * len(order)
+        for j, leaf in zip(order, tree_flatten(full_tree)[0]):
+            by_param[j] = torch.as_tensor(leaf)
+        out = []
+        for group, like in zip(lay.groups, groups_like):
+            buf = fbk.flatten_group(lay, group, by_param)
+            if transform is not None:
+                buf = transform(buf)
+            out.append([b.to(dtype=x.dtype, device=x.device, copy=True)
+                        for b, x in zip(fbk.local_slices(
+                            buf, group, lay.n_buckets, rank), like)])
+        return out
+
+    slots = {name: pack(portable["slots"][name], state_like.slots[name])
+             for name in state_like.slots}
+    master = None
+    if state_like.master is not None:
+        transform = ((lambda buf: split_fp32(buf)[1])
+                     if getattr(opt, "store_param_remainders", False)
+                     else None)
+        master = pack(portable["master"], state_like.master, transform)
+    return type(state_like)(step=torch.as_tensor(portable["step"]),
+                            slots=slots, master=master)
+
+
 def gather_zero_state(opt, state, params):
-    """Not ported: ZeRO (``DistributedFusedAdam``/``LAMB``) lands in
-    ROADMAP.md, section A.5."""
-    raise NotImplementedError(
-        "gather_zero_state: ZeRO optimizers are not ported yet "
-        "(ROADMAP.md, section A.5)")
+    """The portable (unsharded, fp32-master) state of a ZeRO optimizer,
+    the ``state_dict(gather_on_root=True)`` analog: ``{"step", "slots":
+    {name: tree like params}, "master": tree like params or None}``.
+
+    ``state`` is this rank's ``OptState`` (``opt.opt_state(params)``),
+    ``params`` a tree of the optimizer's parameters.  The shards are
+    all-gathered over the scatter axes, so every rank of the grid calls
+    it (a collective) and every rank gets the whole state.  The form is
+    the JAX package's and independent of the layout: a flat-bucket state
+    scatters into a per-leaf optimizer and back, at any world size, and
+    a state gathered by either package scatters in the other."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused_adam import (
+        join_fp32,
+        shard_leaf,
+        unshard_leaf,
+    )
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    if getattr(opt, "flat_bucket", False):
+        return _gather_zero_flat(opt, state, params)
+    p_leaves, treedef = tree_flatten(params)
+
+    def unshard(chunks):
+        return treedef([unshard_leaf(c.float(), p.shape, torch.float32,
+                                     opt.axis)
+                        for c, p in zip(tree_flatten(chunks)[0], p_leaves)])
+
+    slots = {name: unshard(tree) for name, tree in state.slots.items()}
+    master = None
+    if state.master is not None:
+        if getattr(opt, "store_param_remainders", False):
+            def join(lo, p):
+                hi = shard_leaf(p.detach(), opt.axis).to(torch.bfloat16)
+                return unshard_leaf(join_fp32(hi, lo), p.shape,
+                                    torch.float32, opt.axis)
+            master = treedef([join(lo, p) for lo, p in zip(
+                tree_flatten(state.master)[0], p_leaves)])
+        else:
+            master = unshard(state.master)
+    return {"step": state.step, "slots": slots, "master": master}
 
 
 def scatter_zero_state(opt, portable, state_like, params):
-    """Not ported: ZeRO lands in ROADMAP.md, section A.5."""
-    raise NotImplementedError(
-        "scatter_zero_state: ZeRO optimizers are not ported yet "
-        "(ROADMAP.md, section A.5)")
+    """The inverse of :func:`gather_zero_state`: this rank's ``OptState``
+    in the layout of ``state_like`` (``opt.opt_state(params)`` on the
+    live grid, whose world size may differ from the one that gathered),
+    as new tensors; load it with ``opt.load_opt_state``.  No
+    communication."""
+    from apex_tpu_torch.contrib.optimizers.distributed_fused_adam import (
+        shard_leaf,
+        split_fp32,
+    )
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    if getattr(opt, "flat_bucket", False):
+        return _scatter_zero_flat(opt, portable, state_like, params)
+
+    def shard(full_tree, like_tree, transform=None):
+        like, treedef = tree_flatten(like_tree)
+        out = []
+        for full, x in zip(tree_flatten(full_tree)[0], like):
+            chunk = shard_leaf(torch.as_tensor(full).to(
+                device=x.device, dtype=torch.float32), opt.axis)
+            if transform is not None:
+                chunk = transform(chunk)
+            out.append(chunk.to(x.dtype))
+        return treedef(out)
+
+    slots = {name: shard(portable["slots"][name], tree)
+             for name, tree in state_like.slots.items()}
+    master = None
+    if state_like.master is not None:
+        # the padding's fp32 zeros split into zero remainders
+        transform = ((lambda m: split_fp32(m)[1])
+                     if getattr(opt, "store_param_remainders", False)
+                     else None)
+        master = shard(portable["master"], state_like.master, transform)
+    return type(state_like)(step=torch.as_tensor(portable["step"]),
+                            slots=slots, master=master)

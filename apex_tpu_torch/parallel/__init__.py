@@ -9,12 +9,11 @@ reference's ``(dcn, dp, pp, cp, tp)`` grid with a process group per set
 of axes, :mod:`~apex_tpu_torch.parallel.collectives` runs the
 collectives over those axes by name,
 :class:`DistributedDataParallel` reduces the gradients over the data
-axes after the backward, and :class:`SyncBatchNorm` sums its statistics
-(and their gradients) over them; ``LARC`` is
-:class:`apex_tpu_torch.optimizers.LARC`, as in the reference.
-
-Not ported yet (ROADMAP.md, section A.5): ``zero_init`` and
-``zero_data_parallel_train_step``.
+axes after the backward, :func:`zero_init` and
+:func:`zero_data_parallel_train_step` drive the ZeRO optimizers, and
+:class:`SyncBatchNorm` sums its statistics (and their gradients) over
+them; ``LARC`` is :class:`apex_tpu_torch.optimizers.LARC`, as in the
+reference.
 """
 
 from apex_tpu_torch.optimizers.larc import LARC  # noqa: F401
@@ -28,6 +27,8 @@ from apex_tpu_torch.parallel.distributed import (  # noqa: F401
     grad_accumulation,
     host_dp_ranks,
     replicate,
+    zero_data_parallel_train_step,
+    zero_init,
 )
 from apex_tpu_torch.parallel.launch import initialize_distributed  # noqa: F401
 from apex_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -16,11 +16,11 @@ are :mod:`apex_tpu_torch.transformer.tensor_parallel.mappings`.
 The reference's functions run inside ``shard_map``, where each device
 holds its shard.  Here each rank simply holds its own shard, so the
 reference's JAX-sharding helpers have no counterpart: ``shard_over``
-(entering the per-shard world), ``named_sharding`` (placing a global
-array), and ``hierarchical_reduce_scatter``/``hierarchical_all_gather``
-(the two-tier ICI/DCN schedule of a sharded reduction); a rank reduces
-over ``("dcn", "dp")`` with :func:`reduce_scatter` and
-:func:`all_reduce` itself.
+(entering the per-shard world) and ``named_sharding`` (placing a global
+array).  :func:`hierarchical_reduce_scatter` /
+:func:`hierarchical_all_gather` are the two-tier schedule of a sharded
+reduction: a reduce-scatter over the inner axis, then an all-reduce of
+the shard over the outer (``dcn``) axis.
 
 ``CALLS`` counts, per kind, the collectives issued since the counts were
 last set to 0 (:func:`zero_counts`): each function adds one where it
@@ -46,6 +46,8 @@ __all__ = [
     "all_reduce_",
     "all_gather",
     "reduce_scatter",
+    "hierarchical_reduce_scatter",
+    "hierarchical_all_gather",
     "ppermute",
     "ppermute_many",
     "ppermute_start",
@@ -140,6 +142,35 @@ def reduce_scatter(x: torch.Tensor, axis: AxisName, *,
     dist.reduce_scatter(out, inputs, group=_group(axis))
     CALLS["reduce_scatter"] += 1
     return out
+
+
+def hierarchical_reduce_scatter(x: torch.Tensor, inner_axis: AxisName,
+                                outer_axis: Optional[str] = None, *,
+                                scatter_axis: int = 0,
+                                outer_reduce_dtype=None):
+    """Two-tier reduce-scatter: :func:`reduce_scatter` over
+    ``inner_axis``, then the shard summed over ``outer_axis`` with one
+    :func:`all_reduce_`, so it comes back summed over both and the same on
+    every rank of ``outer_axis``.  ``outer_reduce_dtype`` casts the shard
+    for the outer hop (``torch.bfloat16`` halves its bytes) and back.  The
+    outer hop is skipped when ``outer_axis`` is ``None``, unbound or of
+    size 1."""
+    shard = reduce_scatter(x, inner_axis, scatter_axis=scatter_axis)
+    if outer_axis is not None and bound_axis_size(outer_axis) > 1:
+        if outer_reduce_dtype is not None:
+            wire = all_reduce_(shard.to(outer_reduce_dtype), outer_axis)
+            shard = wire.to(shard.dtype)
+        else:
+            all_reduce_(shard, outer_axis)
+    return shard
+
+
+def hierarchical_all_gather(x: torch.Tensor, inner_axis: AxisName, *,
+                            concat_axis: int = 0, tiled: bool = True):
+    """The gather back of :func:`hierarchical_reduce_scatter`'s shards:
+    every rank of the outer axis already holds the same shard, so the
+    gather runs over ``inner_axis`` alone."""
+    return all_gather(x, inner_axis, concat_axis=concat_axis, tiled=tiled)
 
 
 def broadcast(x: torch.Tensor, axis: AxisName, root: int = 0):

@@ -12,8 +12,11 @@ module with those knobs and reduces its ``.grad`` after the backward in
 one flat all-reduce per gradient dtype; it issues them at every group
 size, one rank included.
 
-Not ported yet: the ZeRO pair ``zero_init`` /
-``zero_data_parallel_train_step`` (ROADMAP.md, section A.5).
+The ZeRO pair: :func:`zero_init` seeds a ZeRO optimizer's shards
+(``apex_tpu_torch.contrib.optimizers.DistributedFusedAdam`` / ``LAMB``)
+from the replicated parameters, and :func:`zero_data_parallel_train_step`
+feeds it the local, unreduced gradients, which its ``step``
+reduce-scatters, updates by shard and all-gathers back.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ __all__ = [
     "dp_shard_batch",
     "host_dp_ranks",
     "replicate",
+    "zero_init",
+    "zero_data_parallel_train_step",
 ]
 
 DP_AXES = (mesh_lib.DCN_AXIS, mesh_lib.DATA_AXIS)
@@ -284,3 +289,107 @@ def data_parallel_train_step(loss_fn: Callable, optimizer, *, mesh=None,
         return cc.all_reduce(total, axis, "mean")
 
     return step
+
+
+def zero_init(optimizer, params=None, mesh=None):
+    """Seed a ZeRO optimizer's sharded state from its (replicated)
+    parameters with no communication, each rank taking its own rows, and
+    return it as the reference's ``OptState`` (the optimizer's own
+    tensors; see ``opt_state``).  ``params`` is a tree of the optimizer's
+    parameters, the structure of a per-leaf state (``None``: the
+    parameter list); ``mesh`` is accepted for the reference's
+    signature."""
+    del mesh
+    optimizer.init_state()
+    return optimizer.opt_state(params)
+
+
+def zero_data_parallel_train_step(loss_fn: Callable, optimizer, *,
+                                  mesh=None, microbatches: int = 1,
+                                  scaler=None,
+                                  collect_stats: bool = False) -> Callable:
+    """The ZeRO data-parallel step: ``step(batch, lr=None) -> loss``.
+
+    ``loss_fn(batch)`` is this rank's scalar loss on its batch slice (a
+    closure over the model) and ``optimizer`` a ZeRO optimizer over the
+    model's parameters.  The step clears the gradients, runs the
+    backward of each of ``microbatches`` equal slices (scaled by ``1 /
+    microbatches``, accumulated with no collective), and steps the
+    optimizer on the local gradients: one reduce-scatter and one
+    all-gather a bucket.  The loss comes back averaged over the
+    data-parallel axes (``dcn`` and ``dp``).
+
+    ``scaler`` (an amp scaler algorithm, ``DynamicLossScale()``) arms the
+    non-finite sentinel: the loss is multiplied by the sentinel's scale,
+    the gradients' finite flag is agreed over those axes and the update is
+    skipped by a select on the device, with no host sync (parameters,
+    shards and step count keep their bits; the collectives still run):
+    ``step(batch, sentinel, lr=None) -> (sentinel, loss)``, the loss
+    unscaled (:func:`apex_tpu_torch.resilience.sentinel_init`).
+
+    ``collect_stats`` appends a ``TrainStats`` after the loss.  Its
+    cross-rank fields ride the loss's one all-reduce, widened to ``[loss,
+    grad sum of squares, non-finite leaves]``, so the step makes the
+    collectives the bare step makes and its parameters and state keep
+    the bare step's bits; ``grad_norm`` is over the stacked local
+    gradients, ``param_norm`` over the parameters before the update.
+    ``mesh`` is accepted for the reference's signature."""
+    del mesh
+    from apex_tpu_torch.observability import trainstats as ts
+
+    params = optimizer.param_groups[0]["params"]
+    n = microbatches
+
+    def backward(batch, scale=None):
+        optimizer.zero_grad(set_to_none=True)
+        total = None
+        for i in range(n):
+            loss = loss_fn(_microbatch(batch, i, n)) / n
+            (loss if scale is None else loss.float() * scale).backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        return total, [p.grad if p.grad is not None else torch.zeros_like(p)
+                       for p in params]
+
+    def world() -> int:
+        return cc.axis_size(DP_AXES)
+
+    if scaler is None:
+        def step(batch, lr: Optional[float] = None):
+            loss, grads = backward(batch)
+            if not collect_stats:
+                optimizer.step(lr=lr)
+                return cc.all_reduce(loss, DP_AXES, "mean")
+            red = cc.all_reduce(ts.pack_local_stats(loss, grads), DP_AXES,
+                                "sum")
+            loss, stats = ts.stats_from_reduced(red, world(), params)
+            optimizer.step(lr=lr)
+            return loss, stats
+
+        return step
+
+    from apex_tpu_torch.resilience.sentinel import (
+        guarded_optimizer_step,
+        sentinel_update,
+    )
+
+    def guarded_step(batch, sent, lr: Optional[float] = None):
+        # the scale this step's loss is multiplied by, taken before the
+        # sentinel's update may back it off
+        scale_used = sent.scaler.scale
+        loss, grads = backward(batch, scale_used)
+        if collect_stats:
+            red = cc.all_reduce(ts.pack_local_stats(loss, grads), DP_AXES,
+                                "sum")
+        finite, new_sent = sentinel_update(scaler, grads, sent, axes=DP_AXES)
+        if collect_stats:
+            # the norm of the parameters before the update
+            loss, stats = ts.stats_from_reduced(
+                red, world(), params, grad_scale=scale_used,
+                loss_scale=scale_used, skipped_steps=new_sent.skipped_steps)
+        guarded_optimizer_step(optimizer, finite, lr=lr,
+                               grad_scale=scale_used)
+        if not collect_stats:
+            return new_sent, cc.all_reduce(loss, DP_AXES, "mean")
+        return new_sent, loss, stats
+
+    return guarded_step

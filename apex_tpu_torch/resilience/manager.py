@@ -275,6 +275,27 @@ class CheckpointManager:
         except Exception:
             return True
 
+    def _bare_spec(self, step: int, spec):
+        """A spec built from ``mesh`` alone, given the leaf records of the
+        candidate's own spec that it lacks (the axes of the ZeRO state
+        and of every other split leaf are names, placed on the live
+        grid); ``spec`` as it is when the candidate's manifest is
+        missing, cannot be read or holds no spec (the restore then
+        raises the real error)."""
+        import zipfile
+
+        from apex_tpu_torch.resilience import reshard
+
+        try:
+            doc = self._manifest(step).get("sharding_spec")
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile,
+                ckpt.CheckpointCorruptError):
+            return spec
+        if doc is None:
+            return spec
+        return reshard.with_source_leaves(
+            spec, reshard.ShardingSpec.from_json(doc))
+
     def _manifest(self, step: int) -> dict:
         """One step's manifest without a checksum pass."""
         import json
@@ -312,7 +333,8 @@ class CheckpointManager:
         """
         if spec is None:
             spec = self.spec
-        if spec is None and mesh is not None:
+        bare = spec is None and mesh is not None
+        if bare:
             from apex_tpu_torch.resilience import reshard
 
             spec = reshard.build_spec(like, mesh=mesh)
@@ -324,8 +346,9 @@ class CheckpointManager:
                 try:
                     if verify:
                         self.verify(step)
-                    resharded = (spec is not None and not
-                                 self._template_matches(step, like, spec))
+                    cand = self._bare_spec(step, spec) if bare else spec
+                    resharded = (cand is not None and not
+                                 self._template_matches(step, like, cand))
                     # verify and restore are disjoint timeline intervals
                     with span("checkpoint/restore"), \
                             timeline.scope("checkpoint_restore", step=step,
@@ -334,13 +357,13 @@ class CheckpointManager:
                             from apex_tpu_torch.resilience import reshard
 
                             tree, at = reshard.restore_resharded(
-                                path, like, spec)
+                                path, like, cand)
                         elif self.sharded:
                             tree, at = ckpt.restore_checkpoint_sharded(
-                                path, like, spec=spec)
+                                path, like, spec=cand)
                         else:
                             tree, at = ckpt.restore_checkpoint(
-                                path, like, spec=spec)
+                                path, like, spec=cand)
                     if failures:
                         logger.warning(
                             "restore_latest fell back to step %d past %s",

@@ -1,5 +1,5 @@
 """Crash/resume trainer, the end-to-end resilience proof (port of the GPT
-leg of :mod:`apex_tpu.testing.crash_resume`).
+and ZeRO legs of :mod:`apex_tpu.testing.crash_resume`).
 
 A real run of the 3D-parallel GPT trainer (:func:`~apex_tpu_torch.
 transformer.testing.gpt_parallel_train.build_gpt_3d`, the sentinel armed,
@@ -37,13 +37,27 @@ this process's flash-kernel launches by route (tc, simt).  ``--fingerprint``
 writes the mesh-independent digest of the newest committed checkpoint
 (:func:`~apex_tpu_torch.resilience.reshard.load_logical`, one
 ``"{leaf} {dtype} {shape} {sha256}"`` line a leaf).  ``--device``
-defaults to ``cuda``.  Not ported: ``--zero`` (the ZeRO leg; ROADMAP.md,
-section A.5) and a grid of several ranks (one rank here).
+defaults to ``cuda``.
+
+``--zero`` runs the reference's ZeRO leg instead: a small least-squares
+fit (``w`` 13 x 7, ``b`` 7) under ``zero_data_parallel_train_step`` with
+``DistributedFusedAdam(flat_bucket=True, n_buckets=2)`` and the sentinel,
+on ``--devices`` data-parallel ranks (gloo on the CPU, NCCL on cards),
+each step's global batch of ``--global-batch`` rows drawn from ``(seed,
+step)`` and split over the ranks.  Its optimizer buckets are shaped by
+the world size, so a ``--resume`` at another ``--devices`` reshards them
+(:func:`~apex_tpu_torch.resilience.reshard.restore_resharded`).  With
+``--devices`` N > 1 the command starts N rank processes of itself (each
+killed with it) and waits for them; rank 0 writes the losses and the
+fingerprint.  The GPT leg runs one rank (``--tp`` / ``--pp`` and its
+elastic legs are not ported: ROADMAP.md, section A.2).
 
 Usage::
 
     python -m apex_tpu_torch.testing.crash_resume --ckpt-dir D \\
         --losses L --steps 6 --save-every 2 [--resume] [--config gpt124m]
+    python -m apex_tpu_torch.testing.crash_resume --zero --devices 4 \\
+        --device cpu --global-batch 8 --ckpt-dir D --losses L [--resume]
 """
 
 from __future__ import annotations
@@ -217,12 +231,26 @@ def main(argv=None) -> int:
                     help="sleep this many seconds after each step, a "
                          "deterministic window for an external killer")
     ap.add_argument("--zero", action="store_true",
-                    help="the ZeRO leg (not ported)")
+                    help="the flat-bucket ZeRO trainer instead of the GPT "
+                         "(data-parallel ranks only; its optimizer buckets "
+                         "are shaped by the world size)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="data-parallel ranks of the ZeRO leg (started "
+                         "as processes of this command)")
+    ap.add_argument("--global-batch", type=int, default=8,
+                    help="the ZeRO leg's rows a step, the same at any "
+                         "--devices")
     args = ap.parse_args(argv)
     if args.zero:
-        raise NotImplementedError(
-            "--zero: ZeRO optimizers are not ported yet (ROADMAP.md, "
-            "section A.5)")
+        if "CRASH_RESUME_LAUNCHER" in os.environ:
+            _die_with_parent()
+        elif args.devices > 1:
+            return _launch_ranks(sys.argv[1:] if argv is None else argv,
+                                 args.devices)
+        return _zero_leg(args)
+    if args.devices != 1:
+        raise SystemExit("the GPT leg runs one rank (--devices 1); "
+                         "several ranks are the --zero leg's")
 
     # before CUDA starts: cuBLAS picks deterministic workspaces
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -317,6 +345,165 @@ def main(argv=None) -> int:
         "fallback_depth": depth,
         "launches": _flash_launches()}}), flush=True)
     return 0
+
+
+def _die_with_parent() -> None:
+    """In a rank process: be killed when its launcher dies (Linux
+    ``PR_SET_PDEATHSIG``), so a SIGKILL of the command ends its ranks
+    too; a launcher already gone ends the rank at once."""
+    import ctypes
+    import signal
+
+    try:
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    except (OSError, AttributeError):
+        return
+    if os.getppid() != int(os.environ["CRASH_RESUME_LAUNCHER"]):
+        os._exit(1)
+
+
+def _launch_ranks(argv, n: int) -> int:
+    """Run ``n`` rank processes of this command (with the environment
+    :func:`~apex_tpu_torch.parallel.initialize_distributed` reads) and
+    wait; when one fails, the others are killed.  Returns the first
+    non-zero exit code, else 0."""
+    import socket
+    import subprocess
+    import time
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, COORDINATOR_ADDRESS=address,
+                   NUM_PROCESSES=str(n), PROCESS_ID=str(rank),
+                   CRASH_RESUME_LAUNCHER=str(os.getpid()))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "apex_tpu_torch.testing.crash_resume",
+             *argv], env=env))
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def _zero_leg(args) -> int:
+    """The ZeRO leg on this rank (see the module docstring)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._device import resolve_device
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.amp.scaler import DynamicLossScale
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.resilience import (
+        CheckpointManager,
+        PreemptionGuard,
+        reshard,
+        sentinel_init,
+    )
+
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    parallel.initialize_distributed(device=device)
+    try:
+        parallel.initialize_model_parallel()
+        dp = parallel.get_data_parallel_world_size()
+        if args.global_batch % dp:
+            raise SystemExit(f"global batch {args.global_batch} not "
+                             f"divisible by dp {dp}")
+        rank0 = dist.get_rank() == 0
+        gen = torch.Generator().manual_seed(0)
+        params = {"b": torch.zeros(7, device=device).requires_grad_(),
+                  "w": torch.randn(13, 7, generator=gen).to(device)
+                  .requires_grad_()}
+        opt = DistributedFusedAdam(tree_leaves(params), lr=1e-2,
+                                   flat_bucket=True, n_buckets=2)
+        parallel.zero_init(opt, params)
+        scaler = DynamicLossScale()
+        sent = sentinel_init(scaler, device)
+        step_fn = parallel.zero_data_parallel_train_step(
+            lambda b: torch.mean((b[0] @ params["w"] + params["b"] - b[1])
+                                 ** 2), opt, scaler=scaler)
+
+        def batch(i):
+            g = torch.Generator().manual_seed(args.seed * 1_000_003 + i)
+            x = torch.randn(args.global_batch, 13, generator=g)
+            y = torch.randn(args.global_batch, 7, generator=g)
+            return parallel.dp_shard_batch((x.to(device), y.to(device)))
+
+        def state():
+            return {"params": params, "opt": opt.opt_state(params),
+                    "sent": sent}
+
+        spec = reshard.build_spec(state(), mesh=parallel.get_mesh(),
+                                  zero_states=[("opt", opt, params)])
+        mgr = CheckpointManager(args.ckpt_dir, keep=args.keep,
+                                sharded=not args.flat, spec=spec)
+        start = 1
+        if args.resume:
+            try:
+                restored, at = mgr.restore_latest(state())
+            except FileNotFoundError as e:
+                if rank0:
+                    _truncate_losses(args.losses, 0)
+                print(f"crash_resume: no intact checkpoint ({e}); "
+                      "restarting from step 1", file=sys.stderr)
+            else:
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.copy_(restored["params"][k])
+                opt.load_opt_state(params, restored["opt"])
+                sent = restored["sent"]
+                start = at + 1
+                if rank0:
+                    _truncate_losses(args.losses, at)
+                    print(f"crash_resume: resumed from step {at}",
+                          file=sys.stderr)
+        guard = PreemptionGuard()
+        try:
+            for i in range(start, args.steps + 1):
+                sent, loss = step_fn(batch(i), sent)
+                if rank0:
+                    _append_loss(args.losses, i, float(loss))
+                if i % args.save_every == 0:
+                    mgr.save_async(state(), i)
+                if args.step_delay > 0:
+                    time.sleep(args.step_delay)
+                if guard.triggered:
+                    mgr.wait()
+                    if i % args.save_every:
+                        mgr.save(state(), i)
+                    print(f"crash_resume: preempted, drained and saved at "
+                          f"step {i}, clean exit", file=sys.stderr)
+                    return 0
+            mgr.wait()
+        finally:
+            guard.uninstall()
+        dist.barrier()
+        if args.fingerprint and rank0:
+            _write_fingerprint(args.fingerprint, mgr)
+        if rank0:
+            print(json.dumps({"crash_resume": {
+                "start": start, "steps": args.steps, "dp": dp,
+                "skipped_steps": int(sent.skipped_steps)}}), flush=True)
+        return 0
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
 
 
 def _flash_launches() -> dict:

@@ -372,12 +372,39 @@ Phases (any failure exits non-zero; none is caught):
    ``testing/data_resume.py``'s reference, SIGKILLed and resumed runs as
    child processes for both loader families, the resumed stream of
    batch hashes the reference's.
+20. ZeRO at world size 1 over NCCL (``zero_phase``): (a) GPT-124M at
+   phase 5's widths, weights and batch through
+   ``zero_data_parallel_train_step`` with
+   ``DistributedFusedAdam(flat_bucket=True, n_buckets=2)`` at phase
+   11's rate, 2 warm-up and 6 timed steps, against
+   ``data_parallel_train_step`` + FusedAdam from the same weights: each
+   loss within ``ZERO_LOSS_RTOL``, the parameters' largest difference
+   and whether they are bit for bit, 12 launches of F1-F3 a step (tc),
+   exactly ``ZERO_BUCKETS`` reduce-scatters and all-gathers per dtype
+   group per step and the loss's one all-reduce, the step time beside
+   the twin's (also in alternating blocks) and phase 11's, peak memory,
+   and the device time of the step's parts (the gradients' repack into
+   the ``(rows, 256)`` buffer, the reduce-scatters, the shard's update,
+   the all-gathers with the copy into the parameters); (b)
+   ``split_fp32`` / ``join_fp32`` over 2^20 random bit patterns, and one
+   ``store_param_remainders`` step of a bf16 copy of the model within
+   one bf16 ulp of the fp32-master step, its master bit for bit; (c)
+   ``DistributedFusedLAMB`` for 3 steps within ``ZERO_LAMB_TOL`` of
+   FusedLAMB; (d) the sentinel (``DynamicLossScale``) with one gradient
+   poisoned by inf: parameters, moments and shards bit-unchanged, one
+   skipped step, no synchronizing call in the step; (e)
+   ``collect_stats=True`` bit for bit the bare step, its stats within
+   ``ZERO_STATS_RTOL`` of the host's fp64; (f) ``gather_zero_state``, a
+   save and a restore through ``CheckpointManager``, then
+   ``scatter_zero_state`` into a fresh model: the resumed step bit for
+   bit the uninterrupted one.
 
 The lines before the last hold a ``{"fp8_gemms": {...}}``, a
 ``{"parallel": {...}}``, a ``{"pipeline": {...}}``, a
 ``{"context_moe": {...}}``, a ``{"serving_tp": {...}}``, a
 ``{"checkpoint": {...}}``, a ``{"resnet": {...}}``, a ``{"bert":
-{...}}``, a ``{"data": {...}}`` and a ``{"kernels": [...]}`` JSON object and
+{...}}``, a ``{"data": {...}}``, a ``{"zero": {...}}`` and a ``{"kernels":
+[...]}`` JSON object and
 the ``nvidia-smi`` name/power line; the last line is the JSON result.
 Exits at once, with no result, when ``torch.cuda.is_available()`` is
 false.
@@ -3292,6 +3319,7 @@ def parallel_train(torch, fa, cc, flash_first_loss, flash_step):
 
 
 AB_ROUNDS, AB_STEPS = 4, 4
+PHASE_STEP_MS = {}            # a path's step ms, for a later phase's line
 
 
 def step_ab(torch, name, step, batch):
@@ -3383,6 +3411,7 @@ def parallel_phase(torch, fa, F, flash_first_loss, flash_step):
     finally:
         parallel.destroy_model_parallel()
         dist.destroy_process_group()
+    PHASE_STEP_MS["parallel"] = step * 1e3
     log(json.dumps({"parallel": {
         "collectives": calls, "vocab_parallel_xent": xent,
         "step_ms": step * 1e3, "phase5_step_ms": flash_step * 1e3,
@@ -6147,10 +6176,11 @@ DECODE_BATCHES = 6                        # timed batches of each decode leg
 RESUME_FAMILIES = ("sequence", "image")
 
 
-def sync_warnings(torch, fn):
+def sync_warnings(torch, fn, sites=None):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
     result and the number of synchronizing calls it made (each one a
-    warning; the transfer thread's count as well)."""
+    warning; the transfer thread's count as well).  ``sites``, a list,
+    gets each call's ``file:line``."""
     import warnings
 
     torch.cuda.synchronize()
@@ -6161,8 +6191,13 @@ def sync_warnings(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    n = sum("synchroniz" in str(w.message) for w in seen)
-    return out, n
+    # (the one-time notice that the debug mode is a prototype names
+    # "synchronizing operations" too: it is not a call)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "debug mode is a prototype" not in str(w.message)]
+    if sites is not None:
+        sites.extend(f"{w.filename}:{w.lineno}" for w in syncs)
+    return out, len(syncs)
 
 
 def packed_gpt_run(torch, fa, prefix, collect):
@@ -6553,6 +6588,530 @@ def data_phase(torch, np, fa, synthetic_ips):
     return counts
 
 
+# -------------------------------------- phase 20: ZeRO at world size 1
+
+ZERO_BUCKETS = 2              # DistributedFusedAdam(n_buckets=2)
+ZERO_TIMED = 6                # timed ZeRO steps, after WARMUP_STEPS
+ZERO_LOSS_RTOL = 1e-6         # each loss against the FusedAdam twin's
+ZERO_LAMB_STEPS = 3
+ZERO_LAMB_TOL = 1e-5          # LAMB's parameters against FusedLAMB's
+# the witness's kernel: each element one fp32 ulp up
+ZERO_LAMB_MOVED = ("language_model.encoder.layers.0.self_attention."
+                   "query_key_value.kernel")
+ZERO_SPLIT_N = 1 << 20        # split/join round trip
+ZERO_STATS_RTOL = 1e-6        # the stats against the host's fp64
+
+
+def zero_model(torch, dtype=None, seed=0):
+    """GPT-124M at phase 5's widths and weights (bf16 compute; fp32
+    parameters unless ``dtype``) and its loss closure."""
+    from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
+        init_gpt_params,
+    )
+    from apex_tpu_torch.transformer.testing.standalone_gpt import GPTModel
+
+    cfg = gpt124m_train(torch, torch.bfloat16)
+    model = GPTModel(cfg, device="cuda")
+    model.load_params(init_gpt_params(cfg, seed, device="cuda"))
+    if dtype is not None:
+        model.to(dtype)
+    return model, lambda b: model(b, labels=b).mean()
+
+
+def zero_opt(torch, model, cls=None, **kw):
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    cls = cls or DistributedFusedAdam
+    opt = cls(list(model.parameters()), **kw)
+    parallel.zero_init(opt)
+    return opt
+
+
+def bits_equal(torch, a, b):
+    return all(torch.equal(x.detach().view(torch.int16)
+                           if x.dtype == torch.bfloat16 else x.detach(),
+                           y.detach().view(torch.int16)
+                           if y.dtype == torch.bfloat16 else y.detach())
+               for x, y in zip(a, b))
+
+
+def max_diff(torch, a, b):
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def state_bytes(state):
+    """The bytes of an ``OptState``'s tensors."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(state)
+               if hasattr(x, "element_size"))
+
+
+def timed_steps(torch, step, batch, n_warm, n_timed):
+    """The losses of ``n_warm + n_timed`` steps and the timed steps' mean
+    (host clock between synchronizations), s."""
+    losses = [step(batch) for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(batch) for _ in range(n_timed)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t0) / n_timed
+
+
+def zero_breakdown(torch, timer, opt):
+    """The device time of the ZeRO step's parts on the last step's
+    gradients (median of ``REPS``, L2 flushed): the repack of the
+    gradients into the ``(rows, 256)`` buffer, the reduce-scatters, the
+    Adam update of the shard, and the all-gathers with the copy into
+    the parameters; with the bytes each moves."""
+    from apex_tpu_torch.contrib.optimizers import _flat_bucket as fb
+    from apex_tpu_torch.optimizers._common import adam_apply
+
+    cfg, lay = opt._cfg_now, opt._lay
+    (group,) = lay.groups
+    params = opt._params()
+    grads = [p.grad for p in params]
+    g32 = fb.flatten_group(lay, group, grads)
+    z = opt._zero
+    m = [x.clone() for x in z["slots"]["exp_avg"][0]]
+    v = [x.clone() for x in z["slots"]["exp_avg_sq"][0]]
+    p32 = [x.clone() for x in z["master"][0]]
+    g_loc = fb.bucket_reduce_scatter(g32, group, cfg, lay.n_buckets)
+
+    @torch.no_grad()
+    def gather():
+        full = fb.bucket_all_gather(z["master"][0], group, cfg,
+                                    dtype=group.dtype)
+        torch._foreach_copy_(params, fb.group_leaf_views(lay, group, full))
+
+    buf_bytes = g32.numel() * 4
+    rec = {
+        "repack_ms": timer(lambda: fb.flatten_group(lay, group, grads)),
+        "reduce_scatter_ms": timer(lambda: fb.bucket_reduce_scatter(
+            g32, group, cfg, lay.n_buckets)),
+        "adam_ms": timer(lambda: adam_apply(
+            p32, g_loc, m, v, lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, wd=0.0,
+            bc1=0.5, bc2=0.5, adam_w_mode=True)),
+        "all_gather_ms": timer(gather),
+        "buffer_bytes": buf_bytes,
+        "rows": group.rows,
+    }
+    # least times: the repack reads and writes the buffer once, the
+    # one-rank collectives copy it, the gather copies it twice (into the
+    # gathered buffer, then into the parameters)
+    rec["repack_bound_ms"] = 2 * buf_bytes / HBM_BYTES_PER_S * 1e3
+    rec["all_gather_bound_ms"] = 4 * buf_bytes / HBM_BYTES_PER_S * 1e3
+    return rec
+
+
+def zero_adam_part(torch, fa, cc, timer):
+    """(a): the ZeRO Adam step against ``data_parallel_train_step`` +
+    FusedAdam from the same weights and batch."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    batch = parallel.dp_shard_batch(train_tokens(torch))
+    twin, twin_loss = zero_model(torch)
+    twin_opt = FusedAdam(twin.parameters(), lr=1e-4)
+    twin_step = parallel.data_parallel_train_step(twin_loss, twin_opt)
+    model, loss_fn = zero_model(torch)
+    opt = zero_opt(torch, model, lr=1e-4, flat_bucket=True,
+                   n_buckets=ZERO_BUCKETS)
+    step = parallel.zero_data_parallel_train_step(loss_fn, opt)
+    steps = WARMUP_STEPS + ZERO_TIMED
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    zero_flash_counts(fa)
+    cc.zero_counts()
+    losses, zero_s = timed_steps(torch, step, batch, WARMUP_STEPS,
+                                 ZERO_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    counts, calls = flash_counts(fa), dict(cc.CALLS)
+    routes = flash_route_counts(fa)
+    L = model.config.num_layers
+    check(all(c == L * steps for c in counts.values())
+          and routes == {"tc": (L * steps,) * 3, "simt": (0, 0, 0)},
+          f"zero: F1/F2/F3 launched {L} times per step, all on the tc "
+          f"route: {counts}, {routes}")
+    n_groups = len(opt._lay.groups)
+    want = {**{k: 0 for k in cc.CALLS},
+            "reduce_scatter": ZERO_BUCKETS * n_groups * steps,
+            "all_gather": ZERO_BUCKETS * n_groups * steps,
+            "all_reduce": steps}
+    check(calls == want, f"zero: {ZERO_BUCKETS} reduce-scatters and "
+          f"{ZERO_BUCKETS} all-gathers per dtype group ({n_groups}) and "
+          f"the loss's one all-reduce per step: {calls}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    twin_resident = torch.cuda.memory_allocated()
+    twin_losses, twin_s = timed_steps(torch, twin_step, batch, WARMUP_STEPS,
+                                      ZERO_TIMED)
+    twin_peak = torch.cuda.max_memory_allocated()
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]
+    check(max(rels) <= ZERO_LOSS_RTOL,
+          f"zero: each loss within {ZERO_LOSS_RTOL} of the FusedAdam "
+          f"twin's: {losses} against {twin_losses} (relative {rels})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"zero: the losses are finite and fall: {losses}")
+    ps, twin_ps = list(model.parameters()), list(twin.parameters())
+    rec = {"losses": losses, "twin_losses": twin_losses,
+           "max_loss_rel": max(rels),
+           "params_max_abs_diff": max_diff(torch, ps, twin_ps),
+           "params_bit_for_bit": bits_equal(torch, ps, twin_ps),
+           "step_ms": zero_s * 1e3, "twin_step_ms": twin_s * 1e3,
+           # each run's peak above what was allocated before it (both
+           # models live throughout; the twin's moments appear at its
+           # first step), and each optimizer's state
+           "peak_above_resident_gib": (peak - resident) / 2**30,
+           "twin_peak_above_resident_gib": (twin_peak - twin_resident)
+           / 2**30,
+           "state_gib": state_bytes(opt.opt_state()) / 2**30,
+           "twin_state_gib": state_bytes(twin_opt.opt_state(
+               list(twin.parameters()))) / 2**30,
+           "collectives": calls, "launches": counts,
+           "breakdown": zero_breakdown(torch, timer, opt)}
+    rec["ab"] = zero_ab(torch, lambda: twin_step(batch),
+                        lambda: step(batch))
+    log(f"zero[GPT-124M, DistributedFusedAdam n_buckets={ZERO_BUCKETS} at "
+        f"one NCCL rank, batch {TRAIN_BATCH} x {SEQ}]: step "
+        f"{rec['step_ms']:.3f} ms against the FusedAdam twin's "
+        f"{rec['twin_step_ms']:.3f} ms; peak above resident "
+        f"{rec['peak_above_resident_gib']:.2f} GiB (twin "
+        f"{rec['twin_peak_above_resident_gib']:.2f}), optimizer state "
+        f"{rec['state_gib']:.2f} GiB (twin {rec['twin_state_gib']:.2f}); "
+        f"losses within "
+        f"{rec['max_loss_rel']:.2e}; parameters max |diff| "
+        f"{rec['params_max_abs_diff']:.3e}, bit for bit "
+        f"{rec['params_bit_for_bit']}; collectives {calls}; breakdown "
+        f"{json.dumps(rec['breakdown'])}")
+    return rec, counts, (model, loss_fn, opt, batch)
+
+
+def zero_ab(torch, twin, zero):
+    """The twin's step and the ZeRO step in alternating blocks (twin,
+    zero, zero, twin per round): the blocks' ms a step and the medians."""
+    def block(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AB_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / AB_STEPS * 1e3
+
+    times = {"twin": [], "zero": []}
+    for _ in range(AB_ROUNDS):
+        for key, fn in (("twin", twin), ("zero", zero), ("zero", zero),
+                        ("twin", twin)):
+            times[key].append(block(fn))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"step A/B [FusedAdam twin, ZeRO; {AB_ROUNDS} rounds of blocks of "
+        f"{AB_STEPS} steps]: medians {med['twin']:.3f} / {med['zero']:.3f} "
+        f"ms ({(med['zero'] / med['twin'] - 1) * 100:+.2f}%); blocks "
+        f"{json.dumps(times)}")
+    return {"median_ms": med, "blocks_ms": times}
+
+
+def zero_remainder_part(torch):
+    """(b): ``split_fp32`` / ``join_fp32`` over 2^20 random bit patterns,
+    then one ``store_param_remainders`` step of a bf16 GPT-124M against
+    the fp32-master step on the same gradients."""
+    from apex_tpu_torch.contrib.optimizers import _flat_bucket as fb
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_adam as dfa
+    from apex_tpu_torch import parallel
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bits = torch.randint(-2**31, 2**31 - 1, (ZERO_SPLIT_N,), device="cuda",
+                         dtype=torch.int32, generator=gen)
+    hi, lo = dfa.split_fp32(bits.view(torch.float32))
+    back = dfa.join_fp32(hi, lo).view(torch.int32)
+    check(torch.equal(back, bits), "zero remainders: split/join round-trips "
+          f"{ZERO_SPLIT_N} fp32 bit patterns exactly")
+
+    batch = parallel.dp_shard_batch(train_tokens(torch))
+    rem_model, rem_loss = zero_model(torch, torch.bfloat16)
+    full_model, _ = zero_model(torch, torch.bfloat16)
+    rem = zero_opt(torch, rem_model, lr=1e-4, store_param_remainders=True,
+                   n_buckets=ZERO_BUCKETS)
+    full = zero_opt(torch, full_model, lr=1e-4, n_buckets=ZERO_BUCKETS)
+    rem_loss(batch).backward()
+    for p, q in zip(rem_model.parameters(), full_model.parameters()):
+        q.grad = p.grad.clone()
+    rem.step()
+    full.step()
+    ps, qs = list(rem_model.parameters()), list(full_model.parameters())
+    ps, qs = [p.detach() for p in ps], [q.detach() for q in qs]
+    max_rel = max(float(((p.float() - q.float()).abs()
+                      / q.float().abs().clamp_min(1e-30)).max())
+               for p, q in zip(ps, qs))
+    diff = [(p.float() - q.float()).abs() for p, q in zip(ps, qs)]
+    # one bf16 ulp of each value: truncation against rounding
+    one_ulp = all(bool((d <= q.float().abs() * 2.0 ** -7 + 1e-30).all())
+                  for d, q in zip(diff, qs))
+    check(one_ulp, "zero remainders: the bf16 + remainder step within one "
+          "bf16 ulp of the fp32-master step")
+    (group,) = rem._lay.groups
+    hi_full = fb.flatten_group(rem._lay, group, ps, dtype=torch.bfloat16)
+    joined = [dfa.join_fp32(h, lo) for h, lo in zip(
+        fb.bucket_slices(hi_full, group, rem._lay.n_buckets),
+        rem._zero["master"][0])]
+    same = bits_equal(torch, joined, full._zero["master"][0])
+    check(same, "zero remainders: the master they encode is the fp32 "
+          "master bit for bit")
+    rec = {"split_join_values": ZERO_SPLIT_N, "max_rel_param_diff": max_rel,
+           "within_one_bf16_ulp": one_ulp, "master_bit_for_bit": same}
+    log(f"zero remainders: {json.dumps(rec)}")
+    return rec
+
+
+def zero_lamb_part(torch):
+    """(c): DistributedFusedLAMB through the ZeRO step against FusedLAMB
+    on the same gradients: each step's gradients (the ZeRO model's) are
+    copied to the twin before it steps, so the optimizers are compared
+    and not the model's response to their rounding (a trust ratio's last
+    bit moves the bf16 forward, and the next step's tiny gradients then
+    change sign).  Beside it, the witness of that response: FusedLAMB
+    through ``data_parallel_train_step`` on its own gradients from the
+    same weights (the ZeRO model's distance to it), and from the same
+    weights with every element of one kernel one fp32 ulp up (its
+    distance to the unmoved one)."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    batch = parallel.dp_shard_batch(train_tokens(torch))
+    twin, _ = zero_model(torch)
+    twin_opt = FusedLAMB(twin.parameters(), lr=1e-4)
+    model, loss_fn = zero_model(torch)
+    step = parallel.zero_data_parallel_train_step(
+        loss_fn, zero_opt(torch, model, DistributedFusedLAMB, lr=1e-4,
+                          n_buckets=ZERO_BUCKETS))
+    own, own_loss = zero_model(torch)
+    moved, moved_loss = zero_model(torch)
+    kernel = dict(moved.named_parameters())[ZERO_LAMB_MOVED]
+    with torch.no_grad():
+        before = kernel.detach().clone()
+        kernel.copy_(torch.nextafter(kernel, torch.full_like(
+            kernel, float("inf"))))
+        crossed = int((kernel.bfloat16() != before.bfloat16()).sum())
+    del before
+    own_steps = [parallel.data_parallel_train_step(
+        f, FusedLAMB(m.parameters(), lr=1e-4))
+        for m, f in ((own, own_loss), (moved, moved_loss))]
+    losses = []
+    for _ in range(ZERO_LAMB_STEPS):
+        losses.append(float(step(batch)))
+        for p, q in zip(model.parameters(), twin.parameters()):
+            q.grad = p.grad.clone()
+        twin_opt.step()
+        for s in own_steps:
+            s(batch)
+    diff = max_diff(torch, model.parameters(), twin.parameters())
+    check(diff <= ZERO_LAMB_TOL, f"zero LAMB: parameters within "
+          f"{ZERO_LAMB_TOL} of FusedLAMB's after {ZERO_LAMB_STEPS} steps "
+          f"(max |diff| {diff:.3e})")
+    rec = {"losses": losses, "params_max_abs_diff": diff,
+           "params_bit_for_bit": bits_equal(torch, model.parameters(),
+                                            twin.parameters()),
+           "witness": {
+               "zero_vs_fused_own_grads": max_diff(
+                   torch, model.parameters(), own.parameters()),
+               "fused_vs_fused_one_ulp": max_diff(
+                   torch, own.parameters(), moved.parameters()),
+               "moved": ZERO_LAMB_MOVED, "moved_elements": kernel.numel(),
+               "moved_across_bf16": crossed}}
+    log(f"zero LAMB: {json.dumps(rec)}")
+    return rec
+
+
+def zero_sentinel_part(torch, model, loss_fn, opt, batch):
+    """(d): the sentinel step with one gradient poisoned by inf: the
+    parameters and the shards keep their bits, one skipped step, and no
+    synchronizing call inside the step."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.amp.scaler import DynamicLossScale
+    from apex_tpu_torch.resilience import sentinel_init
+
+    scaler = DynamicLossScale()
+    sent = sentinel_init(scaler, "cuda")
+    step = parallel.zero_data_parallel_train_step(loss_fn, opt,
+                                                  scaler=scaler)
+    sent, _ = step(batch, sent)                 # a clean step first
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    def state():
+        st = opt.opt_state()
+        return params + [x for g in list(st.slots.values()) + [st.master]
+                         for bufs in g for x in bufs]
+
+    before = [x.detach().clone() for x in state()]
+    victim = params[len(params) // 2]
+    hook = victim.register_hook(
+        lambda g: g.index_fill(0, torch.zeros(1, dtype=torch.long,
+                                              device=g.device),
+                               float("inf")))
+    sites = []
+    try:
+        (new_sent, loss), syncs = sync_warnings(
+            torch, lambda: step(batch, sent), sites)
+    finally:
+        hook.remove()
+    unchanged = bits_equal(torch, before, state())
+    skipped = int(new_sent.skipped_steps)
+    check(unchanged, "zero sentinel: the overflow step leaves the "
+          "parameters, moments and master shards bit-unchanged")
+    check(skipped == 1, f"zero sentinel: one skipped step ({skipped})")
+    check(syncs == 0, f"zero sentinel: no synchronizing call inside the "
+          f"step ({syncs}: {sites})")
+    rec = {"bit_unchanged": unchanged, "skipped_steps": skipped,
+           "syncs": syncs, "scale_after": float(new_sent.scaler.scale)}
+    log(f"zero sentinel: {json.dumps(rec)}")
+    return rec
+
+
+def zero_stats_part(torch):
+    """(e): the ZeRO step with ``collect_stats`` bit for bit the bare
+    step (losses, parameters, shards), two steps from the same weights;
+    the second step's stats against the host's fp64."""
+    from apex_tpu_torch import parallel
+
+    batch = parallel.dp_shard_batch(train_tokens(torch))
+    runs = {}
+    for collect in (False, True):
+        model, loss_fn = zero_model(torch)
+        opt = zero_opt(torch, model, lr=1e-4, n_buckets=ZERO_BUCKETS)
+        step = parallel.zero_data_parallel_train_step(
+            loss_fn, opt, collect_stats=collect)
+        out = step(batch)
+        torch.cuda.synchronize()
+        snap = [p.detach().double().cpu() for p in model.parameters()]
+        out = step(batch)
+        runs[collect] = (model, opt, out, snap)
+    (bare, bopt, bloss, _), (inst, iopt, (iloss, stats), snap) = \
+        runs[False], runs[True]
+    same = (bits_equal(torch, bare.parameters(), inst.parameters())
+            and bits_equal(torch, bopt.opt_state().master[0],
+                           iopt.opt_state().master[0])
+            and bits_equal(torch, [bloss], [iloss]))
+    check(same, "zero stats: the instrumented step is bit for bit the bare "
+          "step")
+    grads = [p.grad.detach().double().cpu() for p in inst.parameters()]
+    want = {"loss": float(iloss),
+            "grad_norm": math.sqrt(sum(float((g * g).sum())
+                                       for g in grads)),
+            "param_norm": math.sqrt(sum(float((p * p).sum())
+                                        for p in snap)),
+            "nonfinite_leaves": 0, "loss_scale": 1.0, "skipped_steps": 0}
+    rec = {}
+    for name, value in want.items():
+        mine = float(getattr(stats, name))
+        rel = abs(mine - value) / max(abs(value), 1e-30)
+        rec[name] = {"stats": mine, "host": value, "rel": rel}
+        check(rel <= ZERO_STATS_RTOL, f"zero stats {name}: {mine!r} against "
+              f"the host's {value!r} (relative {rel:.3e})")
+    log(f"zero stats: {json.dumps(rec)}")
+    return {"bit_for_bit": same, "stats": rec}, (bare, bopt, batch)
+
+
+def zero_resume_part(torch, bare, bopt, batch):
+    """(f): the portable state (``gather_zero_state``) and the parameters
+    saved through ``CheckpointManager`` and restored into a fresh model
+    and optimizer (other weights), ``scatter_zero_state`` and
+    ``load_opt_state``; the resumed step bit for bit the uninterrupted
+    one."""
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.resilience import CheckpointManager
+
+    names = [n for n, _ in bare.named_parameters()]
+    root = tempfile.mkdtemp(prefix="apex_zero_phase_")
+    try:
+        params = dict(bare.named_parameters())
+        portable = ckpt.gather_zero_state(bopt, bopt.opt_state(params),
+                                          params)
+        mgr = CheckpointManager(root, keep=1)
+        t0 = time.perf_counter()
+        mgr.save({"params": params, "zero": portable}, 2)
+        save_s = time.perf_counter() - t0
+        model, loss_fn = zero_model(torch, seed=1)
+        opt = zero_opt(torch, model, lr=1e-4, n_buckets=ZERO_BUCKETS)
+        fresh = dict(model.named_parameters())
+        like = {"params": fresh,
+                "zero": ckpt.gather_zero_state(opt, opt.opt_state(fresh),
+                                               fresh)}
+        t0 = time.perf_counter()
+        restored, at = mgr.restore_latest(like)
+        restore_s = time.perf_counter() - t0
+        check(at == 2, f"zero resume: restored step {at}")
+        with torch.no_grad():
+            for n in names:
+                fresh[n].copy_(restored["params"][n])
+        opt.load_opt_state(fresh, ckpt.scatter_zero_state(
+            opt, restored["zero"], opt.opt_state(fresh), fresh),
+            step_on_device=False)
+        step = parallel.zero_data_parallel_train_step(
+            lambda b: bare(b, labels=b).mean(), bopt)
+        resumed = parallel.zero_data_parallel_train_step(loss_fn, opt)
+        want, got = step(batch), resumed(batch)
+        same = (bits_equal(torch, [want], [got])
+                and bits_equal(torch, bare.parameters(), model.parameters())
+                and bits_equal(torch, bopt.opt_state().master[0],
+                               opt.opt_state().master[0]))
+        check(same, "zero resume: the resumed step is bit for bit the "
+              "uninterrupted one")
+        rec = {"bit_for_bit": same, "save_s": save_s,
+               "restore_s": restore_s, "loss": float(got)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"zero resume: {json.dumps(rec)}")
+    return rec
+
+
+def zero_phase(torch, fa):
+    """Phase 20: ZeRO (``DistributedFusedAdam`` / ``LAMB``,
+    ``zero_data_parallel_train_step``, the portable checkpoints) at world
+    size 1 over a real NCCL process group; returns (a)'s flash
+    launches."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import collectives as cc
+    from apex_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    launch.initialize_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0,
+                                  backend="nccl")
+    rec = {"card": card_line()}
+    try:
+        check(dist.get_backend() == "nccl", "an NCCL process group")
+        parallel.initialize_model_parallel(1, 1)
+        rec["adam"], counts, (model, loss_fn, opt, batch) = zero_adam_part(
+            torch, fa, cc, Timer(torch))
+        rec["adam"]["phase11_step_ms"] = PHASE_STEP_MS.get("parallel")
+        rec["sentinel"] = zero_sentinel_part(torch, model, loss_fn, opt,
+                                             batch)
+        del model, loss_fn, opt
+        rec["remainders"] = zero_remainder_part(torch)
+        rec["lamb"] = zero_lamb_part(torch)
+        rec["stats"], (bare, bopt, batch) = zero_stats_part(torch)
+        rec["resume"] = zero_resume_part(torch, bare, bopt, batch)
+        del bare, bopt
+    finally:
+        parallel.destroy_model_parallel()
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"zero": rec}))
+    log(f"phase 20 (ZeRO at world size 1): {rec['seconds']:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -6730,6 +7289,8 @@ def main():
     results.update(recs)
     for k, v in data_phase(torch, np, fa,
                            rn50["o2_sgd"]["images_per_s"]).items():
+        launches[k] += v
+    for k, v in zero_phase(torch, fa).items():
         launches[k] += v
 
     flash_source = "apex_tpu_torch/csrc/flash_attention.cu"

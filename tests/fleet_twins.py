@@ -30,7 +30,22 @@ the router and the replicas, so nothing crosses while it waits; when
 the frames it aimed at had all crossed already (a loaded machine), the
 proxy gave up after ``wait_s`` and left the link whole, and the scenario
 saw no reconnect.  Here a link not cut in that time stays marked and is
-cut at the next frame that does cross, after the wait returns.
+cut at the next frame that does cross, after the wait returns, and the
+wait is :data:`CUT_WAIT_S`: with the replicas paced (below) no frame is
+left in flight for it to catch.
+
+Both sides' socket replicas are paced (:func:`_paced_served`,
+:func:`_prompt_server`).  A ``TransportServer`` takes the events a tick
+queued only when its select loop next wakes (every ``poll_s``, 5 ms by
+default, later when a loaded machine schedules its thread late), so the
+ticks of several loop turns left in one burst: a six-token request could
+reach the router whole in one pump, and a scenario that arms a fault at
+the first token (``test_bad_frame_counted_and_classified_replica_
+failure``) found the request finished before it could arm ("fault never
+armed mid-stream").  Here the servers wake every 0.5 ms, and a
+``ServedFake.tick`` returns once its live server has taken the tick's
+events off the queue (within a second), so each tick's events leave
+before the next tick makes more, whatever the machine's load.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import itertools
 import pathlib
 import re
 import sys
+import time
 import types
 from typing import Any, Dict, List, Tuple
 
@@ -151,6 +167,9 @@ def _tapped_func(fn, name):
     return tap
 
 
+CUT_WAIT_S = 0.05              # drop_connections' wait before it defers
+
+
 def _deferred_cut(cls):
     """``cls`` (either side's ``ChaosProxy``) whose ``drop_connections``
     still cuts, at their next frame, the links it could not cut while it
@@ -159,7 +178,7 @@ def _deferred_cut(cls):
         def drop_connections(self, *, wait_s: float = 5.0) -> None:
             with self._lock:
                 live = [p for p in self._pairs if not p.closed]
-            super().drop_connections(wait_s=wait_s)
+            super().drop_connections(wait_s=min(wait_s, CUT_WAIT_S))
             with self._lock:
                 self._doomed = [p for p in getattr(self, "_doomed", [])
                                 + live if not p.closed]
@@ -182,6 +201,45 @@ def _deferred_cut(cls):
     return DeferredCut
 
 
+PACE_POLL_S = 0.0005          # the paced servers' select timeout
+PACE_WAIT_S = 1.0             # the longest a tick waits for its server
+
+
+def _prompt_server(cls):
+    """``cls`` (either side's ``TransportServer``) with ``poll_s``
+    defaulting to :data:`PACE_POLL_S`."""
+    class Prompt(cls):
+        def __init__(self, *a, **k):
+            k.setdefault("poll_s", PACE_POLL_S)
+            super().__init__(*a, **k)
+
+    Prompt.__name__ = cls.__name__
+    Prompt.__qualname__ = cls.__qualname__
+    Prompt.__module__ = cls.__module__
+    return Prompt
+
+
+def _paced_served(cls):
+    """``cls`` (either side's ``ServedFake``) whose ``tick`` returns once
+    its live server has taken the tick's events off the queue (see the
+    module docstring)."""
+    class Paced(cls):
+        def tick(self):
+            super().tick()
+            deadline = time.monotonic() + PACE_WAIT_S
+            while (not self._closed and not self.evt_q.empty()
+                   and time.monotonic() < deadline):
+                time.sleep(0.0002)
+
+    Paced.__name__ = cls.__name__
+    Paced.__qualname__ = cls.__qualname__
+    Paced.__module__ = cls.__module__
+    return Paced
+
+
+_PACED = {"ChaosProxy": _deferred_cut, "TransportServer": _prompt_server,
+          "ServedFake": _paced_served}
+
 _CLASSES = {"FleetRouter": ("router", ()),
             "FakeReplica": ("replica", ()),
             "FleetAutopilot": ("autopilot", ()),
@@ -196,12 +254,13 @@ def _patched(side: str):
     for (_, s), mod in _LOADED.items():
         if s != side:
             continue
-        proxy = mod.__dict__.get("ChaosProxy")
-        if isinstance(proxy, type):
-            if proxy not in made:
-                made[proxy] = _deferred_cut(proxy)
-            saved.append((mod, "ChaosProxy", proxy))
-            mod.__dict__["ChaosProxy"] = made[proxy]
+        for attr, wrap in _PACED.items():
+            cls = mod.__dict__.get(attr)
+            if isinstance(cls, type):
+                if cls not in made:
+                    made[cls] = wrap(cls)
+                saved.append((mod, attr, cls))
+                mod.__dict__[attr] = made[cls]
         for attr, (kind, methods) in _CLASSES.items():
             cls = mod.__dict__.get(attr)
             if isinstance(cls, type):

@@ -7,8 +7,12 @@ restored by the other, flat and sharded, sync and async, with the two
 packages' manifests (leaf paths, shapes, dtypes) and crc32s equal; bf16
 leaves (the port's round trip, and the port reading the reference's
 file, which the reference itself cannot restore: ROADMAP.md section C);
-and the twins of ``tests/test_checkpoint.py`` (but its ZeRO cases, which
-wait for ZeRO, section A.5).
+and the twins of ``tests/test_checkpoint.py``.  ZeRO at one rank
+against the JAX package at dp 4 (one jitted program): the portable state
+of ``gather_zero_state`` over remainders x flat buckets equals the
+reference's, scatters back bit for bit, crosses between the packages
+both ways, and resumes bit for bit; a flat-bucket ZeRO checkpoint
+written by either package restores, resharded, in the other.
 
 Across four ranks: one module-scoped fixture writes the reference's
 sharded and flat checkpoints of a GPT train state (params, an
@@ -70,6 +74,7 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
 import torch_checkpoint_ranks as ranks
 from test_torch_serving import GPT, WAVE, _jax_tree
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_world import world1  # noqa: F401
 
 SERVING = dict(max_batch=3, block_size=4, max_seq=32, prefill_len=6,
                n_blocks=16)
@@ -405,7 +410,8 @@ def _jax_pack(tree, slots, mesh):
 def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("ckpt4")
     d = {k: str(root / k) for k in ("ref_sharded", "port_sharded",
-                                    "port_async", "port_mgr")}
+                                    "port_async", "port_mgr",
+                                    "port_split")}
     d.update(ref_flat=str(root / "ref_flat.npz"),
              port_flat=str(root / "port_flat.npz"))
     jcfg = JaxTransformerConfig(**GPT, hidden_dropout=0.0,
@@ -560,6 +566,15 @@ def test_reference_checkpoint_restores_at_world_size_one(run):
     assert int(got["opt"].step) == 3
 
 
+def test_ranks_target_spec_places_a_leaf_the_source_split(run):
+    """A leaf the source split over dp, restored with a target spec that
+    gives it no record, comes back whole on every rank of the dp 2 x tp
+    2 grid: ``restore_resharded`` places each leaf by the spec it is
+    given and takes no axes from the source's."""
+    for r in run["ranks"]:
+        assert r["replicated_from_split"] == (2, True), r["rank"]
+
+
 def test_ranks_serve_the_trained_checkpoint_as_jax_at_tp2(run):
     """``restore_gpt_for_serving`` of the port's four-rank training
     checkpoint onto a tp 2 grid serves the wave token for token as JAX's
@@ -569,3 +584,226 @@ def test_ranks_serve_the_trained_checkpoint_as_jax_at_tp2(run):
         assert r["serving_stack"] == [GPT["num_layers"], 1,
                                       GPT["hidden_size"]]
         assert r["streams"] == run["streams"], r["rank"]
+
+
+# ---------------------------------------------------------------- ZeRO
+
+ZERO_COMBOS = [(rem, flat) for flat in (True, False) for rem in (False, True)]
+
+
+def _zero_numpy(seed=0):
+    rng = np.random.RandomState(seed)
+    params = {"w": rng.randn(13, 7), "b": rng.randn(8)}
+    grads = {"w": rng.randn(13, 7), "b": rng.randn(8)}
+    def bf16(v):
+        return torch.from_numpy(v.astype(np.float32)).bfloat16().float() \
+            .numpy()
+
+    # bf16 gradient values: a bf16 model's gradients on both sides
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            {k: bf16(v) for k, v in params.items()},
+            {k: bf16(v) for k, v in grads.items()})
+
+
+def _zero_kw(rem, flat):
+    return dict(lr=1e-2, store_param_remainders=rem, flat_bucket=flat,
+                n_buckets=2)
+
+
+def _port_zero(rem, flat, steps=2):
+    """The port's optimizer over fresh parameters, ``steps`` steps of the
+    fixed gradients: ``(opt, params, grads)``."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    f32, b16, g = _zero_numpy()
+    dtype = torch.bfloat16 if rem else torch.float32
+    params = {k: torch.from_numpy(b16[k] if rem else f32[k]).to(dtype)
+              .requires_grad_() for k in f32}
+    opt = DistributedFusedAdam(tree_leaves(params), **_zero_kw(rem, flat))
+    grads = {k: torch.from_numpy(v) for k, v in g.items()}
+    _port_zero_steps(opt, params, grads, steps)
+    return opt, params, grads
+
+
+def _port_zero_steps(opt, params, grads, steps):
+    for _ in range(steps):
+        for k, p in params.items():
+            p.grad = grads[k].to(p.dtype)
+        opt.step()
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(
+        lambda x: x.detach().float().numpy() if isinstance(x, torch.Tensor)
+        and x.dtype == torch.bfloat16 else _as_np(x), tree,
+        is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+@pytest.fixture(scope="module")
+def jax_zero():
+    """The JAX package's DistributedFusedAdam at dp 4, each combination
+    two steps from the same weights and gradients (the same on every
+    rank), in one jitted program: ``{(rem, flat): (opt, params, state,
+    portable)}``."""
+    from apex_tpu.contrib.optimizers import DistributedFusedAdam as JAdam
+    from apex_tpu.parallel import collectives as jcc
+
+    f32, b16, g = _zero_numpy()
+    opts = {c: JAdam(**_zero_kw(*c)) for c in ZERO_COMBOS}
+    params = {c: {k: jnp.asarray(b16[k] if c[0] else f32[k],
+                                 jnp.bfloat16 if c[0] else jnp.float32)
+                  for k in f32} for c in ZERO_COMBOS}
+    grads = {k: jnp.asarray(v) for k, v in g.items()}
+
+    def local(params, grads):
+        out = {}
+        for c in ZERO_COMBOS:
+            p, opt = params[c], opts[c]
+            s = opt.init(p)
+            for _ in range(2):
+                p, s = opt.step(grads, s, p)
+            out[c] = (p, s)
+        return out
+
+    try:
+        jparallel.initialize_model_parallel(devices=jax.devices()[:4])
+        out = jax.jit(jcc.shard_over(
+            local, in_specs=(JP(), JP()),
+            out_specs={c: (JP(), opts[c].state_partition_specs(params[c]))
+                       for c in ZERO_COMBOS}))(params, grads)
+        return {c: (opts[c], out[c][0], out[c][1],
+                    jck.gather_zero_state(opts[c], out[c][1], out[c][0]))
+                for c in ZERO_COMBOS}
+    finally:
+        jparallel.destroy_model_parallel()
+
+
+def _portable_close(got, want, what):
+    assert int(np.asarray(got["step"])) == int(np.asarray(want["step"]))
+    for name in ("slots", "master"):
+        a = jax.tree_util.tree_leaves(_np_tree(got[name]))
+        b = [np.asarray(x) for x in jax.tree_util.tree_leaves(want[name])]
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and x.dtype == y.dtype == np.float32
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("rem, flat", ZERO_COMBOS)
+def test_zero_state_gather_scatter(world1, jax_zero, rem, flat):
+    """The portable ZeRO state (``test_checkpoint.py``'s twin): every slot
+    leaf shaped as its parameter, an fp32 master; the reference's own at
+    dp 4 within 1e-5; scattered back bit for bit; each package's portable
+    state scatters in the other; and a resume from the scattered state
+    is the uninterrupted run bit for bit."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    opt, params, grads = _port_zero(rem, flat)
+    s1 = opt.opt_state(params)
+    portable = ckpt.gather_zero_state(opt, s1, params)
+    for name, tree in portable["slots"].items():
+        for k, p in params.items():
+            assert tuple(tree[k].shape) == tuple(p.shape)
+    assert all(x.dtype == torch.float32
+               for x in tree_leaves(portable["master"]))
+    jopt, jp, js, jportable = jax_zero[(rem, flat)]
+    _portable_close(portable, jportable, f"portable rem={rem} flat={flat}")
+
+    back = ckpt.scatter_zero_state(opt, portable, s1, params)
+    for a, b in zip(tree_leaves(s1), tree_leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(_as_np(a), _as_np(b))
+
+    # the reference's portable state, scattered by the port, and the
+    # port's, scattered by the reference
+    theirs = ckpt.scatter_zero_state(opt, jax.tree_util.tree_map(
+        lambda x: torch.from_numpy(np.array(x)), jportable), s1, params)
+    for a, b in zip(tree_leaves(theirs), tree_leaves(s1)):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.uint16:
+            continue                      # held through the join below
+        np.testing.assert_allclose(_as_np(a), _as_np(b), rtol=1e-5, atol=1e-6)
+    mine_in_jax = jck.scatter_zero_state(
+        jopt, jax.tree_util.tree_map(jnp.asarray, _np_tree(portable)), js, jp)
+    _portable_close(ckpt.gather_zero_state(opt, theirs, params),
+                    jck.gather_zero_state(jopt, mine_in_jax, jp),
+                    "crossed scatters")
+
+    # resume: a fresh optimizer over a copy of the parameters loads the
+    # scattered state; two more steps each
+    resumed = {k: p.detach().clone().requires_grad_()
+               for k, p in params.items()}
+    opt_r = DistributedFusedAdam(tree_leaves(resumed), **_zero_kw(rem, flat))
+    opt_r.load_opt_state(resumed, ckpt.scatter_zero_state(
+        opt_r, portable, opt_r.opt_state(resumed), resumed))
+    _port_zero_steps(opt, params, grads, 2)
+    _port_zero_steps(opt_r, resumed, grads, 2)
+    for a, b in zip(tree_leaves(params) + tree_leaves(opt.opt_state(params)),
+                    tree_leaves(resumed)
+                    + tree_leaves(opt_r.opt_state(resumed))):
+        np.testing.assert_array_equal(_as_np(a.detach().view(torch.int16)
+                                             if a.dtype == torch.bfloat16
+                                             else a.detach()),
+                                      _as_np(b.detach().view(torch.int16)
+                                             if b.dtype == torch.bfloat16
+                                             else b.detach()))
+
+
+def _port_zero_pack(opt, params):
+    from apex_tpu_torch.parallel import get_mesh
+
+    pack = {"opt": opt.opt_state(params), "params": params}
+    return pack, build_spec(pack, mesh=get_mesh(),
+                            zero_states=[("opt", opt, params)])
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_zero_checkpoint_crosses_the_packages(world1, jax_zero, tmp_path,
+                                              writer):
+    """A flat-bucket ZeRO train state written by one package (the JAX
+    package at dp 4, sharded; the port at one rank, flat) restores,
+    resharded onto the other's world, and its logical view (every bucket
+    group unflattened to its leaves) is the written one bit for bit."""
+    from apex_tpu_torch.resilience import reshard
+
+    opt, params, _ = _port_zero(False, True)
+    pack, spec = _port_zero_pack(opt, params)
+    jopt, jp, js, _ = jax_zero[(False, True)]
+    src = str(tmp_path / "src")
+    dst = str(tmp_path / "dst")
+    if writer == "jax":
+        try:
+            mesh = jparallel.initialize_model_parallel(
+                devices=jax.devices()[:4])
+            jpack = {"opt": js, "params": jp}
+            jck.save_checkpoint_sharded(
+                src, jpack, step=2,
+                spec=jreshard.build_spec(jpack, mesh=mesh,
+                                         zero_states=[("opt", jopt, jp)]))
+        finally:
+            jparallel.destroy_model_parallel()
+        restored, at = restore_resharded(src, pack, spec)
+        assert at == 2
+        for a, b in zip(tree_leaves(restored), tree_leaves(pack)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+        ckpt.save_checkpoint(dst, restored, step=2, spec=spec)
+    else:
+        ckpt.save_checkpoint(src, pack, step=2, spec=spec)
+        try:
+            mesh = jparallel.initialize_model_parallel(
+                devices=jax.devices()[:4])
+            jpack = {"opt": js, "params": jp}
+            jspec = jreshard.build_spec(jpack, mesh=mesh,
+                                        zero_states=[("opt", jopt, jp)])
+            restored, at = jreshard.restore_resharded(src, jpack, jspec)
+            assert at == 2
+            jck.save_checkpoint_sharded(dst, restored, step=2, spec=jspec)
+        finally:
+            jparallel.destroy_model_parallel()
+    a, _ = reshard.load_logical(src)
+    b, _ = reshard.load_logical(dst)
+    assert sorted(a) == sorted(b)
+    assert any("[" in key for key in a)          # the groups' leaves
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)

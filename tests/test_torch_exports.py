@@ -38,10 +38,7 @@ QUEUED = {
     "ops": {},
     "serving": {},
     "amp": {},
-    "parallel": {
-        # the ZeRO pair of distributed.py
-        "zero_init": "A.5", "zero_data_parallel_train_step": "A.5",
-    },
+    "parallel": {},
     "transformer": {},
     "transformer.tensor_parallel": {},
     "transformer.context_parallel": {},
@@ -60,8 +57,7 @@ QUEUED = {
     },
     "data": {},
     "contrib": {
-        # contrib/optimizers (ZeRO), and the long tail of contrib
-        "optimizers": "A.5",
+        # the long tail of contrib
         "focal_loss": "A.6", "GroupNorm": "A.6", "group_norm": "A.6",
         "group_norm_nhwc": "A.6", "index_mul_2d": "A.6", "spatial": "A.6",
         "sparsity": "A.6", "transducer": "A.6", "TransducerJoint": "A.6",

@@ -1,7 +1,11 @@
 """The port's restore-anywhere layer: the twins of
-``tests/test_reshard.py`` at one rank (but its ZeRO flat-bucket cases,
-which wait for ZeRO, ROADMAP.md section A.5; those have one case here
-holding that a ZeRO spec or a checkpoint carrying one raises).
+``tests/test_reshard.py`` at one rank.  Its ZeRO cases cross the
+packages: a ZeRO train state the JAX package saved at dp 4 or dp 2
+(flat buckets, whose rows are padded to a multiple of ``world *
+n_buckets``, and per-leaf padded ravels) restores at the port's one rank
+through the manager, with the target spec or with a bare ``mesh=`` spec
+that takes the source's group and axes records, and the re-saved
+checkpoint's ``load_logical`` view equals the source's bit for bit.
 
 ``ShardingSpec`` JSON round trip and validation errors that name the
 field (corruption-class, so ``restore_latest`` falls back past a bad
@@ -34,6 +38,7 @@ from apex_tpu_torch.transformer.testing.gpt_parallel_train import (
     gpt3d_logical_folds,
 )
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_world import world1  # noqa: F401
 
 
 def _rewrite(path, edit):
@@ -125,21 +130,121 @@ def test_spec_validation_names_the_field(doc, names):
         assert frag in str(e.value)
 
 
-def test_zero_state_waits_for_zero(tmp_path):
-    """ZeRO is not ported: ``build_spec(zero_states=...)``,
-    ``gather_zero_state`` / ``scatter_zero_state`` and a checkpoint whose
-    spec carries flat-bucket groups raise, naming section A.5."""
-    with pytest.raises(NotImplementedError, match="A.5"):
-        reshard.build_spec({"w": torch.ones(2)},
-                           zero_states=[("opt", None, None)])
-    for fn in (ckpt.gather_zero_state, ckpt.scatter_zero_state):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            fn(*([None] * (3 if fn is ckpt.gather_zero_state else 4)))
-    path = str(tmp_path / "c.npz")
-    spec = reshard.ShardingSpec(groups={"opt/exp_avg/0": {"chunk": 4}})
-    ckpt.save_checkpoint(path, {"w": torch.ones(2)}, step=0, spec=spec)
-    with pytest.raises(ckpt.CheckpointCorruptError, match="A.5"):
-        reshard.load_logical(path)
+def _port_zero_pack(flat_bucket=True, seed=1):
+    """A small ZeRO train state at this process's one rank: parameters
+    and a ``DistributedFusedAdam`` state (two buckets), its spec with
+    ``zero_states``."""
+    from apex_tpu_torch.amp._tree import tree_leaves
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.parallel import get_mesh, zero_init
+
+    gen = torch.Generator().manual_seed(seed)
+    params = {"w": torch.randn(13, 7, generator=gen),
+              "b": torch.arange(7.0) * 0.25}
+    opt = DistributedFusedAdam(tree_leaves(params), lr=1e-2,
+                               flat_bucket=flat_bucket, n_buckets=2)
+    pack = {"params": params, "opt": zero_init(opt, params)}
+    return pack, reshard.build_spec(pack, mesh=get_mesh(),
+                                    zero_states=[("opt", opt, params)])
+
+
+def _jax_zero_save(root, world, step, flat_bucket=True):
+    """The JAX package's ZeRO train state (``test_reshard.py``'s
+    ``_zero_pack``) at dp ``world``, saved through its manager; the
+    path."""
+    import jax
+    import jax.numpy as jnp
+
+    from apex_tpu import parallel as jparallel
+    from apex_tpu.contrib.optimizers import DistributedFusedAdam as JAdam
+    from apex_tpu.parallel.distributed import replicate, zero_init
+    from apex_tpu.resilience import CheckpointManager as JManager
+    from apex_tpu.resilience import reshard as jreshard
+
+    opt = JAdam(lr=1e-2, flat_bucket=flat_bucket, n_buckets=2)
+    try:
+        mesh = jparallel.initialize_model_parallel(
+            devices=jax.devices()[:world])
+        params = replicate({"w": jax.random.normal(jax.random.PRNGKey(0),
+                                                   (13, 7)),
+                            "b": jnp.arange(7.0) * 0.25}, mesh)
+        # moments that are not zero, so the bucket layout shows
+        state = zero_init(opt, params, mesh)
+        state = state._replace(slots={
+            k: jax.tree_util.tree_map(lambda x, i=i: x + 0.5 + i, v)
+            for i, (k, v) in enumerate(sorted(state.slots.items()))})
+        pack = {"params": params, "opt": state}
+        spec = jreshard.build_spec(pack, mesh=mesh,
+                                   zero_states=[("opt", opt, params)])
+        return JManager(root, sharded=True, spec=spec).save(pack, step)
+    finally:
+        jparallel.destroy_model_parallel()
+
+
+def test_zero_spec_names_every_bucket_and_round_trips(world1):
+    """Every bucket leaf of the flat-bucket state carries its group, its
+    bucket and the dp axis on its rows; the groups hold the leaves'
+    shapes; the JSON round trip is exact; a per-leaf state carries
+    ``ravel_of``."""
+    _, spec = _port_zero_pack()
+    doc = json.loads(json.dumps(spec.to_json()))
+    assert reshard.ShardingSpec.from_json(doc).to_json() == spec.to_json()
+    grouped = {p: rec for p, rec in spec.leaves.items() if "group" in rec}
+    assert len(grouped) == 3 * 2      # (exp_avg, exp_avg_sq, master) x K
+    for p, rec in grouped.items():
+        assert p.startswith("opt/.") and rec["axes"] == [["dp"], None]
+    assert spec.groups["opt/master/0"] == {
+        "paths": ["opt/.master/0/0", "opt/.master/0/1"], "chunk": 256,
+        "n_buckets": 2, "shapes": [[7], [13, 7]]}
+    _, leafy = _port_zero_pack(flat_bucket=False)
+    assert leafy.leaves["opt/.slots/exp_avg/w"] == {"axes": [["dp"]],
+                                                    "ravel_of": [13, 7]}
+    assert not leafy.groups
+
+
+@pytest.mark.parametrize("src_world, flat_bucket",
+                         [(4, True), (2, True), (4, False)])
+def test_zero_reshard_from_the_reference_bit_exact(world1, tmp_path,
+                                                   src_world, flat_bucket):
+    """The JAX package's ZeRO state saved at dp ``src_world`` restores at
+    one rank through ``restore_latest`` (the buffers are shaped for the
+    new world), and re-saved, its logical view is the source's bit for
+    bit."""
+    src = _jax_zero_save(str(tmp_path / "src"), src_world, 3, flat_bucket)
+    like, spec = _port_zero_pack(flat_bucket)
+    restored, at = CheckpointManager(
+        str(tmp_path / "src"), sharded=True, spec=spec).restore_latest(like)
+    assert at == 3
+    for (path, a), (_, b) in zip(ckpt._leaves_with_path(restored),
+                                 ckpt._leaves_with_path(like)):
+        assert a.shape == b.shape, path
+    dst = CheckpointManager(str(tmp_path / "dst"), sharded=True,
+                            spec=spec).save(restored, 3)
+    a, _ = reshard.load_logical(src)
+    b, _ = reshard.load_logical(dst)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_bare_spec_mesh_kwarg_reshards_zero_state(world1, tmp_path):
+    """``restore_latest(like, mesh=...)`` with no spec of its own: the
+    bare target spec takes the source's group records and axes (names,
+    not sizes), so the flat buckets still reshard."""
+    from apex_tpu_torch.parallel import get_mesh
+
+    root = str(tmp_path / "m")
+    src = _jax_zero_save(root, 4, 0)
+    like, spec = _port_zero_pack()
+    restored, at = CheckpointManager(root, sharded=True).restore_latest(
+        like, mesh=get_mesh())
+    assert at == 0
+    dst = CheckpointManager(str(tmp_path / "m2"), sharded=True,
+                            spec=spec).save(restored, 0)
+    a, _ = reshard.load_logical(src)
+    b, _ = reshard.load_logical(dst)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 def test_manager_embeds_spec_in_manifest(tmp_path):

@@ -1,7 +1,7 @@
 """The port's crash-safe checkpointing, driven by its fault injection:
-the twins of ``tests/test_resilience.py`` (but its ZeRO case, which
-waits for ZeRO, ROADMAP.md section A.5), at one rank, torch tensors
-where the reference has JAX arrays.
+the twins of ``tests/test_resilience.py`` at one rank, torch tensors
+where the reference has JAX arrays (its ZeRO case on a one-rank gloo
+group).
 
 Checksummed atomic writes, ``verify_checkpoint`` catching bit flips and
 torn files, ``CheckpointManager`` retention, retry with backoff and
@@ -26,6 +26,7 @@ from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.resilience import CheckpointManager, PreemptionGuard
 from apex_tpu_torch.testing import faults
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_world import world1  # noqa: F401
 
 
 def _leaves_equal(a, b):
@@ -184,6 +185,48 @@ def test_restore_latest_no_intact_checkpoint_raises(tmp_path):
     faults.corrupt_checkpoint(mgr._path(0))
     with pytest.raises(FileNotFoundError, match="no intact"):
         mgr.restore_latest({"w": torch.zeros(2)})
+
+
+def test_zero_sharded_optimizer_state_rides_manager(world1, tmp_path):
+    """A flat-bucket ZeRO optimizer's state checkpoints and falls back
+    through the manager like any tree, and stepping the restored state
+    reproduces the step after it bit for bit."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(13, 7, generator=gen).requires_grad_()}
+    opt = DistributedFusedAdam(tree_leaves(params), lr=1e-2, n_buckets=2)
+    grad = torch.full((13, 7), 1e-3)
+
+    def step():
+        params["w"].grad = grad.clone()
+        opt.step()
+
+    def state():
+        return {"p": params, "s": opt.opt_state(params)}
+
+    def snapshot():
+        return [x.detach().clone() for x in tree_leaves(state())]
+
+    mgr = CheckpointManager(str(tmp_path / "m"), keep=2, sharded=True)
+    step()
+    state1 = snapshot()
+    mgr.save(state(), 0)
+    step()
+    state2 = snapshot()
+    mgr.save(state(), 1)
+
+    faults.corrupt_checkpoint(mgr._path(1))
+    restored, at = mgr.restore_latest(state())
+    assert at == 0
+    for a, b in zip(tree_leaves(restored), state1):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        params["w"].copy_(restored["p"]["w"])
+    opt.load_opt_state(params, restored["s"], step_on_device=False)
+    step()
+    for a, b in zip(tree_leaves(state()), state2):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

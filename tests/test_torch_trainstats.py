@@ -10,6 +10,12 @@ same flattened records.  ``device_partial_norms`` is held by its
 contract: the rows of every rank of a simulated dp 2 x tp 2 grid sum to
 the global sums of squares.
 
+The ZeRO step (``zero_data_parallel_train_step(collect_stats=True)``, the
+reference's ``test_observability.py`` setup) on the same four ranks at
+dp 4: the bare step's collectives and bits, with and without the
+sentinel, and its stats against the JAX package's on a dp 4 mesh; on a
+NaN batch the stats count the poisoned leaves and the skip.
+
 The 3D step: JAX's ``build_gpt_3d`` with ``collect_stats=True`` on an
 eight-device dp mesh (two layers, hidden 32; its jitted plain and
 sentinel steps), against the port's at one rank on the same global
@@ -287,7 +293,55 @@ def _jax_steps():
             out[name] = rows
     finally:
         jparallel.destroy_model_parallel()
+    out["zero"] = _jax_zero_stats()
     return out
+
+
+def _jax_zero_stats():
+    """The reference's ZeRO stats setup (``test_observability.py``'s
+    ``_zero_setup``) on a dp 4 mesh: each instrumented step's stats (the
+    plain step with two microbatches, the sentinel step, the sentinel
+    step on a NaN batch) and the last one's parameters."""
+    from apex_tpu.contrib.optimizers import DistributedFusedAdam as JZero
+    from apex_tpu.parallel.distributed import (
+        dp_shard_batch,
+        replicate,
+        zero_data_parallel_train_step,
+        zero_init,
+    )
+
+    mesh = jparallel.initialize_model_parallel(devices=jax.devices()[:4])
+    try:
+        params = replicate({"w": jnp.ones((16, 8)), "b": jnp.zeros((8,))},
+                           mesh)
+
+        def loss_fn(p, batch):
+            x, y = batch
+            return jnp.mean((x @ p["w"] + p["b"] - y) ** 2)
+
+        opt = JZero(lr=1e-3, flat_bucket=True)
+        state = zero_init(opt, params, mesh)
+        x = jnp.arange(16 * 16, dtype=jnp.float32).reshape(16, 16) / 100.0
+        batch = dp_shard_batch((x, jnp.ones((16, 8))), mesh)
+        scaler = JaxScale()
+        sent = j_sentinel_init(scaler)
+        plain = zero_data_parallel_train_step(
+            loss_fn, opt, mesh=mesh, donate=False, microbatches=2,
+            collect_stats=True)
+        guarded = zero_data_parallel_train_step(
+            loss_fn, opt, mesh=mesh, donate=False, scaler=scaler,
+            collect_stats=True)
+        nan_batch = jax.tree_util.tree_map(lambda t: jnp.full_like(t, jnp.nan),
+                                           batch)
+        out = {"plain": jax.device_get(plain(params, state, batch)[-1]),
+               "scaler": jax.device_get(guarded(params, state, batch,
+                                                sent)[-1])}
+        p, _, _, _, stats = guarded(params, state, nan_batch, sent)
+        out["poisoned"] = jax.device_get(stats)
+        out["poisoned_params"] = jax.tree_util.tree_map(np.asarray, p)
+        return out
+    finally:
+        jparallel.destroy_model_parallel()
 
 
 def _port_run(params, name, collect=True, steps=2):
@@ -425,3 +479,53 @@ def test_gathered_gloo_stats_are_the_one_rank_step(gloo_runs):
                                        rtol=1e-5)
         np.testing.assert_allclose(fetched["grad_norm"], want.grad_norm,
                                    rtol=1e-4)
+
+
+# --------------------------------------------------------- the ZeRO step
+
+
+@pytest.mark.parametrize("name", ["plain", "scaler", "poisoned"])
+def test_zero_stats_ride_the_loss_reduction(gloo_runs, name):
+    """The ZeRO step with ``collect_stats`` on four gloo ranks (dp 4) makes
+    the bare step's collectives (the ZeRO exchange live) and leaves its
+    parameters, shards, sentinel and loss bit for bit; with and without
+    the scaler, and on a NaN batch."""
+    results, _ = gloo_runs
+    for r in results:
+        res = r["zero"][name]
+        assert res["same"]
+        bare, instr = res["calls"]
+        assert bare == instr, (bare, instr)
+        assert bare["reduce_scatter"] > 0 and bare["all_gather"] > 0
+
+
+@pytest.mark.parametrize("name", ["plain", "scaler"])
+def test_zero_stats_match_jax(gloo_runs, jax_steps, name):
+    results, _ = gloo_runs
+    got = results[0]["zero"][name]["stats"]
+    want = jax_steps["zero"][name]
+    for field in ("loss", "grad_norm", "param_norm"):
+        np.testing.assert_allclose(got[field], float(getattr(want, field)),
+                                   rtol=1e-5, err_msg=field)
+    for field in ("nonfinite_leaves", "loss_scale", "skipped_steps"):
+        assert got[field] == float(getattr(want, field)) == (
+            2.0 ** 16 if field == "loss_scale" and name == "scaler"
+            else 1.0 if field == "loss_scale" else 0), field
+    assert all(r["zero"][name]["stats"] == got for r in results)
+
+
+def test_zero_stats_see_poisoned_grads(gloo_runs, jax_steps):
+    """The sentinel step on a NaN batch: its stats count the non-finite
+    leaves the sentinel acted on (JAX's count), one skipped step, and the
+    parameters keep their bits."""
+    results, _ = gloo_runs
+    want = jax_steps["zero"]["poisoned"]
+    for r in results:
+        res = r["zero"]["poisoned"]
+        assert res["stats"]["nonfinite_leaves"] == int(
+            want.nonfinite_leaves) > 0
+        assert res["stats"]["skipped_steps"] == int(want.skipped_steps) == 1
+        b, w = res["params"]
+        assert b == [0.0] * 8 and w == [1.0] * 128
+    np.testing.assert_array_equal(
+        jax_steps["zero"]["poisoned_params"]["w"], np.ones((16, 8)))

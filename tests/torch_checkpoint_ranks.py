@@ -20,6 +20,7 @@ from apex_tpu_torch import parallel
 from apex_tpu_torch.amp._tree import tree_leaves
 from apex_tpu_torch.amp.scaler import DynamicLossScale
 from apex_tpu_torch.optimizers._common import OptState
+from apex_tpu_torch.parallel.mesh import get_data_parallel_rank
 from apex_tpu_torch.resilience import (
     CheckpointManager,
     build_spec,
@@ -123,6 +124,20 @@ def checkpoint_cases(spec):
     pack2, sspec2 = _pack(cfg, spec, 2, mesh)
     got, step = restore_resharded(d["ref_sharded"], pack2, sspec2)
     out["resharded_other_grid"] = (step, _same(got, pack2))
+
+    # a leaf the source splits over dp and the target's spec gives no
+    # record: placed as the target's spec says, whole on every rank
+    full = torch.arange(24, dtype=torch.float32).reshape(8, 3)
+    dp = get_data_parallel_rank()
+    split = {"w": full[4 * dp:4 * dp + 4].clone()}
+    ckpt.save_checkpoint_sharded(
+        d["port_split"], split, step=2,
+        spec=build_spec(split, mesh=mesh,
+                        specs={"w": PartitionSpec("dp", None)}))
+    whole = {"w": torch.zeros(8, 3)}
+    got, step = restore_resharded(d["port_split"], whole,
+                                  build_spec(whole, mesh=mesh))
+    out["replicated_from_split"] = (step, torch.equal(got["w"], full))
 
     # serving at tp 2 from the port's own training checkpoint
     serve_cfg = TransformerConfig(**spec["model"], hidden_dropout=0.0,

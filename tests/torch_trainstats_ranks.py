@@ -1,9 +1,10 @@
 """Rank-side half of ``test_torch_trainstats.py``: the 3D GPT step with and
-without ``collect_stats`` on a gloo grid.
+without ``collect_stats`` on a gloo grid, then the ZeRO step's.
 
 Runs on every rank of a four-rank group (dp 2 x tp 2 with sequence
-parallelism) started by :func:`apex_tpu_torch.parallel.launch.
-start_multiprocess`; torch and the port only.
+parallelism, then dp 4 for ZeRO) started by
+:func:`apex_tpu_torch.parallel.launch.start_multiprocess`; torch and the
+port only.
 """
 
 import numpy as np
@@ -83,5 +84,72 @@ def stats_cases(cases, tokens, grid):
             "calls": (bare["calls"], instr["calls"]),
             "stats": instr["stats"],
             "loss": float(np.frombuffer(bare["losses"][0], np.float32)[0])}
+    out["zero"] = zero_stats_cases()
     parallel.destroy_model_parallel()
+    return out
+
+
+def _stats_dict(stats):
+    return {f: (None if v is None else v.detach().numpy().tolist())
+            for f, v in stats._asdict().items()}
+
+
+def zero_stats_cases():
+    """The ZeRO step (``DistributedFusedAdam``, one flat bucket) on a dp 4
+    grid, bare and with ``collect_stats`` from the same state, without
+    a scaler (two microbatches) and with the sentinel; then the
+    instrumented sentinel step on a NaN batch.  Per case: whether the
+    parameters, the optimizer state (and the sentinel) and the loss
+    agree bit for bit, both steps' collective counts, and the stats."""
+    from apex_tpu_torch.amp.scaler import DynamicLossScale
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.resilience import sentinel_init
+
+    parallel.initialize_model_parallel()
+    x = torch.arange(16 * 16, dtype=torch.float32).reshape(16, 16) / 100.0
+    batch = parallel.dp_shard_batch((x, torch.ones(16, 8)))
+    nan_batch = tuple(torch.full_like(t, float("nan")) for t in batch)
+    scaler = DynamicLossScale()
+
+    def setup(collect, **kw):
+        params = {"b": torch.zeros(8).requires_grad_(),
+                  "w": torch.ones(16, 8).requires_grad_()}
+        opt = DistributedFusedAdam(tree_leaves(params), lr=1e-3,
+                                   flat_bucket=True)
+        parallel.zero_init(opt, params)
+        step = parallel.zero_data_parallel_train_step(
+            lambda b: torch.mean((b[0] @ params["w"] + params["b"] - b[1])
+                                 ** 2), opt, collect_stats=collect, **kw)
+        return params, opt, step
+
+    def run(collect, data, **kw):
+        params, opt, step = setup(collect, **kw)
+        args = (data,) if "scaler" not in kw else (data,
+                                                   sentinel_init(scaler,
+                                                                 "cpu"))
+        before = dict(cc.CALLS)
+        out = step(*args)
+        calls = {k: cc.CALLS[k] - before[k] for k in cc.CALLS}
+        if not isinstance(out, tuple):
+            out = (out,)
+        stats = out[-1] if collect else None
+        rest = out[:-1] if collect else out
+        return {"params": [p.detach().numpy().tobytes()
+                           for p in tree_leaves(params)],
+                "state": [_bytes(t) for t in tree_leaves(opt.opt_state())],
+                "rest": [_bytes(t) for t in tree_leaves(rest)],
+                "calls": calls,
+                "stats": None if stats is None else _stats_dict(stats)}
+
+    out = {}
+    for name, data, kw in (("plain", batch, dict(microbatches=2)),
+                           ("scaler", batch, dict(scaler=scaler)),
+                           ("poisoned", nan_batch, dict(scaler=scaler))):
+        bare, instr = run(False, data, **kw), run(True, data, **kw)
+        out[name] = {"same": all(bare[k] == instr[k]
+                                 for k in ("params", "state", "rest")),
+                     "calls": (bare["calls"], instr["calls"]),
+                     "stats": instr["stats"],
+                     "params": [np.frombuffer(b, np.float32).tolist()
+                                for b in instr["params"]]}
     return out
